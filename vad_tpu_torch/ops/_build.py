@@ -1,0 +1,102 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+named by a hash of its source and flags under ``vad_tpu_torch/build/``.
+Sources that need a build all compile at once, one ``nvcc`` each.
+
+Nothing here runs at import time: the CPU-only test environment imports
+every module and has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libraries: Dict[str, ctypes.CDLL] = {}
+# per source: {"seconds": wall time of its nvcc, "log": nvcc/ptxas output}
+build_log: Dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda)")
+
+
+def _library_path(name: str) -> Path:
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every named source whose library is missing, all at once."""
+    jobs = []
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc, time.perf_counter()))
+    failures = []
+    for name, out, tmp, proc, start in jobs:
+        log, _ = proc.communicate()
+        build_log[name] = {"seconds": time.perf_counter() - start, "log": log}
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+def load(name: str, functions: Dict[str, list]) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu`` (built on first use), with
+    ``argtypes`` set from ``functions`` and an ``int`` (cudaError_t) result.
+    ``<name>_error_string`` is bound too."""
+    with _lock:
+        lib = _libraries.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_library_path(name)))
+            for fn, argtypes in functions.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libraries[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, status: int) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if status != 0:
+        msg = getattr(lib, f"{name}_error_string")(status).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {status} ({msg})")

@@ -1,0 +1,136 @@
+"""The weight bridge: the JAX package's variables -> the port's modules.
+
+``variables`` is the JAX package's ``{"params", "batch_stats"}`` tree
+with numpy leaves (as a ``.ckpt`` holds it).  Layout rules:
+
+- Conv kernel HWIO -> OIHW;
+- ConvTranspose kernel HWIO -> IOHW with both spatial dims flipped (Flax's
+  ConvTranspose is a fractionally-strided convolution, torch's the conv
+  gradient);
+- BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
+  running_mean/running_var; GroupNorm scale/bias -> weight/bias;
+- the ConvLSTM's fused gate kernel ``[3,3,I+H,4H]`` splits at input
+  channel I into ``w_x`` (-> OIHW) and ``w_h`` (kept HWIO).
+
+Every key the model needs must be there and every leaf of the tree must
+be used; anything else raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
+
+Path = Tuple[str, ...]
+
+
+def _conv(k: np.ndarray) -> np.ndarray:
+    return np.transpose(k, (3, 2, 0, 1))  # HWIO -> OIHW
+
+
+def _conv_transpose(k: np.ndarray) -> np.ndarray:
+    return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))  # flip, HWIO -> IOHW
+
+
+def _norm_entries(prefix: str, scope: str, name: str, kind: str) -> List[tuple]:
+    flax = ("BatchNorm_" if kind == "batch" else "GroupNorm_") + name
+    out = [
+        (f"{prefix}.weight", ("params", scope, flax, "scale"), None),
+        (f"{prefix}.bias", ("params", scope, flax, "bias"), None),
+    ]
+    if kind == "batch":
+        out += [
+            (f"{prefix}.running_mean", ("batch_stats", scope, flax, "mean"), None),
+            (f"{prefix}.running_var", ("batch_stats", scope, flax, "var"), None),
+        ]
+    return out
+
+
+def _entries(model: VideoAutoencoder) -> List[Tuple[str, Path, Callable | None]]:
+    """(state_dict key, path in the Flax tree, layout conversion)."""
+    entries: List[tuple] = []
+    for i in range(len(model.encoder.convs)):
+        entries += [
+            (f"encoder.convs.{i}.weight", ("params", "encoder", f"Conv_{i}", "kernel"), _conv),
+            (f"encoder.convs.{i}.bias", ("params", "encoder", f"Conv_{i}", "bias"), None),
+        ]
+        entries += _norm_entries(f"encoder.norms.{i}", "encoder", str(i), model.norm)
+    for i, layer in enumerate(model.convlstm.layers):
+        n_in = layer.input_dim
+        path = ("params", "convlstm", f"ConvLSTMLayer_{i}")
+        entries += [
+            (f"convlstm.layers.{i}.w_x", path + ("kernel",), lambda k, n=n_in: _conv(k[:, :, :n])),
+            (f"convlstm.layers.{i}.w_h", path + ("kernel",), lambda k, n=n_in: k[:, :, n:]),
+            (f"convlstm.layers.{i}.bias", path + ("bias",), None),
+        ]
+    if model.proj is not None:
+        entries += [
+            ("proj.weight", ("params", "proj", "kernel"), _conv),
+            ("proj.bias", ("params", "proj", "bias"), None),
+        ]
+    for i in range(len(model.decoder.deconvs)):
+        path = ("params", "decoder", f"ConvTranspose_{i}")
+        entries += [
+            (f"decoder.deconvs.{i}.weight", path + ("kernel",), _conv_transpose),
+            (f"decoder.deconvs.{i}.bias", path + ("bias",), None),
+        ]
+    for i in range(len(model.decoder.norms)):
+        entries += _norm_entries(f"decoder.norms.{i}", "decoder", str(i), model.norm)
+    return entries
+
+
+def _leaves(tree: Any, prefix: Path = ()) -> List[Path]:
+    if isinstance(tree, Mapping):
+        out: List[Path] = []
+        for k, v in tree.items():
+            out += _leaves(v, prefix + (str(k),))
+        return out
+    return [prefix]
+
+
+def flax_to_state_dict(model: VideoAutoencoder, variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The model's full ``state_dict`` (f32 CPU tensors) built from a Flax
+    variables tree.  Raises KeyError for a missing key, ValueError for a
+    shape mismatch or an unused leaf."""
+    reference = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+    for key, path, convert in _entries(model):
+        node: Any = variables
+        for i, part in enumerate(path):
+            if not isinstance(node, Mapping) or part not in node:
+                raise KeyError(f"variables lack {'/'.join(path[: i + 1])} (needed for {key})")
+            node = node[part]
+        used.add(path)
+        arr = np.asarray(node, np.float32)
+        if convert is not None:
+            arr = convert(arr)
+        tensor = torch.from_numpy(np.array(arr, np.float32, order="C"))
+        if tuple(tensor.shape) != tuple(reference[key].shape):
+            raise ValueError(
+                f"{'/'.join(path)} gives {key} shape {tuple(tensor.shape)}, "
+                f"the model has {tuple(reference[key].shape)}"
+            )
+        out[key] = tensor
+    unused = [p for p in _leaves(variables) if p not in used]
+    if unused:
+        raise ValueError("variables hold leaves the model does not use: "
+                         + ", ".join("/".join(p) for p in unused))
+    for key, value in reference.items():
+        if key in out:
+            continue
+        if not key.endswith("num_batches_tracked"):  # the one torch-only buffer
+            raise KeyError(f"no Flax variable maps to {key}")
+        out[key] = value.detach().cpu().clone()
+    return out
+
+
+def load_flax_variables(model: VideoAutoencoder, variables: Mapping) -> VideoAutoencoder:
+    """Fill ``model`` in place (its device and dtype kept) from a Flax
+    variables tree; returns the model."""
+    model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
+    return model
