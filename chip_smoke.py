@@ -5,13 +5,21 @@
 
 Builds the port's CUDA kernels from ``vad_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card (f32 with TF32 off, and
-bf16), then drives the serving path — ``MultiStreamScorer`` at the
-default video model's full width (S=16 streams, T=16 frames per chunk,
-256x256, bf16 with f32 cell state, random weights from a seed) — and
-checks that it went through both kernels and agrees with the plain
-versions, then times it (frames/s) and profiles it (device time by
-kernel, device-busy share) with ``fused_input`` on and off.  Each phase
-prints one JSON line; the last line is
+bf16), then drives two paths at the default video model's full width:
+
+- serving: ``MultiStreamScorer`` (S=16 streams, T=16 frames per chunk,
+  256x256, bf16 with f32 cell state, random weights from a seed), checked
+  to go through kernels 1 and 4 and to agree with the plain versions,
+  then timed (frames/s) and profiled (device time by kernel, device-busy
+  share) with ``fused_input`` on and off;
+- training: one ``make_train_step`` step (B=8 windows of T=16 frames,
+  256x256) through kernels 2 and 3, compared in f32 and bf16 with the same
+  step on the plain versions (loss, every gradient, BatchNorm statistics);
+  then ``fit`` for 2 epochs over in-memory orbit windows, its best
+  checkpoint scored by ``MultiStreamScorer``; then the train step timed
+  (frames/s) and profiled in both precisions.
+
+Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no such line,
 when there is no CUDA device, outside a checkout of the repository, or
 when any check fails.
@@ -19,17 +27,34 @@ when any check fails.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import io
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
+from pathlib import Path
 
 S, T, IMAGE = 16, 16, 256  # streams, frames per chunk, frame size
 CHUNKS = 3  # chunks driven through the main path
+B_TRAIN = 8  # training windows per step (T frames each)
 SEED = 0
 F32_BAR = dict(rtol=1e-4, atol=1e-5)  # the repo's f32 parity bar
 BF16_BAR = dict(rtol=0.05, atol=0.02)  # bf16 policy with f32 cell state
+# A full-width f32 train step's gradients, kernels vs plain versions: each
+# is a sum over B*T*H*W terms taken in another order (read <= 8.1e-4 rel
+# L2 on the H100), so rel L2 <= 2e-3 and allclose with the atol a fraction
+# of the tensor's largest entry.
+TRAIN_F32_BAR = dict(rtol=2e-3, atol=2e-3)
+# bf16 gradients whose plain step lies at least this far (rel L2) from the
+# plain f32 step are judged against that noise floor (read 0.20-0.28 on
+# the first encoder layers), and kernel vs plain must stay within the
+# second limit there (read <= 0.098).
+BF16_NOISY, BF16_NOISY_VS_PLAIN = 0.1, 0.15
 
 # Dense peaks per card (data sheets): bf16 tensor FLOP/s, memory bytes/s.
 PEAKS = {
@@ -37,6 +62,11 @@ PEAKS = {
     "H100 NVL": (835e12, 3.9e12),
     "H100": (989e12, 3.35e12),  # SXM, also the fallback
 }
+# Device-side names of the port's kernels (csrc/*.cu), for the profiles.
+PORT_KERNELS = ("convlstm_step_kernel", "first_block_kernel", "gate_step_kernel",
+                "dh_step_kernel", "dw_kernel")
+# f32 FLOP/s outside the tensor cores (data sheets), for the f32 kernels.
+F32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
 
 
 def emit(obj) -> None:
@@ -119,15 +149,16 @@ def phase_device():
     card, (flops, bw) = peaks_for(name)
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count(),
-          "peaks_from": card, "peak_bf16_flops": flops, "peak_bytes_per_s": bw})
-    return name, flops, bw
+          "peaks_from": card, "peak_bf16_flops": flops, "peak_f32_flops": F32_PEAKS[card],
+          "peak_bytes_per_s": bw})
+    return name, flops, bw, F32_PEAKS[card]
 
 
 def phase_build():
     from vad_tpu_torch.ops import _build
 
     start = time.perf_counter()
-    _build.build(["convlstm_serving", "first_block"])
+    _build.build(["convlstm_serving", "first_block", "convlstm_backward"])
     ptxas = {
         name: [ln.strip() for ln in rec["log"].splitlines() if "registers" in ln or "spill" in ln]
         for name, rec in _build.build_log.items()
@@ -237,7 +268,7 @@ def phase_first_block(peak_flops: float, peak_bw: float) -> dict:
 
 
 def phase_edge_shapes() -> None:
-    """Both kernels at ragged shapes: partial tiles, frame borders, hidden
+    """The kernels at ragged shapes: partial tiles, frame borders, hidden
     widths that are not multiples of the tile (C=48) or of 8 (C=20, the
     plain-load path)."""
     import torch
@@ -260,6 +291,12 @@ def phase_edge_shapes() -> None:
             cases.append({"kernel": "convlstm_serving", "shape": [b, t, hgt, wid, c],
                           "dtype": str(dtype), "max_abs_err": max(e[0] for e in errs),
                           "ok": all(e[1] for e in errs)})
+    for b, t, hgt, wid, c in ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20)):
+        for dtype, bar in ((torch.float32, F32_BAR), (torch.bfloat16, BF16_BAR)):
+            rec, ok, _ = check_train_kernels(g, (b, t, hgt, wid, c), dtype, bar)
+            cases.append({"kernel": "convlstm_train_forward+convlstm_backward",
+                          "shape": [b, t, hgt, wid, c], "dtype": str(dtype),
+                          "max_abs_err": rec["max_abs_err"], "ok": ok})
     u8 = torch.randint(0, 256, (3, 34, 50, 3), generator=g, device="cuda", dtype=torch.uint8)
     w = torch.randn((32, 3, 3, 3), generator=g, device="cuda") * 0.01
     bias = torch.randn(32, generator=g, device="cuda")
@@ -271,25 +308,32 @@ def phase_edge_shapes() -> None:
     require(all(c["ok"] for c in cases), "kernels at ragged shapes")
 
 
-def agree(got, ref) -> dict:
+def agree(got, ref, bar=BF16_BAR, is_sum: bool = False, atol_of_max: bool = False) -> dict:
     """Max |got - ref|, its relative L2 size and the reference's scale; ok
-    when allclose at the bf16 bar and the relative L2 error is within its
-    rtol (so a near-zero or rescaled result cannot hide under the atol)."""
+    when allclose at ``bar`` (the bf16 bar unless given) and the relative
+    L2 error is within its rtol (so a near-zero or rescaled result cannot
+    hide under the atol).  ``is_sum``: ``got`` is a long sum (dWh sums
+    B*T*H*W products), whose rounding grows with its terms and not with
+    its value, so the atol scales with max |ref| where that exceeds 1.
+    ``atol_of_max``: the atol is that fraction of max |ref| (for gradients,
+    whose scale is far below 1)."""
     import torch
 
     got, ref = torch.as_tensor(got).float(), torch.as_tensor(ref).float()
     diff = got - ref
     rel_l2 = float(diff.norm() / ref.norm().clamp_min(1e-30))
-    ok = bool(torch.allclose(got, ref, **BF16_BAR)) and rel_l2 <= BF16_BAR["rtol"]
+    scale = float(ref.abs().max())
+    atol = bar["atol"] * (scale if atol_of_max else max(1.0, scale) if is_sum else 1.0)
+    ok = bool(torch.allclose(got, ref, rtol=bar["rtol"], atol=atol)) and rel_l2 <= bar["rtol"]
     return {"max_abs_err": float(diff.abs().max()), "rel_l2": rel_l2,
             "max_abs_ref": float(ref.abs().max()), "ok": ok}
 
 
-def device_profile(sc, chunks, n: int = 3) -> dict:
-    """torch.profiler over ``n`` chunks: device time summed by kernel name
-    (device-side events only: the host-side aten ops carry their kernels'
-    time too and would count it twice) and the device-busy share of the
-    window's wall time."""
+def device_profile(run, n: int = 3, unit: str = "chunk") -> dict:
+    """torch.profiler over ``run(i)`` for i < ``n`` (one chunk or one train
+    step each): device time summed by kernel name (device-side events
+    only: the host-side aten ops carry their kernels' time too and would
+    count it twice) and the device-busy share of the window's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -297,17 +341,25 @@ def device_profile(sc, chunks, n: int = 3) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         for i in range(n):
-            sc.score_chunk(chunks[i % len(chunks)])
+            run(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     device_us = sum(r[1] for r in rows)
-    return {"chunks": n, "device_ms_per_chunk": device_us / n / 1e3,
-            "wall_ms_per_chunk": wall / n * 1e3, "device_busy_share": device_us / 1e6 / wall,
-            "kernels": [{"name": k[:100], "ms_per_chunk": us / n / 1e3, "calls_per_chunk": c / n}
-                        for k, us, c in rows[:14]]}
+    port = {}  # the port's own kernels, whatever their rank
+    for key, us, count in rows:
+        for kname in PORT_KERNELS:
+            if kname in key:
+                ms, calls = port.get(kname, (0.0, 0))
+                port[kname] = (ms + us / n / 1e3, calls + count / n)
+    return {f"{unit}s": n, f"device_ms_per_{unit}": device_us / n / 1e3,
+            f"wall_ms_per_{unit}": wall / n * 1e3, "device_busy_share": device_us / 1e6 / wall,
+            "kernels": [{"name": k[:100], f"ms_per_{unit}": us / n / 1e3,
+                         f"calls_per_{unit}": c / n} for k, us, c in rows[:14]],
+            "port_kernels": {k: {f"ms_per_{unit}": ms, f"calls_per_{unit}": calls}
+                             for k, (ms, calls) in port.items()}}
 
 
 def phase_main_path() -> dict:
@@ -391,11 +443,403 @@ def phase_main_path() -> dict:
         for i in range(n):
             sc.score_chunk(chunks[i % CHUNKS])  # returns host scores: synchronizes
         fps[label] = n * S * T / (time.perf_counter() - start)
-        prof[label] = device_profile(sc, chunks)
+        prof[label] = device_profile(lambda i: sc.score_chunk(chunks[i % CHUNKS]))
     emit({"phase": "main_path", "streams": S, "chunk": T, "image": IMAGE, "dtype": "bfloat16",
           "chunks": CHUNKS, "launches": launches, "score_mean": float(scores.mean()),
           "frames_per_s": fps, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     emit({"phase": "profile", **prof})
+    return launches
+
+
+# ------------------------------------------------------------- training
+
+
+def train_kernel_counters() -> dict:
+    from vad_tpu_torch.ops import convlstm, encoder_fused
+
+    return {"convlstm_serving": convlstm.convlstm_recurrence,
+            "first_block": encoder_fused.fused_first_block,
+            "convlstm_train_forward": convlstm.convlstm_train_forward,
+            "convlstm_backward": convlstm.convlstm_backward}
+
+
+def zero_counters() -> None:
+    for fn in train_kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: fn.launches for name, fn in train_kernel_counters().items()}
+
+
+def check_train_kernels(g, shape, dtype, bar):
+    """Kernel 2 against ``convlstm_forward_ref`` (h_seq, c_seq, finals) and
+    kernel 3 against ``convlstm_backward_ref`` and against torch autograd
+    of ``convlstm_recurrence_ref`` (random dh_seq, dhf, dcf), at ``shape``
+    (B, T, H, W, C).  Returns (record, ok, the kernels' inputs)."""
+    import torch
+
+    from vad_tpu_torch.ops.convlstm import (
+        convlstm_backward, convlstm_backward_ref, convlstm_forward_ref,
+        convlstm_recurrence_ref, convlstm_train_forward,
+    )
+
+    b, t, hgt, wid, c = shape
+    rnd = lambda *dims, scale=1.0: torch.randn(dims, generator=g, device="cuda") * scale  # noqa
+    gx = rnd(b, t, hgt, wid, 4 * c, scale=0.5).to(dtype)
+    wh = rnd(3, 3, c, 4 * c, scale=0.05).to(dtype)
+    h0, c0 = rnd(b, hgt, wid, c, scale=0.1), rnd(b, hgt, wid, c, scale=0.1)
+    dhs, dhf, dcf = rnd(b, t, hgt, wid, c).to(dtype), rnd(b, hgt, wid, c), rnd(b, hgt, wid, c)
+    with no_tf32():
+        hs, cs, (hf, cf) = convlstm_train_forward(gx, wh, h0, c0)
+        rhs, rcs, (rhf, rcf) = convlstm_forward_ref(gx, wh, h0, c0, with_cell_seq=True)
+        bwd_args = (gx, wh, h0, c0, rhs, rcs, dhs, dhf, dcf)
+        got = convlstm_backward(*bwd_args)
+        ref = convlstm_backward_ref(*bwd_args)
+        leaves = [x.detach().requires_grad_() for x in (gx, wh, h0, c0)]
+        ahs, (ahf, acf) = convlstm_recurrence_ref(*leaves)
+        auto = torch.autograd.grad([ahs, ahf, acf], leaves, [dhs, dhf, dcf])
+        torch.cuda.synchronize()
+    require(cs.dtype == hs.dtype == dtype and hf.dtype == cf.dtype == torch.float32,
+            "kernel 2 output dtypes")
+    require([x.dtype for x in got] == [dtype, dtype, torch.float32, torch.float32],
+            "kernel 3 output dtypes")
+    fwd = {name: close(a, r, bar) for name, a, r in (
+        ("h_seq", hs, rhs), ("c_seq", cs, rcs), ("h_T", hf, rhf), ("c_T", cf, rcf))}
+    names = ("dgates_x", "dw_h", "dh0", "dc0")
+    bwd = {name: agree(a, r, bar, is_sum=name == "dw_h") for name, a, r in zip(names, got, ref)}
+    vs_auto = {name: agree(a, r, bar, is_sum=name == "dw_h")
+               for name, a, r in zip(names, got, auto)}
+    ok = (all(e[1] for e in fwd.values()) and all(r["ok"] for r in bwd.values())
+          and all(r["ok"] for r in vs_auto.values()))
+    rec = {"forward_vs_plain": {k: {"max_abs_err": e[0], "ok": e[1]} for k, e in fwd.items()},
+           "backward_vs_plain": bwd, "backward_vs_autograd": vs_auto,
+           "forward_max_abs_err": max(e[0] for e in fwd.values()),
+           "backward_max_abs_err": max(r["max_abs_err"] for r in bwd.values())}
+    rec["max_abs_err"] = max(rec["forward_max_abs_err"], rec["backward_max_abs_err"])
+    return rec, ok, (gx, wh, h0, c0, rhs, rcs, dhs, dhf, dcf)
+
+
+def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> dict:
+    """Kernels 2 and 3 at the training shape (B=8, T=16, 16x16,
+    C=128), f32 (TF32 off) and bf16: checked, timed, bounded."""
+    import torch
+
+    from vad_tpu_torch.ops.convlstm import (
+        convlstm_backward, convlstm_backward_ref, convlstm_forward_ref, convlstm_train_forward,
+    )
+
+    lat, c = IMAGE // 16, 128
+    shape = (B_TRAIN, T, lat, lat, c)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    out = {}
+    for label, dtype, bar, flops_peak in (("f32", torch.float32, F32_BAR, f32_flops),
+                                          ("bf16", torch.bfloat16, BF16_BAR, peak_flops)):
+        rec, ok, args = check_train_kernels(g, shape, dtype, bar)
+        gx, wh, h0, c0 = args[:4]
+        e = gx.element_size()
+        seq = B_TRAIN * T * lat * lat * c  # elements of one [B,T,H,W,C] tensor
+        state = B_TRAIN * lat * lat * c * 4  # bytes of one f32 [B,H,W,C] tensor
+        w_bytes = 9 * c * 4 * c * e
+        gemm = 2 * seq * 9 * c * 4  # one implicit GEMM of the recurrence, FLOP
+        costs = {
+            # gates_x in, h_seq and c_seq out, h0 c0 in, finals out, Wh in
+            "convlstm_train_forward": (gemm, seq * 4 * e + 2 * seq * e + 4 * state + w_bytes,
+                                       lambda: convlstm_train_forward(gx, wh, h0, c0),
+                                       lambda: convlstm_forward_ref(gx, wh, h0, c0, True)),
+            # gates_x, h_seq, c_seq, dh_seq, Wh, h0, c0, dhf, dcf in;
+            # dgates_x, dWh, dh0, dc0 out
+            "convlstm_backward": (3 * gemm, 2 * seq * 4 * e + 3 * seq * e + 2 * w_bytes
+                                  + 6 * state,
+                                  lambda: convlstm_backward(*args),
+                                  lambda: convlstm_backward_ref(*args)),
+        }
+        for kname, (flops, nbytes, kernel, plain) in costs.items():
+            counted = train_kernel_counters()[kname]
+            counted.launches = 0
+            kernel()
+            per_call = counted.launches
+            with no_tf32():
+                ms, plain_ms = time_ms(kernel, iters=10), time_ms(plain, iters=3, warmup=1)
+            t_ops, t_bytes = flops / flops_peak, nbytes / peak_bw
+            own = "forward" if kname == "convlstm_train_forward" else "backward"
+            krec = {"phase": "kernel_check", "kernel": kname, "dtype": label,
+                    "shape": list(shape), "bar": bar, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+                    "launches_per_call": per_call, "bound_ms": max(t_ops, t_bytes) * 1e3,
+                    "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                    "flops": flops, "bytes": nbytes, **rec,
+                    "max_abs_err": rec[f"{own}_max_abs_err"]}
+            emit(krec)
+            if label == "bf16":
+                out[kname] = krec
+        require(ok, f"kernels 2 and 3 {label} vs plain versions and autograd within {bar}")
+    return out
+
+
+def pre_batch_norm_biases(model) -> list:
+    """Conv biases that feed a train-mode BatchNorm: the norm subtracts the
+    batch mean, so their exact gradient is zero and a computed one is
+    rounding noise."""
+    if model.norm != "batch":
+        return []
+    return ([f"encoder.convs.{i}.bias" for i in range(len(model.encoder.convs))]
+            + [f"decoder.deconvs.{i}.bias" for i in range(len(model.decoder.norms))])
+
+
+def phase_train_step_compare() -> None:
+    """One full-width ``make_train_step`` step (B=8, T=16, 256x256, the
+    default model from ``init_weights(seed)``) through kernels 2 and 3,
+    against the same step from the same weights on the plain versions:
+    the loss, every parameter's gradient and the BatchNorm running
+    statistics after the step, in f32 (TF32 off) and bf16, with ``agree``:
+    in f32 the loss and statistics at ``F32_BAR`` and the gradients at
+    ``TRAIN_F32_BAR``; in bf16 all at ``BF16_BAR``.
+
+    Two cases the bar cannot judge by relative error: a gradient that is
+    zero by construction (``pre_batch_norm_biases``) is held to the
+    allclose part only (``F32_BAR`` in f32); and in bf16 the plain step
+    itself lands up to ~30% (relative L2) from the f32 step on the first
+    encoder layers, so a bf16 gradient whose plain step is at least
+    ``BF16_NOISY`` from the f32 step passes when it is no further from the
+    plain f32 step than the plain bf16 step is (x1.25 + 0.005) and within
+    ``BF16_NOISY_VS_PLAIN`` of the plain bf16 step."""
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+    from vad_tpu_torch.ops.losses import mse_per_sample
+    from vad_tpu_torch.train.state import make_optimizer
+    from vad_tpu_torch.train.steps import make_train_step
+
+    cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
+    base = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED)
+    zero_by_construction = set(pre_batch_norm_biases(base))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    batch = torch.randint(0, 256, (B_TRAIN, T, IMAGE, IMAGE, 3), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    runs = {}
+    for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        step = make_train_step(mse_per_sample, dtype)
+        for which in ("kernels", "plain"):
+            model = copy.deepcopy(base).to("cuda")
+            optimizer = make_optimizer(model.parameters(), 1e-4)
+            zero_counters()
+            with no_tf32(), (plain_versions() if which == "plain" else contextlib.nullcontext()):
+                loss = step(model, optimizer, batch, B_TRAIN)
+                torch.cuda.synchronize()
+            runs[label, which] = {
+                "loss": loss, "launches": read_counters(),
+                "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                "stats": {n: b.clone() for n, b in model.named_buffers() if ".running_" in n},
+            }
+    exact = runs["f32", "plain"]["grads"]
+    results = {}
+    bars = {"f32": (F32_BAR, TRAIN_F32_BAR), "bf16": (BF16_BAR, BF16_BAR)}
+    for label in ("f32", "bf16"):
+        k, pl = runs[label, "kernels"], runs[label, "plain"]
+        bar, grad_bar = bars[label]
+        cmp = {"loss": agree(k["loss"], pl["loss"], bar)}
+        cmp.update({f"stat:{n}": agree(st, pl["stats"][n], bar)
+                    for n, st in k["stats"].items()})
+        for n, gr in k["grads"].items():
+            rec = agree(gr, pl["grads"][n], grad_bar, atol_of_max=label == "f32")
+            if n in zero_by_construction:
+                rec["ok"] = bool(torch.allclose(gr.float(), pl["grads"][n].float(), **bar))
+                rec["judged_by"] = "allclose only: zero by construction"
+            elif label == "bf16" and not rec["ok"]:
+                err_k = agree(gr, exact[n])["rel_l2"]
+                err_p = agree(pl["grads"][n], exact[n])["rel_l2"]
+                if err_p >= BF16_NOISY:
+                    rec.update(ok=err_k <= 1.25 * err_p + 0.005
+                               and rec["rel_l2"] <= BF16_NOISY_VS_PLAIN,
+                               rel_l2_vs_f32=err_k, plain_rel_l2_vs_f32=err_p,
+                               judged_by="bf16 noise floor")
+            cmp[f"grad:{n}"] = rec
+        zero_grads = [n for n, gr in k["grads"].items() if not bool(gr.abs().max() > 0)]
+        judged = {n: r for n, r in cmp.items() if "judged_by" not in r}
+        worst = max(judged.items(), key=lambda kv: kv[1]["rel_l2"])
+        results[label] = {
+            "loss": float(k["loss"]), "plain_loss": float(pl["loss"]),
+            "launches": k["launches"], "plain_launches": pl["launches"],
+            "compared": len(cmp), "failed": {n: r for n, r in cmp.items() if not r["ok"]},
+            "worst_by_bar": {"name": worst[0], **worst[1]},
+            "worst_abs_err_of_max": max(r["max_abs_err"] / max(r["max_abs_ref"], 1e-30)
+                                        for n, r in judged.items() if n.startswith("grad:")),
+            "noise_floor": {n: r for n, r in cmp.items()
+                            if r.get("judged_by") == "bf16 noise floor"},
+            "zero_by_construction_max_abs": max(float(k["grads"][n].abs().max())
+                                                for n in zero_by_construction),
+            "zero_grads": zero_grads,
+        }
+        require(k["launches"]["convlstm_train_forward"] > 0
+                and k["launches"]["convlstm_backward"] > 0,
+                f"{label} train step went through kernels 2 and 3: {k['launches']}")
+        require(pl["launches"]["convlstm_train_forward"] == 0
+                and pl["launches"]["convlstm_backward"] == 0,
+                f"{label} plain step launched no recurrence kernel: {pl['launches']}")
+        require(not zero_grads, f"{label}: every parameter got a non-zero gradient")
+    emit({"phase": "train_step_compare", "batch": [B_TRAIN, T, IMAGE, IMAGE, 3],
+          "bars": {"f32": bars["f32"], "bf16": bars["bf16"][0],
+                   "bf16_noise_floor_from": BF16_NOISY,
+                   "bf16_noisy_vs_plain": BF16_NOISY_VS_PLAIN}, **results})
+    require(all(not r["failed"] for r in results.values()),
+            f"train step through the kernels vs the plain versions within {bars}")
+
+
+def _gradient_bg(size: int):
+    import numpy as np
+
+    rows = np.arange(size, dtype=np.int32)
+    base = np.stack([50 + rows // 4, 50 + rows // 4, 60 + rows // 4], axis=-1)
+    return np.broadcast_to(base[:, None, :], (size, size, 3)).astype(np.uint8)
+
+
+def _disk_mask(size: int, cx: float, cy: float, radius: float):
+    import numpy as np
+
+    yy, xx = np.mgrid[0:size, 0:size]
+    return (xx - cx) ** 2 + (yy - cy) ** 2 <= radius**2
+
+
+def _ring_mask(size: int, cx: float, cy: float, radius: float, width: float):
+    import numpy as np
+
+    yy, xx = np.mgrid[0:size, 0:size]
+    d2 = (xx - cx) ** 2 + (yy - cy) ** 2
+    return (d2 <= (radius + width / 2) ** 2) & (d2 >= (radius - width / 2) ** 2)
+
+
+def orbit_frame(t: int, size: int, phase: float, speed: float, anomaly: bool, rng):
+    """One synthetic frame (a copy of the JAX package's ``_video_frame``,
+    ``vad_tpu/data/synthetic.py``): a disk orbiting the centre on a
+    gradient; with ``anomaly``, a dark intruder moving against it."""
+    img = _gradient_bg(size).copy()
+    center, orbit_r = size / 2, size * 0.27
+    ang = phase + speed * t
+    cx, cy = center + orbit_r * math.cos(ang), center + orbit_r * math.sin(ang)
+    r = size * 0.11
+    img[_disk_mask(size, cx, cy, r)] = (200, 200, 210)
+    img[_ring_mask(size, cx, cy, r, max(size // 96, 2))] = (150, 150, 160)
+    if anomaly:
+        ir = size * 0.09 + rng.normal() * size * 0.01
+        img[_disk_mask(size, size - cx, size - cy, max(ir, 2))] = (25, 25, 30)
+    return img
+
+
+class WindowSet:
+    """In-memory windows with the IPAD dataset's sample dicts (uint8
+    frames): the machine with the card has no PIL to read PNG frames."""
+
+    def __init__(self, labels, seed: int):
+        import numpy as np
+
+        self.labels = np.asarray(labels, np.int64)
+        self.frames = np.empty((len(labels), T, IMAGE, IMAGE, 3), np.uint8)
+        for w, label in enumerate(self.labels):
+            rng = np.random.default_rng(seed + w)
+            phase, speed = rng.uniform(0, 2 * math.pi), rng.uniform(0.12, 0.2)
+            for t in range(T):
+                self.frames[w, t] = orbit_frame(t, IMAGE, phase, speed, bool(label), rng)
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+    def __getitem__(self, i: int) -> dict:
+        import numpy as np
+
+        return {"frames": self.frames[i], "label": self.labels[i],
+                "start_frame": np.int64(0), "video": f"{i:02d}",
+                "frame_labels": np.full(T, self.labels[i], np.int64)}
+
+
+def phase_train() -> dict:
+    """``fit`` for 2 epochs at B=8, T=16, 256x256, bf16 over 32 normal
+    training windows and 16 test windows (half with the intruder); its
+    best checkpoint loaded back into a ``MultiStreamScorer``; then one
+    train step timed (frames/s) and profiled in bf16 and in f32."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.eval.serving import MultiStreamScorer
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_training_weights
+    from vad_tpu_torch.ops.losses import mse_per_sample
+    from vad_tpu_torch.train.state import make_optimizer
+    from vad_tpu_torch.train.steps import make_train_step
+    from vad_tpu_torch.train.video_trainer import fit
+    from vad_tpu_torch.train_video import build_parser
+    from vad_tpu_torch.utils.checkpoint import load_checkpoint
+
+    train_ds = WindowSet([0] * 32, SEED + 100)
+    test_ds = WindowSet([0, 1] * 8, SEED + 200)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = build_parser().parse_args([
+            "--category", "orbit", "--epochs", "2", "--batch-size", str(B_TRAIN),
+            "--sequence-length", str(T), "--image-size", str(IMAGE), "--precision", "bf16",
+            "--results-dir", tmp, "--num-workers", "2", "--seed", str(SEED),
+        ])
+        log = io.StringIO()
+        zero_counters()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            result = fit(args, train_ds, test_ds, "cuda")
+        torch.cuda.synchronize()
+        fit_seconds = time.perf_counter() - start
+        launches = read_counters()
+        history, run_dir = result["history"], Path(result["results_dir"])
+        files = {f: (run_dir / f).exists()
+                 for f in ("best_model.ckpt", "final_model.ckpt", "metrics.jsonl")}
+        ckpt = load_checkpoint(run_dir / "best_model.ckpt")
+        model = VideoAutoencoder.from_config(VideoAEConfig.from_args(ckpt["args"]), device="cpu")
+        variables = {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]}
+        sc = MultiStreamScorer(model, variables, 2, T, IMAGE, dtype=torch.bfloat16)
+        for slot in range(2):
+            sc.attach(slot)
+        scores = sc.score_chunk(test_ds.frames[:2])
+    losses = history["train_loss"] + history["val_loss"]
+    record = {"phase": "train", "epochs": 2, "batch": [B_TRAIN, T, IMAGE, IMAGE, 3],
+              "dtype": "bfloat16", "fit_seconds": fit_seconds, "launches": launches,
+              "history": history, "files": files, "best_epoch": result["best_epoch"],
+              "scorer_scores_mean": float(np.mean(scores)),
+              "log_tail": log.getvalue().splitlines()[-8:]}
+    emit(record)
+    require(len(history["train_loss"]) == 2 and all(math.isfinite(v) for v in losses),
+            "2 epochs with finite losses")
+    require(all(files.values()), f"checkpoint and metrics files written: {files}")
+    require(launches["convlstm_train_forward"] > 0 and launches["convlstm_backward"] > 0,
+            f"fit trained through kernels 2 and 3: {launches}")
+    require(launches["convlstm_serving"] > 0, f"fit's eval step went through kernel 1: {launches}")
+    require(scores.shape == (2, T) and bool(np.isfinite(scores).all()),
+            "the best checkpoint scores a chunk in MultiStreamScorer")
+
+    # the train step alone, timed and profiled
+    cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    batch = torch.randint(0, 256, (B_TRAIN, T, IMAGE, IMAGE, 3), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    speed = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        model = init_training_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED)
+        model = model.to("cuda")
+        optimizer = make_optimizer(model.parameters(), 1e-4)
+        step = make_train_step(mse_per_sample, dtype)
+        with no_tf32():
+            for _ in range(2):
+                step(model, optimizer, batch, B_TRAIN)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n = 10
+            start = time.perf_counter()
+            for _ in range(n):
+                loss = step(model, optimizer, batch, B_TRAIN)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            prof = device_profile(lambda i: step(model, optimizer, batch, B_TRAIN), unit="step")
+        speed[label] = {"train_frames_per_s": n * B_TRAIN * T / elapsed,
+                        "ms_per_step": elapsed / n * 1e3, "loss": float(loss),
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "profile": prof}
+        require(math.isfinite(float(loss)), f"{label} timed steps give a finite loss")
+    emit({"phase": "train_speed", "batch": [B_TRAIN, T, IMAGE, IMAGE, 3], **speed})
     return launches
 
 
@@ -408,22 +852,30 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port ({exc}); run from the repository root",
               file=sys.stderr)
         return 1
-    name, peak_flops, peak_bw = phase_device()
+    name, peak_flops, peak_bw, f32_flops = phase_device()
     phase_build()
-    k1 = phase_convlstm(peak_flops, peak_bw)
-    k4 = phase_first_block(peak_flops, peak_bw)
+    checks = {"convlstm_serving": phase_convlstm(peak_flops, peak_bw),
+              "first_block": phase_first_block(peak_flops, peak_bw)}
+    checks.update(phase_train_kernels(peak_flops, peak_bw, f32_flops))
     phase_edge_shapes()
     launches = phase_main_path()
+    phase_train_step_compare()
+    train_launches = phase_train()
     kernels = []
-    for rec, kname, source, replaces in (
-        (k1, "convlstm_serving", "vad_tpu_torch/csrc/convlstm_serving.cu",
-         "vad_tpu/ops/convlstm_pallas.py:95"),
-        (k4, "first_block", "vad_tpu_torch/csrc/first_block.cu",
-         "vad_tpu/ops/encoder_pallas.py:169"),
+    for kname, source, replaces, path_launches in (
+        ("convlstm_serving", "vad_tpu_torch/csrc/convlstm_serving.cu",
+         "vad_tpu/ops/convlstm_pallas.py:95", launches),
+        ("first_block", "vad_tpu_torch/csrc/first_block.cu",
+         "vad_tpu/ops/encoder_pallas.py:169", launches),
+        ("convlstm_train_forward", "vad_tpu_torch/csrc/convlstm_serving.cu",
+         "vad_tpu/ops/convlstm_pallas.py:250", train_launches),
+        ("convlstm_backward", "vad_tpu_torch/csrc/convlstm_backward.cu",
+         "vad_tpu/ops/convlstm_pallas.py:398", train_launches),
     ):
+        rec = checks[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "launches": path_launches[kname], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
         })

@@ -107,7 +107,7 @@ def test_jax_checkpoint_drives_the_port(jax_checkpoint):
     path, model, variables = jax_checkpoint
     ck = load_checkpoint(path)
     cfg = VideoAEConfig.from_args(ck["args"])
-    tmodel = VideoAutoencoder.from_config(cfg, device="cpu")
+    tmodel = VideoAutoencoder.from_config(cfg, device="cpu").eval()
     load_flax_variables(tmodel, {"params": ck["params"], "batch_stats": ck["batch_stats"]})
     x = np.random.default_rng(0).uniform(-1, 1, (1, 2, 32, 32, 3)).astype(np.float32)
     states = JaxConvLSTM.zero_state(1, 1, 2, 2, 32)

@@ -61,7 +61,7 @@ def build_pair(latent=32, hidden=32, layers=2, norm="batch", stem="pool", seed=0
     init = jmodel.init(jax.random.key(seed), jnp.zeros((1, 2, SIZE, SIZE, 3)), train=False)
     variables = perturbed(init, np.random.default_rng(seed))
     tmodel = VideoAutoencoder(latent_dim=latent, lstm_hidden_dim=hidden, lstm_layers=layers,
-                              norm=norm, stem=stem, device="cpu")
+                              norm=norm, stem=stem, device="cpu").eval()
     load_flax_variables(tmodel, variables)
     return jmodel, variables, tmodel
 

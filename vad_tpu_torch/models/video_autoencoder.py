@@ -9,10 +9,16 @@ channels-last NCHW, so cuDNN reads them without copies.
 The ConvLSTM's gate convolution over concat([x, h]) is split into
 conv(x, Wx) — one batched cuDNN convolution over all B*T frames, hoisted
 out of the time loop — and the recurrence over conv(h, Wh), which runs
-through ``ops/convlstm.py`` (the CUDA kernel on the card).
+through ``ops/convlstm.py``: on the card kernel 1 when nothing is
+differentiated, kernels 2 and 3 (forward and backward) under autograd.
 
-The module is built in inference mode (BatchNorm uses running stats);
-training is not part of the port yet.
+Modules follow ``train()``/``eval()`` as any ``nn.Module``: a model is
+built in train mode, and BatchNorm then uses batch statistics (Flax's
+train-mode semantics, ``models/norms.py``).  The scoring methods
+(``stream_step``, ``stream_step_u8``, ``error_map``,
+``reconstruction_error``, ``prediction_error``) are the JAX model's
+``train=False`` calls: run them in eval mode (``MultiStreamScorer`` and the
+trainer's eval step do).
 """
 
 from __future__ import annotations
@@ -60,9 +66,9 @@ class ConvLSTMLayer(nn.Module):
     recurrence's) are the two halves of the JAX layer's fused kernel
     ``[3,3,I+H,4H]``; the gate order is (i, f, g, o)."""
 
-    def __init__(self, input_dim: int, hidden_dim: int):
+    def __init__(self, input_dim: int, hidden_dim: int, remat: bool = False):
         super().__init__()
-        self.input_dim, self.hidden_dim = input_dim, hidden_dim
+        self.input_dim, self.hidden_dim, self.remat = input_dim, hidden_dim, remat
         self.w_x = nn.Parameter(torch.empty(4 * hidden_dim, input_dim, 3, 3))
         self.w_h = nn.Parameter(torch.empty(3, 3, hidden_dim, 4 * hidden_dim))
         self.bias = nn.Parameter(torch.zeros(4 * hidden_dim))
@@ -72,7 +78,11 @@ class ConvLSTMLayer(nn.Module):
         nn.init.normal_(self.w_h, std=std)
 
     def forward(self, x_seq: torch.Tensor, initial_state: Optional[State] = None):
-        """``[B,T,H,W,I]`` -> ``(h_seq [B,T,H,W,Hd], (h_T, c_T) f32)``."""
+        """``[B,T,H,W,I]`` -> ``(h_seq [B,T,H,W,Hd], (h_T, c_T) f32)``.
+
+        ``remat`` recomputes each step in the backward pass on the plain
+        recurrence (``convlstm_recurrence_ref``); on the kernel path it
+        changes nothing, as on the JAX package's Pallas path."""
         b, t, hgt, wid, _ = x_seq.shape
         flat = _nchw(x_seq.reshape(b * t, hgt, wid, self.input_dim))
         gates_x = _nhwc(F.conv2d(flat, self.w_x, self.bias, padding=1))
@@ -83,18 +93,19 @@ class ConvLSTMLayer(nn.Module):
             c0 = torch.zeros_like(h0)
         else:
             h0, c0 = (s.float() for s in initial_state)
-        return convlstm_ops.convlstm_recurrence(gates_x, self.w_h, h0, c0)
+        return convlstm_ops.convlstm_recurrence(gates_x, self.w_h, h0, c0, remat=self.remat)
 
 
 class ConvLSTM(nn.Module):
     """Stack of ConvLSTM layers; returns the last layer's hidden sequence
     and every layer's final (h, c)."""
 
-    def __init__(self, input_dim: int, hidden_dim: int = 128, num_layers: int = 2):
+    def __init__(self, input_dim: int, hidden_dim: int = 128, num_layers: int = 2,
+                 remat: bool = False):
         super().__init__()
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
         self.layers = nn.ModuleList(
-            ConvLSTMLayer(input_dim if i == 0 else hidden_dim, hidden_dim)
+            ConvLSTMLayer(input_dim if i == 0 else hidden_dim, hidden_dim, remat)
             for i in range(num_layers)
         )
 
@@ -183,22 +194,23 @@ class VideoAutoencoder(nn.Module):
     """Encoder -> ConvLSTM -> (1x1 projection) -> decoder.
 
     The projection exists only when ``lstm_hidden_dim != latent_dim``.
-    ``device=None`` means CUDA and raises when there is none."""
+    ``remat``: see ``ConvLSTMLayer``.  ``device=None`` means CUDA and
+    raises when there is none."""
 
     def __init__(self, in_channels: int = 3, latent_dim: int = 128, lstm_hidden_dim: int = 128,
-                 lstm_layers: int = 2, norm: str = "batch", stem: str = "pool", device=None):
+                 lstm_layers: int = 2, norm: str = "batch", stem: str = "pool",
+                 remat: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
         self.in_channels, self.latent_dim = in_channels, latent_dim
         self.lstm_hidden_dim, self.lstm_layers = lstm_hidden_dim, lstm_layers
         self.norm, self.stem = norm, stem
         self.encoder = VideoEncoder(in_channels, latent_dim, norm, stem)
-        self.convlstm = ConvLSTM(latent_dim, lstm_hidden_dim, lstm_layers)
+        self.convlstm = ConvLSTM(latent_dim, lstm_hidden_dim, lstm_layers, remat)
         self.proj = (
             nn.Conv2d(lstm_hidden_dim, latent_dim, 1) if lstm_hidden_dim != latent_dim else None
         )
         self.decoder = VideoDecoder(latent_dim, in_channels, norm)
-        self.eval()
         self.to(device)
 
     @classmethod
@@ -271,6 +283,18 @@ class VideoAutoencoder(nn.Module):
         """Per-pixel, per-frame anomaly map ``[B,T,H,W]``."""
         return torch.mean(torch.square(x - self(x)), dim=-1)
 
+    def prediction_error(self, x: torch.Tensor, per_frame: bool = False,
+                         per_pixel: bool = False) -> torch.Tensor:
+        """Future-frame prediction error: output t (causal in frames <= t)
+        against frame t+1.  Scores at sequence ``[B]``, frame ``[B,T-1]`` or
+        pixel ``[B,T-1,H,W]`` granularity, aligned to frames 1..T-1."""
+        err = torch.mean(torch.square(x[:, 1:] - self(x)[:, :-1]), dim=-1)
+        if per_pixel:
+            return err
+        if per_frame:
+            return torch.mean(err, dim=(2, 3))
+        return torch.mean(err, dim=(1, 2, 3))
+
     def reconstruction_error(self, x: torch.Tensor, per_frame: bool = False,
                              per_pixel: bool = False) -> torch.Tensor:
         """Scores at sequence ``[B]``, frame ``[B,T]`` or pixel
@@ -281,6 +305,42 @@ class VideoAutoencoder(nn.Module):
         if per_frame:
             return torch.mean(err, dim=(2, 3))
         return torch.mean(err, dim=(1, 2, 3))
+
+
+XAVIER_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+def init_training_weights(model: VideoAutoencoder, seed: int) -> VideoAutoencoder:
+    """The JAX model's initialization, drawn from a seeded CPU generator
+    (other numbers than ``jax.random``, the same distribution): every conv
+    kernel Xavier-normal truncated at two standard deviations (Flax's
+    ``xavier_normal``, fans of the Flax kernel: a ConvLSTM layer's
+    ``w_x``/``w_h`` share the fused ``[3,3,I+H,4H]`` kernel's), biases 0,
+    norm scales 1, running statistics (0, 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() < 2:
+                p.fill_(1.0 if name.startswith(("encoder.norms", "decoder.norms"))
+                        and name.endswith("weight") else 0.0)
+                continue
+            if name.endswith(("w_x", "w_h")):
+                layer = model.convlstm.layers[int(name.split(".")[2])]
+                fan_in = 9 * (layer.input_dim + layer.hidden_dim)
+                fan_out = 9 * 4 * layer.hidden_dim
+            else:  # OIHW conv or IOHW ConvTranspose: the fan sum is the same
+                receptive = p[0, 0].numel()
+                fan_in, fan_out = p.shape[1] * receptive, p.shape[0] * receptive
+            std = math.sqrt(2.0 / (fan_in + fan_out)) / XAVIER_TRUNC_STD
+            value = torch.empty(p.shape)
+            nn.init.trunc_normal_(value, std=std, a=-2 * std, b=2 * std, generator=gen)
+            p.copy_(value)
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.zero_()
+            elif name.endswith("running_var"):
+                buf.fill_(1.0)
+    return model
 
 
 def init_weights(model: VideoAutoencoder, seed: int) -> VideoAutoencoder:

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
-named by a hash of its source and flags under ``vad_tpu_torch/build/``.
+named by a hash of its source, the ``csrc/*.cuh`` headers and the flags
+under ``vad_tpu_torch/build/``.
 Sources that need a build all compile at once, one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU-only test environment imports
@@ -46,8 +47,9 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in sources)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

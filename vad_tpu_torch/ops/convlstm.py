@@ -1,4 +1,4 @@
-"""The ConvLSTM serving recurrence: plain PyTorch version and CUDA kernel.
+"""The ConvLSTM recurrence: plain PyTorch versions and CUDA kernels.
 
 The input half of the gate convolution (conv(x, Wx) + b over all B*T
 frames) is computed outside, as one batched convolution; what stays
@@ -14,25 +14,48 @@ Layouts follow the JAX package: ``gates_x [B,T,H,W,4C]``, ``w_h
 type; h is cast to the weights' type before the hidden convolution and
 ``h_seq`` comes out in the gates' type.
 
-``convlstm_recurrence`` launches ``csrc/convlstm_serving.cu`` for CUDA
-tensors and runs ``convlstm_recurrence_ref`` only for CPU tensors.
+Three kernels, each with its plain version beside it:
+
+- kernel 1, ``csrc/convlstm_serving.cu`` (``convlstm_recurrence`` without
+  autograd; plain version ``convlstm_recurrence_ref``);
+- kernel 2, the same source built with ``STORE_CELL``: the training
+  forward, which also stores ``c_seq`` in the gates' type
+  (``convlstm_train_forward``; plain version ``convlstm_forward_ref(...,
+  with_cell_seq=True)``);
+- kernel 3, ``csrc/convlstm_backward.cu``: reverse time, recomputing the
+  gates from ``h_seq``/``c_seq`` (``convlstm_backward``; plain version
+  ``convlstm_backward_ref``).
+
+``convlstm_recurrence`` is the one entry point.  When autograd records
+(grad enabled and an input requires grad) it goes through
+``ConvLSTMRecurrence`` — kernel 2 forward, kernel 3 backward, the
+counterpart of the JAX package's ``jax.custom_vjp`` — else through
+kernel 1, the split JAX makes between the primal and ``_fwd``.  Each
+wrapper launches its kernel for CUDA tensors and runs its plain version
+only for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vad_tpu_torch.ops import _build
 
 State = Tuple[torch.Tensor, torch.Tensor]
 
 _KERNEL = "convlstm_serving"
+_BWD_KERNEL = "convlstm_backward"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"convlstm_serving_forward": [_P] * 6 + [_I] * 6 + [_P]}
+_SIGNATURES = {
+    "convlstm_serving_forward": [_P] * 6 + [_I] * 6 + [_P],
+    "convlstm_train_forward": [_P] * 7 + [_I] * 6 + [_P],
+}
+_BWD_SIGNATURES = {"convlstm_backward": [_P] * 12 + [_I] * 6 + [_P]}
 
 
 def convlstm_step(
@@ -51,43 +74,115 @@ def convlstm_step(
     return h_next, c_next
 
 
-def convlstm_recurrence_ref(
-    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor
-) -> Tuple[torch.Tensor, State]:
-    """Plain PyTorch recurrence (the JAX package's ``lax.scan`` path).
-
-    Returns ``(h_seq [B,T,H,W,C] in the gates' type, (h_T, c_T) in f32)``."""
+def _scan(gates_x, w_h, h0, c0, with_cell_seq: bool, remat: bool):
     w_oihw = w_h.permute(3, 2, 0, 1)
     h, c = h0.float(), c0.float()
-    outs = []
+    hs, cs = [], []
     for t in range(gates_x.shape[1]):
-        h, c = convlstm_step(gates_x[:, t], h, c, w_oihw)
-        outs.append(h.to(gates_x.dtype))
-    return torch.stack(outs, dim=1), (h, c)
+        if remat:
+            h, c = checkpoint(convlstm_step, gates_x[:, t], h, c, w_oihw, use_reentrant=False)
+        else:
+            h, c = convlstm_step(gates_x[:, t], h, c, w_oihw)
+        hs.append(h.to(gates_x.dtype))
+        if with_cell_seq:
+            cs.append(c.to(gates_x.dtype))
+    c_seq = torch.stack(cs, dim=1) if with_cell_seq else None
+    return torch.stack(hs, dim=1), c_seq, (h, c)
 
 
-def convlstm_recurrence(
-    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor
+def convlstm_forward_ref(
+    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+    with_cell_seq: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], State]:
+    """Plain version of kernels 1 and 2 (the JAX package's ``_run_forward``).
+
+    Returns ``(h_seq, c_seq, (h_T, c_T))``: ``h_seq`` and (with
+    ``with_cell_seq``, else None) ``c_seq [B,T,H,W,C]`` in the gates'
+    type, as ``_forward_kernel`` stores them; the finals in f32."""
+    return _scan(gates_x, w_h, h0, c0, with_cell_seq, remat=False)
+
+
+def convlstm_recurrence_ref(
+    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, State]:
-    """The recurrence on the card (CUDA tensors) or the plain version (CPU
-    tensors); same contract as ``convlstm_recurrence_ref``.
+    """Plain PyTorch recurrence (the JAX package's ``lax.scan`` path),
+    differentiable by autograd.
 
-    On the card: one kernel launch per time step (T per call), each counted
-    in ``convlstm_recurrence.launches``."""
-    if gates_x.device.type == "cpu":
-        return convlstm_recurrence_ref(gates_x, w_h, h0, c0)
+    Returns ``(h_seq [B,T,H,W,C] in the gates' type, (h_T, c_T) in f32)``.
+    ``remat`` recomputes each step in the backward pass
+    (``torch.utils.checkpoint`` per step, the scan's ``jax.checkpoint``)."""
+    h_seq, _, final = _scan(gates_x, w_h, h0, c0, False, remat)
+    return h_seq, final
+
+
+def convlstm_backward_ref(
+    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+    h_seq: torch.Tensor, c_seq: torch.Tensor, dh_seq: torch.Tensor,
+    dhf: torch.Tensor, dcf: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel 3: the JAX package's ``_backward_kernel``
+    (``convlstm_pallas.py:398-508``) as an explicit reverse-time loop.
+
+    For t = T-1 .. 0: recompute the gates from ``h_{t-1}`` (``h0`` at
+    t = 0), form ``dc_total`` and ``d(i, f, g, o)``, accumulate ``dWh +=
+    im2col(h_{t-1})^T . dgates``, carry ``dh_{t-1}`` (the full correlation
+    of dgates with the flipped taps) and ``dc_{t-1} = dc_total * f``.  The
+    carries and the gate math are f32.  The dgates that feed ``dWh`` and
+    ``dh_{t-1}`` are the stored ones, in the gates' type (kernel 3 reads
+    them back; in f32 this is exactly the Pallas kernel).  ``dhf``/``dcf``
+    are cast to the gates' type first, as ``_bwd`` does.
+
+    Returns ``(dgates_x in the gates' type, dWh in w_h's type, dh0, dc0 in
+    h0's and c0's types)``."""
+    dt = gates_x.dtype
+    b, t_len, hgt, wid, four_c = gates_x.shape
+    ch = four_c // 4
+    w32 = w_h.float().permute(3, 2, 0, 1)  # [4C, C, 3, 3]
+    w_corr = w32.transpose(0, 1).flip(2, 3)  # [C, 4C, 3, 3]: taps reversed
+    h0_in = h0.to(dt)  # the conv's input at t = 0, as the forward used it
+    dh, dc = dhf.to(dt).float(), dcf.to(dt).float()
+    dgates_x = torch.empty_like(gates_x)
+    dw = torch.zeros((ch * 9, four_c), dtype=torch.float32, device=gates_x.device)
+    for t in reversed(range(t_len)):
+        h_prev = (h0_in if t == 0 else h_seq[:, t - 1]).float().permute(0, 3, 1, 2)
+        c_prev = c0.float() if t == 0 else c_seq[:, t - 1].float()
+        acc = gates_x[:, t].float() + F.conv2d(h_prev, w32, padding=1).permute(0, 2, 3, 1)
+        i, f, o = (torch.sigmoid(a) for a in (acc[..., :ch], acc[..., ch:2 * ch],
+                                              acc[..., 3 * ch:]))
+        g = torch.tanh(acc[..., 2 * ch:3 * ch])
+        tanh_ct = torch.tanh(c_seq[:, t].float())
+        dh_total = dh_seq[:, t].float() + dh
+        dc_total = dc + dh_total * o * (1.0 - tanh_ct * tanh_ct)
+        dgates = torch.cat([
+            dc_total * g * i * (1.0 - i),
+            dc_total * c_prev * f * (1.0 - f),
+            dc_total * i * (1.0 - g * g),
+            dh_total * tanh_ct * o * (1.0 - o),
+        ], dim=-1)
+        dgates_x[:, t] = dgates.to(dt)
+        dg = dgates_x[:, t].float()
+        h_cat = F.unfold(h_prev, 3, padding=1)  # [B, C*9, H*W], rows (c, dy, dx)
+        dw += torch.einsum("bkp,bpn->kn", h_cat, dg.reshape(b, hgt * wid, four_c))
+        dh = F.conv2d(dg.permute(0, 3, 1, 2), w_corr, padding=1).permute(0, 2, 3, 1)
+        dc = dc_total * f
+    dw_h = dw.reshape(ch, 3, 3, four_c).permute(1, 2, 0, 3)
+    return dgates_x, dw_h.to(w_h.dtype), dh.to(h0.dtype), dc.to(c0.dtype)
+
+
+def _validate(who: str, gates_x, w_h, h0, c0) -> Tuple[int, int, int, int, int]:
+    """Shape, type and device checks of a CUDA call; returns (B, T, H, W, C)."""
     if gates_x.device.type != "cuda":
-        raise ValueError(f"convlstm_recurrence: unsupported device {gates_x.device}")
+        raise ValueError(f"{who}: unsupported device {gates_x.device}")
     b, t, hgt, wid, four_c = gates_x.shape
     ch = four_c // 4
     if gates_x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"gates_x must be float32 or bfloat16, got {gates_x.dtype}")
-    if not gates_x.is_contiguous() or t < 1:
-        raise ValueError(f"gates_x must be contiguous [B,T>=1,H,W,4C], "
-                         f"got {tuple(gates_x.shape)}")
+    if t < 1:
+        raise ValueError(f"gates_x must be [B,T>=1,H,W,4C], got {tuple(gates_x.shape)}")
     if four_c != 4 * ch or w_h.shape != (3, 3, ch, four_c):
         raise ValueError(f"w_h must be [3,3,{ch},{four_c}], got {tuple(w_h.shape)}")
-    if w_h.dtype != gates_x.dtype:  # the kernel runs the hidden conv in one type
+    if w_h.dtype != gates_x.dtype:  # the kernels run the hidden conv in one type
         raise TypeError(f"w_h is {w_h.dtype}, gates_x {gates_x.dtype}: the kernel "
                         "needs one type for both")
     if h0.shape != (b, hgt, wid, ch) or c0.shape != h0.shape:
@@ -96,23 +191,140 @@ def convlstm_recurrence(
     for name, tensor in (("w_h", w_h), ("h0", h0), ("c0", c0)):
         if tensor.device != gates_x.device:
             raise ValueError(f"{name} is on {tensor.device}, gates_x on {gates_x.device}")
+    return b, t, hgt, wid, ch
 
-    w = w_h.contiguous()
+
+def _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq: bool):
+    """Kernel 1 (or kernel 2 with ``with_cell_seq``) on the card."""
+    who = "convlstm_train_forward" if with_cell_seq else "convlstm_recurrence"
+    b, t, hgt, wid, ch = _validate(who, gates_x, w_h, h0, c0)
+    gx, w = gates_x.contiguous(), w_h.contiguous()
     h0_in = h0.to(gates_x.dtype).contiguous()  # the conv's input at t = 0
     c = c0.to(torch.float32, copy=True).contiguous()  # updated in place
-    h_final = torch.empty(h0.shape, dtype=torch.float32, device=gates_x.device)
-    h_seq = torch.empty((b, t, hgt, wid, ch), dtype=gates_x.dtype, device=gates_x.device)
+    h_final = torch.empty(h0.shape, dtype=torch.float32, device=gx.device)
+    seq_shape = (b, t, hgt, wid, ch)
+    h_seq = torch.empty(seq_shape, dtype=gx.dtype, device=gx.device)
+    c_seq = torch.empty(seq_shape, dtype=gx.dtype, device=gx.device) if with_cell_seq else None
     lib = _build.load(_KERNEL, _SIGNATURES)
-    with torch.cuda.device(gates_x.device):
+    with torch.cuda.device(gx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.convlstm_serving_forward(
-            gates_x.data_ptr(), w.data_ptr(), h0_in.data_ptr(), c.data_ptr(),
-            h_seq.data_ptr(), h_final.data_ptr(), b, t, hgt, wid, ch,
-            int(gates_x.dtype == torch.bfloat16), stream,
-        )
+        shape = (b, t, hgt, wid, ch, int(gx.dtype == torch.bfloat16), stream)
+        if with_cell_seq:
+            status = lib.convlstm_train_forward(
+                gx.data_ptr(), w.data_ptr(), h0_in.data_ptr(), c.data_ptr(),
+                h_seq.data_ptr(), c_seq.data_ptr(), h_final.data_ptr(), *shape)
+        else:
+            status = lib.convlstm_serving_forward(
+                gx.data_ptr(), w.data_ptr(), h0_in.data_ptr(), c.data_ptr(),
+                h_seq.data_ptr(), h_final.data_ptr(), *shape)
     _build.check(lib, _KERNEL, status)
-    convlstm_recurrence.launches += t
-    return h_seq, (h_final, c)
+    return h_seq, c_seq, (h_final, c)
+
+
+def convlstm_train_forward(
+    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, State]:
+    """Kernel 2 (CUDA tensors only): the recurrence that also stores
+    ``c_seq``; same contract as ``convlstm_forward_ref(...,
+    with_cell_seq=True)``.  One launch per time step, counted in
+    ``convlstm_train_forward.launches``."""
+    out = _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq=True)
+    convlstm_train_forward.launches += gates_x.shape[1]
+    return out
+
+
+def convlstm_backward(
+    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+    h_seq: torch.Tensor, c_seq: torch.Tensor, dh_seq: torch.Tensor,
+    dhf: torch.Tensor, dcf: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 3 (CUDA tensors only); same contract as
+    ``convlstm_backward_ref``.  2T+1 launches per call (two per time step,
+    one for dWh), counted in ``convlstm_backward.launches``."""
+    b, t, hgt, wid, ch = _validate("convlstm_backward", gates_x, w_h, h0, c0)
+    seq_shape = (b, t, hgt, wid, ch)
+    for name, tensor in (("h_seq", h_seq), ("c_seq", c_seq), ("dh_seq", dh_seq)):
+        if tensor.shape != seq_shape or tensor.device != gates_x.device:
+            raise ValueError(f"{name} must be {seq_shape} on {gates_x.device}, got "
+                             f"{tuple(tensor.shape)} on {tensor.device}")
+    if dhf.shape != h0.shape or dcf.shape != h0.shape:
+        raise ValueError(f"dhf/dcf must be {tuple(h0.shape)}")
+    dt = gates_x.dtype
+    gx, w = gates_x.contiguous(), w_h.contiguous()
+    w_t = w_h.reshape(9, ch, 4 * ch).transpose(1, 2).contiguous()  # [9, 4C, C]
+    h0_in = h0.to(dt).contiguous()
+    c0f = c0.to(torch.float32).contiguous()
+    hs, cs, dhs = (x.to(dt).contiguous() for x in (h_seq, c_seq, dh_seq))
+    # carries, f32, updated in place; seeded as _bwd seeds them
+    dh_carry = dhf.to(dt).to(torch.float32, copy=True).contiguous()
+    dc_carry = dcf.to(dt).to(torch.float32, copy=True).contiguous()
+    dgates_x = torch.empty_like(gx)
+    dw = torch.empty((3, 3, ch, 4 * ch), dtype=torch.float32, device=gx.device)
+    lib = _build.load(_BWD_KERNEL, _BWD_SIGNATURES)
+    with torch.cuda.device(gx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.convlstm_backward(
+            gx.data_ptr(), w.data_ptr(), w_t.data_ptr(), h0_in.data_ptr(), c0f.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(), dh_carry.data_ptr(),
+            dc_carry.data_ptr(), dgates_x.data_ptr(), dw.data_ptr(),
+            b, t, hgt, wid, ch, int(dt == torch.bfloat16), stream,
+        )
+    _build.check(lib, _BWD_KERNEL, status)
+    convlstm_backward.launches += 2 * t + 1
+    return dgates_x, dw.to(w_h.dtype), dh_carry.to(h0.dtype), dc_carry.to(c0.dtype)
+
+
+class ConvLSTMRecurrence(torch.autograd.Function):
+    """The recurrence with a hand-written backward (the JAX package's
+    ``convlstm_recurrence_pallas`` custom VJP): kernel 2 forward and
+    kernel 3 backward on the card, their plain versions on the CPU.
+
+    ``apply(gates_x, w_h, h0, c0) -> (h_seq, h_T, c_T)``."""
+
+    @staticmethod
+    def forward(ctx, gates_x, w_h, h0, c0):
+        # a final state the loss never uses arrives as zeros, not None
+        ctx.set_materialize_grads(True)
+        if gates_x.device.type == "cpu":
+            h_seq, c_seq, (hf, cf) = convlstm_forward_ref(gates_x, w_h, h0, c0,
+                                                          with_cell_seq=True)
+        else:
+            h_seq, c_seq, (hf, cf) = convlstm_train_forward(gates_x, w_h, h0, c0)
+        ctx.save_for_backward(gates_x, w_h, h0, c0, h_seq, c_seq)
+        return h_seq, hf, cf
+
+    @staticmethod
+    def backward(ctx, dh_seq, dhf, dcf):
+        saved = ctx.saved_tensors
+        backward = convlstm_backward_ref if saved[0].device.type == "cpu" else convlstm_backward
+        return backward(*saved, dh_seq, dhf, dcf)
+
+
+def convlstm_recurrence(
+    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, State]:
+    """The recurrence; same contract as ``convlstm_recurrence_ref``.
+
+    Under autograd (grad enabled, an input requiring grad) it runs
+    ``ConvLSTMRecurrence``: kernels 2 and 3 on the card.  Otherwise kernel
+    1 on the card (one launch per time step, T per call, counted in
+    ``convlstm_recurrence.launches``), or the plain version for CPU
+    tensors.  ``remat`` is accepted and does nothing here, as on the JAX
+    package's Pallas path: the backward already recomputes the gates."""
+    del remat
+    if gates_x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"convlstm_recurrence: unsupported device {gates_x.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (gates_x, w_h, h0, c0)):
+        h_seq, hf, cf = ConvLSTMRecurrence.apply(gates_x, w_h, h0, c0)
+        return h_seq, (hf, cf)
+    if gates_x.device.type == "cpu":
+        return convlstm_recurrence_ref(gates_x, w_h, h0, c0)
+    h_seq, _, final = _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq=False)
+    convlstm_recurrence.launches += gates_x.shape[1]
+    return h_seq, final
 
 
 convlstm_recurrence.launches = 0
+convlstm_train_forward.launches = 0
+convlstm_backward.launches = 0

@@ -91,9 +91,17 @@ def fused_first_block(
     u8: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, out_dtype=torch.float32
 ) -> torch.Tensor:
     """The fused block on the card (CUDA tensors, one launch counted in
-    ``fused_first_block.launches``) or the plain version (CPU tensors)."""
+    ``fused_first_block.launches``) or the plain version (CPU tensors).
+
+    Inference only, as in the JAX package (no VJP): on the card it raises
+    when autograd would have to differentiate through it."""
     if u8.device.type == "cpu":
         return fused_first_block_ref(u8, weight, bias, out_dtype)
+    if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
+        raise RuntimeError(
+            "fused_first_block is inference-only (its kernel has no backward); "
+            "call it under torch.no_grad() or with weights that do not require grad"
+        )
     if u8.device.type != "cuda":
         raise ValueError(f"fused_first_block: unsupported device {u8.device}")
     if u8.dtype != torch.uint8 or u8.dim() != 4 or u8.shape[-1] != 3:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import importlib
 import io
 import pickle
+import re
 from pathlib import Path
 from typing import Any, Dict
 
@@ -120,3 +121,22 @@ def save_checkpoint(path: str | Path, payload: Dict[str, Any]) -> Path:
         pickle.dump(_to_host(payload), f, protocol=pickle.HIGHEST_PROTOCOL)
     tmp.replace(path)
     return path
+
+
+def rotate_epoch_checkpoints(results_dir: str | Path, keep: int) -> int:
+    """Delete all but the newest ``keep`` per-epoch checkpoints
+    (``--keep-checkpoints``; best/final checkpoints are never touched;
+    ``keep`` <= 0 keeps all).  Returns the number of files removed."""
+    if keep <= 0:
+        return 0
+    epochs = []
+    for p in Path(results_dir).glob(f"checkpoint_epoch_*{CHECKPOINT_SUFFIX}"):
+        m = re.search(r"checkpoint_epoch_(\d+)", p.name)
+        if m:
+            epochs.append((int(m.group(1)), p))
+    epochs.sort()
+    removed = 0
+    for _, p in epochs[: max(0, len(epochs) - keep)]:
+        p.unlink(missing_ok=True)
+        removed += 1
+    return removed

@@ -1,4 +1,5 @@
-"""The weight bridge: the JAX package's variables -> the port's modules.
+"""The weight bridge between the JAX package's variables and the port's
+modules, both ways.
 
 ``variables`` is the JAX package's ``{"params", "batch_stats"}`` tree
 with numpy leaves (as a ``.ckpt`` holds it).  Layout rules:
@@ -13,7 +14,8 @@ with numpy leaves (as a ``.ckpt`` holds it).  Layout rules:
   channel I into ``w_x`` (-> OIHW) and ``w_h`` (kept HWIO).
 
 Every key the model needs must be there and every leaf of the tree must
-be used; anything else raises.
+be used; anything else raises.  ``state_dict_to_flax`` inverts each rule,
+so a checkpoint the port trains loads into the JAX package's model.
 """
 
 from __future__ import annotations
@@ -34,6 +36,14 @@ def _conv(k: np.ndarray) -> np.ndarray:
 
 def _conv_transpose(k: np.ndarray) -> np.ndarray:
     return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))  # flip, HWIO -> IOHW
+
+
+def _conv_inverse(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (2, 3, 1, 0))  # OIHW -> HWIO
+
+
+def _conv_transpose_inverse(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]  # IOHW -> HWIO, flip
 
 
 def _norm_entries(prefix: str, scope: str, name: str, kind: str) -> List[tuple]:
@@ -127,6 +137,35 @@ def flax_to_state_dict(model: VideoAutoencoder, variables: Mapping) -> Dict[str,
             raise KeyError(f"no Flax variable maps to {key}")
         out[key] = value.detach().cpu().clone()
     return out
+
+
+def state_dict_to_flax(model: VideoAutoencoder) -> Dict[str, Dict]:
+    """The model's weights as the JAX package's ``{"params",
+    "batch_stats"}`` tree (f32 numpy leaves, on the host), the inverse of
+    ``flax_to_state_dict``: OIHW -> HWIO, IOHW -> flipped HWIO, and each
+    ConvLSTM layer's ``w_x`` (-> HWIO) and ``w_h`` concatenated back into
+    the fused ``[3,3,I+H,4H]`` kernel.  ``batch_stats`` is empty for
+    norm='group'."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    tree: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    fused: Dict[Path, Dict[str, np.ndarray]] = {}
+    for key, path, convert in _entries(model):
+        arr = sd[key]
+        if key.endswith((".w_x", ".w_h")):  # two halves of one Flax kernel
+            fused.setdefault(path, {})[key.rsplit(".", 1)[1]] = arr
+            if len(fused[path]) < 2:
+                continue
+            halves = fused.pop(path)
+            arr = np.concatenate([_conv_inverse(halves["w_x"]), halves["w_h"]], axis=2)
+        elif convert is _conv:
+            arr = _conv_inverse(arr)
+        elif convert is _conv_transpose:
+            arr = _conv_transpose_inverse(arr)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(arr, np.float32)
+    return tree
 
 
 def load_flax_variables(model: VideoAutoencoder, variables: Mapping) -> VideoAutoencoder:
