@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``vad_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card (f32 with TF32 off, and
-bf16), then drives two paths at the default video model's full width:
+bf16), then drives three paths at the default video model's full width:
 
 - serving: ``MultiStreamScorer`` (S=16 streams, T=16 frames per chunk,
   256x256, bf16 with f32 cell state, random weights from a seed), checked
@@ -17,7 +17,12 @@ bf16), then drives two paths at the default video model's full width:
   step on the plain versions (loss, every gradient, BatchNorm statistics);
   then ``fit`` for 2 epochs over in-memory orbit windows, its best
   checkpoint scored by ``MultiStreamScorer``; then the train step timed
-  (frames/s) and profiled in both precisions.
+  (frames/s) and profiled in both precisions;
+- the kernel probes: kernel 5 (the tie-splitting 2x2 max-pool backward)
+  held exactly against its plain version at the encoder's four pool
+  inputs, kernel 6's five ablation modes against theirs (``full`` equal
+  to kernel 4 bit for bit), then ``python -m vad_tpu_torch.tools.
+  probe_pool_bwd`` and ``... ablate_block1`` at their defaults.
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no such line,
@@ -56,17 +61,10 @@ TRAIN_F32_BAR = dict(rtol=2e-3, atol=2e-3)
 # second limit there (read <= 0.098).
 BF16_NOISY, BF16_NOISY_VS_PLAIN = 0.1, 0.15
 
-# Dense peaks per card (data sheets): bf16 tensor FLOP/s, memory bytes/s.
-PEAKS = {
-    "H100 PCIe": (756e12, 2.0e12),
-    "H100 NVL": (835e12, 3.9e12),
-    "H100": (989e12, 3.35e12),  # SXM, also the fallback
-}
 # Device-side names of the port's kernels (csrc/*.cu), for the profiles.
 PORT_KERNELS = ("convlstm_step_kernel", "first_block_kernel", "gate_step_kernel",
                 "dh_step_kernel", "dw_kernel")
-# f32 FLOP/s outside the tensor cores (data sheets), for the f32 kernels.
-F32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
+PROBE_FRAMES = 128  # kernel 5's pool inputs: B*T of the training step (8 x 16)
 
 
 def emit(obj) -> None:
@@ -78,27 +76,11 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    return "H100", PEAKS["H100"]
-
-
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` in ms (CUDA events, warmed up)."""
-    import torch
+    from vad_tpu_torch.utils.profiling import time_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, "cuda", iters, warmup)
 
 
 def close(got, ref, bar) -> tuple:
@@ -145,20 +127,23 @@ def phase_device():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    from vad_tpu_torch.utils.profiling import device_peaks
+
     name = torch.cuda.get_device_name(0)
-    card, (flops, bw) = peaks_for(name)
+    card, flops, f32_flops, bw = device_peaks(name)
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count(),
-          "peaks_from": card, "peak_bf16_flops": flops, "peak_f32_flops": F32_PEAKS[card],
+          "peaks_from": card, "peak_bf16_flops": flops, "peak_f32_flops": f32_flops,
           "peak_bytes_per_s": bw})
-    return name, flops, bw, F32_PEAKS[card]
+    return name, flops, bw, f32_flops
 
 
 def phase_build():
     from vad_tpu_torch.ops import _build
 
     start = time.perf_counter()
-    _build.build(["convlstm_serving", "first_block", "convlstm_backward"])
+    _build.build(["convlstm_serving", "first_block", "convlstm_backward", "pool_bwd",
+                  "first_block_ablate"])
     ptxas = {
         name: [ln.strip() for ln in rec["log"].splitlines() if "registers" in ln or "spill" in ln]
         for name, rec in _build.build_log.items()
@@ -217,6 +202,7 @@ def phase_first_block(peak_flops: float, peak_bw: float) -> dict:
     from vad_tpu_torch.ops.encoder_fused import (
         fold_first_block, fused_first_block, fused_first_block_ref,
     )
+    from vad_tpu_torch.tools.ablate_block1 import block_cost
 
     n = S * T
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -257,8 +243,7 @@ def phase_first_block(peak_flops: float, peak_bw: float) -> dict:
                 return F.leaky_relu(F.max_pool2d(y, 2), 0.2)
 
             rec["library_ms"] = time_ms(library, iters=5)
-            flops = 2 * n * IMAGE * IMAGE * 32 * 27
-            nbytes = n * IMAGE * IMAGE * 3 + n * (IMAGE // 2) ** 2 * 32 * 2 + (864 + 32) * 4
+            flops, nbytes = block_cost(n, IMAGE, IMAGE, got.element_size())
             rec["bound_ms"] = max(flops / peak_flops, nbytes / peak_bw) * 1e3
             rec["bound_by"] = "operations" if flops / peak_flops > nbytes / peak_bw else "bytes"
             out = rec
@@ -270,11 +255,15 @@ def phase_first_block(peak_flops: float, peak_bw: float) -> dict:
 def phase_edge_shapes() -> None:
     """The kernels at ragged shapes: partial tiles, frame borders, hidden
     widths that are not multiples of the tile (C=48) or of 8 (C=20, the
-    plain-load path)."""
+    plain-load path); kernel 6's modes at the ragged frame; kernel 5 at
+    channel counts that need narrower vectors."""
     import torch
 
     from vad_tpu_torch.ops.convlstm import convlstm_recurrence, convlstm_recurrence_ref
-    from vad_tpu_torch.ops.encoder_fused import fused_first_block, fused_first_block_ref
+    from vad_tpu_torch.ops.encoder_fused import (
+        ABLATION_MODES, first_block_ablate, first_block_ablate_ref, fused_first_block,
+        fused_first_block_ref,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cases = []
@@ -304,8 +293,119 @@ def phase_edge_shapes() -> None:
         err, ok = close(fused_first_block(u8, w, bias), fused_first_block_ref(u8, w, bias), F32_BAR)
     cases.append({"kernel": "first_block", "shape": list(u8.shape), "dtype": "torch.float32",
                   "max_abs_err": err, "ok": ok})
+    for mode in ABLATION_MODES:
+        for dtype, bar in ((torch.float32, F32_BAR), (torch.bfloat16, BF16_BAR)):
+            with no_tf32():
+                err, ok = close(first_block_ablate(u8, w, bias, mode, dtype),
+                                first_block_ablate_ref(u8, w, bias, mode, dtype), bar)
+            cases.append({"kernel": f"first_block_ablate {mode}", "shape": list(u8.shape),
+                          "dtype": str(dtype), "max_abs_err": err, "ok": ok})
+    # C=20 is not a multiple of bf16's 8-per-16-byte vector (8-byte vectors
+    # run), C=7 runs one element per thread; one case as a channels-last
+    # NCHW view
+    for shape, nchw in (((3, 6, 10, 20), False), ((2, 4, 6, 7), False), ((3, 6, 10, 20), True)):
+        cases += check_pool_bwd(g, shape, "ties", nchw=nchw)
     emit({"phase": "edge_shapes", "cases": cases})
     require(all(c["ok"] for c in cases), "kernels at ragged shapes")
+
+
+def check_pool_bwd(g, shape, kind: str, nchw: bool = False) -> list:
+    """Kernel 5 against its plain version at NHWC ``shape``, f32 and bf16,
+    both count modes: ``ties`` draws x from {0, 1, 2} (most windows tie),
+    ``normal`` from N(0, 1).  Each case must be exact (max |delta| = 0)."""
+    import torch
+
+    from vad_tpu_torch.ops.pool_bwd import max_pool2x2_backward, max_pool2x2_backward_ref
+
+    n, h, w, c = shape
+    if kind == "ties":
+        x32 = torch.randint(0, 3, shape, generator=g, device="cuda").float()
+    else:
+        x32 = torch.randn(shape, generator=g, device="cuda")
+    g32 = torch.randn((n, h // 2, w // 2, c), generator=g, device="cuda")
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x, gr = x32.to(dtype), g32.to(dtype)
+        if nchw:  # channels-last NCHW views of the same memory
+            x, gr = x.permute(0, 3, 1, 2), gr.permute(0, 3, 1, 2)
+        for count in (True, False):
+            got = max_pool2x2_backward(x, gr, count=count)
+            ref = max_pool2x2_backward_ref(x, gr, count=count)
+            err = float((got.float() - ref.float()).abs().max())
+            cases.append({"kernel": "max_pool2x2_backward", "shape": list(shape),
+                          "inputs": kind, "nchw_view": nchw, "dtype": str(dtype),
+                          "cnt_mode": "full" if count else "nocnt", "max_abs_err": err,
+                          "ok": err == 0.0 and got.stride() == ref.stride()})
+    return cases
+
+
+def phase_probes() -> dict:
+    """Kernels 5 and 6, then their two probe entry points.
+
+    Kernel 5 against its plain version at the encoder's four pool inputs
+    (B*T = 128 frames), f32 and bf16, both count modes, on tie-heavy and
+    normal inputs: exact.  Kernel 6's five modes against their plain
+    versions at the serving chunk (256 frames of 256x256), f32 at
+    ``F32_BAR`` and bf16 at ``BF16_BAR``, and ``full`` equal to kernel 4
+    bit for bit.  Then ``probe_pool_bwd.main`` and ``ablate_block1.main``
+    at their defaults, with the launch counts zeroed just before and read
+    just after; they print their own lines."""
+    import torch
+
+    from vad_tpu_torch.ops import encoder_fused, pool_bwd
+    from vad_tpu_torch.ops.encoder_fused import (
+        ABLATION_MODES, first_block_ablate, first_block_ablate_ref, fused_first_block,
+    )
+    from vad_tpu_torch.tools import ablate_block1, probe_pool_bwd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cases = []
+    for shape in probe_pool_bwd.pool_shapes(PROBE_FRAMES, IMAGE):
+        for kind in ("ties", "normal"):
+            cases += check_pool_bwd(g, shape, kind)
+    pool_err = max(c["max_abs_err"] for c in cases)
+    emit({"phase": "kernel_check", "kernel": "max_pool2x2_backward", "bar": "exact",
+          "max_abs_err": pool_err, "ok": all(c["ok"] for c in cases), "cases": cases})
+    require(all(c["ok"] for c in cases), "kernel 5 equals its plain version at every case")
+
+    u8 = torch.randint(0, 256, (S * T, IMAGE, IMAGE, 3), generator=g, device="cuda",
+                       dtype=torch.uint8)
+    w, b = ablate_block1.block_weights(g, "cuda")
+    modes, full_err = [], None
+    with torch.no_grad(), no_tf32():
+        for mode in ABLATION_MODES:
+            for label, dtype, bar in (("f32", torch.float32, F32_BAR),
+                                      ("bf16", torch.bfloat16, BF16_BAR)):
+                got = first_block_ablate(u8, w, b, mode, dtype)
+                err, ok = close(got, first_block_ablate_ref(u8, w, b, mode, dtype), bar)
+                rec = {"mode": mode, "dtype": label, "max_abs_err": err, "bar": bar, "ok": ok}
+                if mode == "full":
+                    rec["equals_kernel_4"] = torch.equal(got, fused_first_block(u8, w, b, dtype))
+                    rec["ok"] = ok and rec["equals_kernel_4"]
+                    full_err = err if label == "bf16" else full_err
+                modes.append(rec)
+                del got
+    emit({"phase": "kernel_check", "kernel": "first_block_ablate", "shape": list(u8.shape),
+          "modes": modes})
+    require(all(m["ok"] for m in modes),
+            "kernel 6's modes vs plain versions within their bars, full == kernel 4")
+    del u8
+
+    pool_bwd.max_pool2x2_backward.launches = 0
+    encoder_fused.first_block_ablate.launches = 0
+    pool_records = probe_pool_bwd.main([])
+    ablate_records = ablate_block1.main([])
+    launches = {"max_pool2x2_backward": pool_bwd.max_pool2x2_backward.launches,
+                "first_block_ablate": encoder_fused.first_block_ablate.launches}
+    emit({"phase": "probes", "launches": launches})
+    require(all(v > 0 for v in launches.values()), f"both probes launched their kernel: {launches}")
+    require(all(r["max_abs_err"] == 0.0 for r in pool_records), "pool probe: kernel 5 exact")
+    block1 = next(r for r in pool_records if r["shape"] == [PROBE_FRAMES, IMAGE, IMAGE, 32]
+                  and r["dtype"] == "bf16" and r["cnt_mode"] == "full")
+    full = next(r for r in ablate_records if r["mode"] == "full")
+    return {"launches": launches,
+            "max_pool2x2_backward": {**block1, "max_abs_err": pool_err},
+            "first_block_ablate": {**full, "max_abs_err": full_err, "library_ms": None}}
 
 
 def agree(got, ref, bar=BF16_BAR, is_sum: bool = False, atol_of_max: bool = False) -> dict:
@@ -861,6 +961,8 @@ def main() -> int:
     launches = phase_main_path()
     phase_train_step_compare()
     train_launches = phase_train()
+    probes = phase_probes()
+    checks.update(probes)
     kernels = []
     for kname, source, replaces, path_launches in (
         ("convlstm_serving", "vad_tpu_torch/csrc/convlstm_serving.cu",
@@ -871,6 +973,10 @@ def main() -> int:
          "vad_tpu/ops/convlstm_pallas.py:250", train_launches),
         ("convlstm_backward", "vad_tpu_torch/csrc/convlstm_backward.cu",
          "vad_tpu/ops/convlstm_pallas.py:398", train_launches),
+        ("max_pool2x2_backward", "vad_tpu_torch/csrc/pool_bwd.cu",
+         "tools/probe_pool_bwd.py:58", probes["launches"]),
+        ("first_block_ablate", "vad_tpu_torch/csrc/first_block_ablate.cu",
+         "tools/ablate_block1.py:40", probes["launches"]),
     ):
         rec = checks[kname]
         kernels.append({

@@ -8,10 +8,26 @@ byte values (the math of the JAX package's ``fold_first_block_params``
 without its TPU band layout).  Zero padding of the normalized input is
 the raw value 127.5.
 
-``fused_first_block`` launches ``csrc/first_block.cu`` for CUDA tensors
-and runs ``fused_first_block_ref`` only for CPU tensors.  Both take NHWC
-u8 frames ``[F,H,W,3]`` and return NHWC ``[F,H/2,W/2,32]``, contiguous —
-so ``out.permute(0, 3, 1, 2)`` is already a channels-last NCHW tensor.
+``fused_first_block`` launches ``csrc/first_block.cu`` (kernel 4) for
+CUDA tensors and runs ``fused_first_block_ref`` only for CPU tensors.
+Both take NHWC u8 frames ``[F,H,W,3]`` and return NHWC ``[F,H/2,W/2,32]``,
+contiguous — so ``out.permute(0, 3, 1, 2)`` is already a channels-last
+NCHW tensor.
+
+``first_block_ablate`` (kernel 6, ``csrc/first_block_ablate.cu``; plain
+version ``first_block_ablate_ref``) runs the same kernel with one stage
+stripped, to attribute kernel 4's time (the JAX package's
+``tools/ablate_block1.py``).  Its modes, with ``xpad`` the frame padded
+by one pixel of 127.5 and ``b`` the folded bias:
+
+- ``full``: the fused block;
+- ``no-epilogue``: every FMA, no max-pool and no LeakyReLU:
+  ``conv(xpad)[2py, 2px] + b``;
+- ``no-dot``: no FMAs, each tap reads its patch's first value:
+  ``leaky(max_a xpad[2py + a//2, 2px + a%2, 0] + b)``;
+- ``no-band``: no out-of-frame test, clamped reads: the fused block on an
+  edge-replicated frame;
+- ``dma-only``: staging and a cast store: ``out[..., c] = x[2py, 2px, c % 3]``.
 """
 
 from __future__ import annotations
@@ -32,8 +48,13 @@ NEGATIVE_SLOPE = 0.2
 BN_EPS = 1e-5
 
 _KERNEL = "first_block"
+_ABLATE_KERNEL = "first_block_ablate"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"first_block_forward": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P]}
+_ABLATE_SIGNATURES = {"first_block_ablate_forward": [_I] + [_P] * 4 + [_I] * 3
+                      + [_F, _F, _I, _P]}
+# kernel 6's modes, in the order of csrc/first_block.cuh's Mode enum
+ABLATION_MODES = ("full", "no-epilogue", "no-dot", "no-band", "dma-only")
 
 
 def fold_first_block(
@@ -87,6 +108,47 @@ def fused_first_block_ref(
     return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
 
 
+def _check_block_args(u8, weight, bias, out_dtype, name: str) -> None:
+    if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
+        raise RuntimeError(
+            f"{name} is inference-only (its kernel has no backward); "
+            "call it under torch.no_grad() or with weights that do not require grad"
+        )
+    if u8.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {u8.device}")
+    if u8.dtype != torch.uint8 or u8.dim() != 4 or u8.shape[-1] != 3:
+        raise ValueError(f"expected uint8 [F,H,W,3], got {u8.dtype} {tuple(u8.shape)}")
+    if u8.shape[1] % 2 or u8.shape[2] % 2:
+        raise ValueError(f"fused first block needs even H and W, got "
+                         f"{u8.shape[1]}x{u8.shape[2]}")
+    if not u8.is_contiguous():
+        raise ValueError("u8 frames must be contiguous NHWC")
+    if weight.shape != (32, 3, 3, 3) or bias.shape != (32,):
+        raise ValueError(f"expected weight [32,3,3,3] and bias [32], got "
+                         f"{tuple(weight.shape)}, {tuple(bias.shape)}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+
+
+def _launch_block(kernel: str, signatures: dict, lead: tuple, u8, weight, bias,
+                  out_dtype) -> torch.Tensor:
+    """Fold the weights into the kernel's layout, allocate the output and
+    launch ``<kernel>_forward(*lead, x, w, bias, out, F, H, W, ...)``."""
+    f, h, w, _ = u8.shape
+    w_hwio = weight.to(device=u8.device, dtype=torch.float32).permute(2, 3, 1, 0).contiguous()
+    b = bias.to(device=u8.device, dtype=torch.float32).contiguous()
+    out = torch.empty((f, h // 2, w // 2, 32), dtype=out_dtype, device=u8.device)
+    lib = _build.load(kernel, signatures)
+    with torch.cuda.device(u8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = getattr(lib, f"{kernel}_forward")(
+            *lead, u8.data_ptr(), w_hwio.data_ptr(), b.data_ptr(), out.data_ptr(), f, h, w,
+            PAD_U8, NEGATIVE_SLOPE, int(out_dtype == torch.bfloat16), stream,
+        )
+    _build.check(lib, kernel, status)
+    return out
+
+
 def fused_first_block(
     u8: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, out_dtype=torch.float32
 ) -> torch.Tensor:
@@ -97,38 +159,62 @@ def fused_first_block(
     when autograd would have to differentiate through it."""
     if u8.device.type == "cpu":
         return fused_first_block_ref(u8, weight, bias, out_dtype)
-    if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
-        raise RuntimeError(
-            "fused_first_block is inference-only (its kernel has no backward); "
-            "call it under torch.no_grad() or with weights that do not require grad"
-        )
-    if u8.device.type != "cuda":
-        raise ValueError(f"fused_first_block: unsupported device {u8.device}")
-    if u8.dtype != torch.uint8 or u8.dim() != 4 or u8.shape[-1] != 3:
-        raise ValueError(f"expected uint8 [F,H,W,3], got {u8.dtype} {tuple(u8.shape)}")
-    f, h, w, _ = u8.shape
-    if h % 2 or w % 2:
-        raise ValueError(f"fused first block needs even H and W, got {h}x{w}")
-    if not u8.is_contiguous():
-        raise ValueError("u8 frames must be contiguous NHWC")
-    if weight.shape != (32, 3, 3, 3) or bias.shape != (32,):
-        raise ValueError(f"expected weight [32,3,3,3] and bias [32], got "
-                         f"{tuple(weight.shape)}, {tuple(bias.shape)}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    w_hwio = weight.to(device=u8.device, dtype=torch.float32).permute(2, 3, 1, 0).contiguous()
-    b = bias.to(device=u8.device, dtype=torch.float32).contiguous()
-    out = torch.empty((f, h // 2, w // 2, 32), dtype=out_dtype, device=u8.device)
-    lib = _build.load(_KERNEL, _SIGNATURES)
-    with torch.cuda.device(u8.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.first_block_forward(
-            u8.data_ptr(), w_hwio.data_ptr(), b.data_ptr(), out.data_ptr(), f, h, w,
-            PAD_U8, NEGATIVE_SLOPE, int(out_dtype == torch.bfloat16), stream,
-        )
-    _build.check(lib, _KERNEL, status)
+    _check_block_args(u8, weight, bias, out_dtype, "fused_first_block")
+    out = _launch_block(_KERNEL, _SIGNATURES, (), u8, weight, bias, out_dtype)
     fused_first_block.launches += 1
     return out
 
 
 fused_first_block.launches = 0
+
+
+def first_block_ablate_ref(
+    u8: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mode: str,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel 6's ``mode`` (the module docstring
+    gives each mode's function), in f32 and cast once at the end."""
+    if mode not in ABLATION_MODES:
+        raise ValueError(f"mode must be one of {ABLATION_MODES}, got {mode!r}")
+    if mode == "full":
+        return fused_first_block_ref(u8, weight, bias, out_dtype)
+    if mode == "dma-only":
+        channels = torch.arange(32, device=u8.device) % 3
+        return u8[:, ::2, ::2, channels].to(out_dtype).contiguous()
+    x = u8.permute(0, 3, 1, 2).float()
+    if mode == "no-band":
+        xpad = F.pad(x, (1, 1, 1, 1), mode="replicate")
+    else:
+        xpad = F.pad(x, (1, 1, 1, 1), value=PAD_U8)
+    b = bias.float().to(u8.device)[None, :, None, None]
+    if mode == "no-dot":
+        h, w = x.shape[2:]
+        y = F.leaky_relu(F.max_pool2d(xpad[:, :1, :h, :w], 2) + b, NEGATIVE_SLOPE)
+    else:
+        y = F.conv2d(xpad, weight.float().to(u8.device), bias.float().to(u8.device))
+        if mode == "no-epilogue":
+            y = y[:, :, ::2, ::2]
+        else:
+            y = F.leaky_relu(F.max_pool2d(y, 2), NEGATIVE_SLOPE)
+    return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
+
+
+def first_block_ablate(
+    u8: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mode: str,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Kernel 6 in ``mode`` on the card (CUDA tensors, one launch counted
+    in ``first_block_ablate.launches``) or its plain version (CPU
+    tensors).  Inference only, like ``fused_first_block``."""
+    if mode not in ABLATION_MODES:
+        raise ValueError(f"mode must be one of {ABLATION_MODES}, got {mode!r}")
+    if u8.device.type == "cpu":
+        return first_block_ablate_ref(u8, weight, bias, mode, out_dtype)
+    _check_block_args(u8, weight, bias, out_dtype, "first_block_ablate")
+    out = _launch_block(_ABLATE_KERNEL, _ABLATE_SIGNATURES, (ABLATION_MODES.index(mode),),
+                        u8, weight, bias, out_dtype)
+    first_block_ablate.launches += 1
+    return out
+
+
+first_block_ablate.launches = 0

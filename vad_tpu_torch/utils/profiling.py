@@ -1,13 +1,54 @@
 """Run metrics as JSON lines (the JAX package's ``MetricsLogger`` without
-its TensorBoard writer)."""
+its TensorBoard writer), and the timing helper and peak rates the port's
+measuring tools share."""
 
 from __future__ import annotations
 
 import json
 import time
 from pathlib import Path
+from typing import Callable, Tuple
 
 import numpy as np
+import torch
+
+# Dense peaks per card (data sheets): bf16 tensor-core FLOP/s, f32 FLOP/s
+# outside the tensor cores, memory bytes/s.
+DEVICE_PEAKS = {
+    "H100 PCIe": (756e12, 51e12, 2.0e12),
+    "H100 NVL": (835e12, 60e12, 3.9e12),
+    "H100": (989e12, 67e12, 3.35e12),  # SXM, also the fallback
+}
+
+
+def device_peaks(name: str) -> Tuple[str, float, float, float]:
+    """(row of ``DEVICE_PEAKS``, bf16 FLOP/s, f32 FLOP/s, bytes/s) for a
+    card named ``name`` (``torch.cuda.get_device_name``)."""
+    for key, val in DEVICE_PEAKS.items():
+        if key in name:
+            return (key, *val)
+    return ("H100", *DEVICE_PEAKS["H100"])
+
+
+def time_ms(fn: Callable[[], object], device: torch.device | str = "cuda", iters: int = 20,
+            warmup: int = 3) -> float:
+    """Mean time of ``fn()`` in ms over ``iters`` calls after ``warmup``:
+    CUDA events on a CUDA device (device time), the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    if torch.device(device).type != "cuda":
+        start = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - start) / iters * 1e3
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 class MetricsLogger:
