@@ -3,9 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``vad_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card (f32 with TF32 off, and
-bf16), then drives three paths at the default video model's full width:
+Builds the port's CUDA kernels from ``vad_tpu_torch/csrc`` (reporting each
+source's nvcc seconds and each kernel's registers, shared memory and
+spills), holds each against its plain PyTorch version on the card (f32
+with TF32 off, and bf16; the recurrence kernels 1-3 in every design their
+plan can choose at each checked shape, with the plan, the launches per
+call, the clusters that fit, kernel 3's time by part and its dWh repeated
+bit for bit), then drives three paths at the default video model's full
+width:
 
 - serving: ``MultiStreamScorer`` (S=16 streams, T=16 frames per chunk,
   256x256, bf16 with f32 cell state, random weights from a seed), checked
@@ -37,6 +42,8 @@ import copy
 import io
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -61,10 +68,24 @@ TRAIN_F32_BAR = dict(rtol=2e-3, atol=2e-3)
 # second limit there (read <= 0.098).
 BF16_NOISY, BF16_NOISY_VS_PLAIN = 0.1, 0.15
 
-# Device-side names of the port's kernels (csrc/*.cu), for the profiles.
-PORT_KERNELS = ("convlstm_step_kernel", "first_block_kernel", "gate_step_kernel",
-                "dh_step_kernel", "dw_kernel")
+# Device-side names of the port's kernels (csrc/*.cu), for the profiles; a
+# kernel counts under the first name it contains, so longer names that
+# contain shorter ones come first.
+PORT_KERNELS = ("recurrence_kernel", "convlstm_step_kernel", "first_block_kernel",
+                "gate_all_kernel", "gate_kernel", "loop_kernel", "step_kernel", "finish_kernel",
+                "dw_kernel_res", "dw_reduce_kernel", "dw_kernel")
+# Kernel 3's parts, by device-side name: the gate recompute, the reverse
+# loop and dWh in either design, and the stepwise design's last launch
+# (dh0 and the sum of the dWh partials).
+BWD_PARTS = {"gate_kernel": "gate", "gate_all_kernel": "gate", "loop_kernel": "loop",
+             "step_kernel": "loop", "dw_kernel_res": "dw", "dw_reduce_kernel": "dw",
+             "dw_kernel": "dw", "finish_kernel": "dh0+dw_sum"}
 PROBE_FRAMES = 128  # kernel 5's pool inputs: B*T of the training step (8 x 16)
+# Ragged recurrence shapes (B, T, H, W, C): C=48 is no multiple of any
+# tile, C=20 of 8 (the plain-load path), 5x7 and 3x9 frames; 8x8 with C=32
+# (kernels 1-2 resident in a cluster of 2 with one pixel tile, kernel 3
+# stepwise) and 8x16 with C=64 (all resident, clusters of 4, two tiles).
+EDGE_SHAPES = ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20), (3, 2, 8, 8, 32), (2, 3, 8, 16, 64))
 
 
 def emit(obj) -> None:
@@ -138,28 +159,77 @@ def phase_device():
     return name, flops, bw, f32_flops
 
 
+def ptxas_summary(log: str) -> dict:
+    """Registers, shared memory, stack and spills of each kernel in one
+    source's ``-Xptxas -v`` output, by demangled name where ``c++filt`` is
+    on the PATH."""
+    kernels, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            kernels[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", ln)
+            if m:
+                kernels[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                     spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                kernels[name]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                kernels[name]["static_smem"] = int(m.group(1)) if m else 0
+    if shutil.which("c++filt") and kernels:
+        names = subprocess.run(["c++filt"], input="\n".join(kernels), capture_output=True,
+                               text=True, timeout=60, check=True).stdout.splitlines()
+        kernels = {re.sub(r"\(anonymous namespace\)::", "", short): rec
+                   for short, rec in zip(names, kernels.values())}
+    return kernels
+
+
 def phase_build():
     from vad_tpu_torch.ops import _build
 
     start = time.perf_counter()
     _build.build(["convlstm_serving", "first_block", "convlstm_backward", "pool_bwd",
                   "first_block_ablate"])
-    ptxas = {
-        name: [ln.strip() for ln in rec["log"].splitlines() if "registers" in ln or "spill" in ln]
-        for name, rec in _build.build_log.items()
-    }
     emit({"phase": "build", "seconds": time.perf_counter() - start,
           "per_source_seconds": {k: v["seconds"] for k, v in _build.build_log.items()},
-          "ptxas": ptxas})
+          "ptxas": {name: ptxas_summary(rec["log"]) for name, rec in _build.build_log.items()}})
+
+
+def designs(kernel: str, shape, dtype) -> list:
+    """Every design ``recurrence_plan`` can choose for ``kernel`` at
+    ``shape`` (B, T, H, W, C) and ``dtype``, its own choice first."""
+    from vad_tpu_torch.ops.convlstm import recurrence_plan, resident_fits
+
+    b, t, hgt, wid, c = shape
+    chosen = recurrence_plan(kernel, b, t, hgt, wid, c, dtype).design
+    other = [] if not resident_fits(kernel, hgt, wid, c, dtype) else [
+        d for d in ("resident", "stepwise") if d != chosen]
+    return [chosen] + other
+
+
+def plan_record(kernel: str, shape, dtype, design=None) -> dict:
+    from dataclasses import asdict
+
+    from vad_tpu_torch.ops.convlstm import recurrence_plan
+
+    return asdict(recurrence_plan(kernel, *shape, dtype, design))
 
 
 def phase_convlstm(peak_flops: float, peak_bw: float) -> dict:
-    """Kernel 1 against its plain version at the serving shape."""
+    """Kernel 1 against its plain version at the serving shape, in every
+    design its plan can choose there (f32: stepwise; bf16: resident, and
+    stepwise forced)."""
     import torch
 
-    from vad_tpu_torch.ops.convlstm import convlstm_recurrence, convlstm_recurrence_ref
+    from vad_tpu_torch.ops import convlstm as cl
+    from vad_tpu_torch.ops.convlstm import convlstm_recurrence_ref, recurrence_plan
 
     lat, c = IMAGE // 16, 128
+    shape = (S, T, lat, lat, c)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     gates_x = torch.randn((S, T, lat, lat, 4 * c), generator=g, device="cuda") * 0.5
     w_h = torch.randn((3, 3, c, 4 * c), generator=g, device="cuda") * 0.05
@@ -168,18 +238,37 @@ def phase_convlstm(peak_flops: float, peak_bw: float) -> dict:
     out = {}
     for label, dtype, bar in (("f32", torch.float32, F32_BAR), ("bf16", torch.bfloat16, BF16_BAR)):
         gx, wh = gates_x.to(dtype), w_h.to(dtype)
-        with no_tf32():
-            seq, (hf, cf) = convlstm_recurrence(gx, wh, h0, c0)
-            rseq, (rhf, rcf) = convlstm_recurrence_ref(gx, wh, h0, c0)
-            torch.cuda.synchronize()
-        require(seq.dtype == dtype and hf.dtype == cf.dtype == torch.float32, "output dtypes")
-        errs = [close(a, b, bar) for a, b in ((seq, rseq), (hf, rhf), (cf, rcf))]
-        ok = all(e[1] for e in errs)
-        rec = {"phase": "kernel_check", "kernel": "convlstm_serving", "dtype": label,
-               "shape": list(gx.shape), "max_abs_err": max(e[0] for e in errs), "bar": bar,
-               "ok": ok}
+        choices = designs("convlstm_serving", shape, dtype)
+        for design in choices:
+            plan = recurrence_plan("convlstm_serving", *shape, dtype, design)
+
+            def kernel(p=plan):
+                seq, _, final = cl._forward_kernel(gx, wh, h0, c0, False, p)
+                return seq, final
+
+            with no_tf32():
+                cl.convlstm_recurrence.launches = 0
+                seq, (hf, cf) = kernel()
+                per_call = cl.convlstm_recurrence.launches
+                rseq, (rhf, rcf) = convlstm_recurrence_ref(gx, wh, h0, c0)
+                torch.cuda.synchronize()
+            require(seq.dtype == dtype and hf.dtype == cf.dtype == torch.float32, "output dtypes")
+            errs = [close(a, b, bar) for a, b in ((seq, rseq), (hf, rhf), (cf, rcf))]
+            ok = all(e[1] for e in errs) and per_call == plan.launches
+            rec = {"phase": "kernel_check", "kernel": "convlstm_serving", "dtype": label,
+                   "shape": list(gx.shape), "design": design, "plan": plan_record(
+                       "convlstm_serving", shape, dtype, design),
+                   "launches_per_call": per_call, "max_abs_err": max(e[0] for e in errs),
+                   "bar": bar, "ok": ok, "ms": time_ms(kernel)}
+            if plan.cluster > 1:
+                rec["active_clusters"] = cl.active_clusters("convlstm_serving", S, lat, lat, c)
+            if label == "bf16" and design == choices[0]:
+                out = rec
+            emit(rec)
+            require(ok, f"convlstm_serving {label} {design} vs plain version within {bar}, "
+                        f"{per_call} launches as planned ({plan.launches})")
         if label == "bf16":
-            rec["ms"] = time_ms(lambda: convlstm_recurrence(gx, wh, h0, c0))
+            rec = out
             rec["plain_ms"] = time_ms(lambda: convlstm_recurrence_ref(gx, wh, h0, c0), iters=5)
             hw = lat * lat
             flops = 2 * S * T * hw * 9 * c * 4 * c
@@ -187,9 +276,8 @@ def phase_convlstm(peak_flops: float, peak_bw: float) -> dict:
                       + 4 * S * hw * c * 4 + 9 * c * 4 * c * 2)  # h0, c0, h_T, c_T, Wh
             rec["bound_ms"] = max(flops / peak_flops, nbytes / peak_bw) * 1e3
             rec["bound_by"] = "operations" if flops / peak_flops > nbytes / peak_bw else "bytes"
-            out = rec
-        emit(rec)
-        require(ok, f"convlstm_serving {label} kernel vs plain version within {bar}")
+            rec["tflops"] = flops / rec["ms"] / 1e9
+            emit({**rec, "phase": "kernel_time"})
     return out
 
 
@@ -259,7 +347,8 @@ def phase_edge_shapes() -> None:
     channel counts that need narrower vectors."""
     import torch
 
-    from vad_tpu_torch.ops.convlstm import convlstm_recurrence, convlstm_recurrence_ref
+    from vad_tpu_torch.ops import convlstm as cl
+    from vad_tpu_torch.ops.convlstm import convlstm_recurrence_ref, recurrence_plan
     from vad_tpu_torch.ops.encoder_fused import (
         ABLATION_MODES, first_block_ablate, first_block_ablate_ref, fused_first_block,
         fused_first_block_ref,
@@ -267,25 +356,36 @@ def phase_edge_shapes() -> None:
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cases = []
-    for b, t, hgt, wid, c in ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20)):
+    for shape in EDGE_SHAPES:
+        b, t, hgt, wid, c = shape
         for dtype, bar in ((torch.float32, F32_BAR), (torch.bfloat16, BF16_BAR)):
             gx = (torch.randn((b, t, hgt, wid, 4 * c), generator=g, device="cuda") * 0.5).to(dtype)
             wh = (torch.randn((3, 3, c, 4 * c), generator=g, device="cuda") * 0.1).to(dtype)
             h0 = torch.randn((b, hgt, wid, c), generator=g, device="cuda") * 0.3
             c0 = torch.randn((b, hgt, wid, c), generator=g, device="cuda") * 0.3
-            with no_tf32():
-                seq, (hf, cf) = convlstm_recurrence(gx, wh, h0, c0)
-                rseq, (rhf, rcf) = convlstm_recurrence_ref(gx, wh, h0, c0)
-            errs = [close(a, r, bar) for a, r in ((seq, rseq), (hf, rhf), (cf, rcf))]
-            cases.append({"kernel": "convlstm_serving", "shape": [b, t, hgt, wid, c],
-                          "dtype": str(dtype), "max_abs_err": max(e[0] for e in errs),
-                          "ok": all(e[1] for e in errs)})
-    for b, t, hgt, wid, c in ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20)):
+            for design in designs("convlstm_serving", shape, dtype):
+                plan = recurrence_plan("convlstm_serving", *shape, dtype, design)
+                with no_tf32():
+                    cl.convlstm_recurrence.launches = 0
+                    seq, _, (hf, cf) = cl._forward_kernel(gx, wh, h0, c0, False, plan)
+                    rseq, (rhf, rcf) = convlstm_recurrence_ref(gx, wh, h0, c0)
+                errs = [close(a, r, bar) for a, r in ((seq, rseq), (hf, rhf), (cf, rcf))]
+                cases.append({"kernel": "convlstm_serving", "shape": list(shape),
+                              "dtype": str(dtype), "design": design,
+                              "launches_per_call": cl.convlstm_recurrence.launches,
+                              "max_abs_err": max(e[0] for e in errs),
+                              "ok": all(e[1] for e in errs)
+                              and cl.convlstm_recurrence.launches == plan.launches})
+    for shape in EDGE_SHAPES:
         for dtype, bar in ((torch.float32, F32_BAR), (torch.bfloat16, BF16_BAR)):
-            rec, ok, _ = check_train_kernels(g, (b, t, hgt, wid, c), dtype, bar)
-            cases.append({"kernel": "convlstm_train_forward+convlstm_backward",
-                          "shape": [b, t, hgt, wid, c], "dtype": str(dtype),
-                          "max_abs_err": rec["max_abs_err"], "ok": ok})
+            for design in train_designs(shape, dtype):
+                rec, ok, _ = check_train_kernels(g, shape, dtype, bar, design)
+                cases.append({"kernel": "convlstm_train_forward+convlstm_backward",
+                              "shape": list(shape), "dtype": str(dtype),
+                              "designs": rec["designs"],
+                              "launches_per_call": rec["launches_per_call"],
+                              "dw_h_bitwise_repeat": rec["dw_h_bitwise_repeat"],
+                              "max_abs_err": rec["max_abs_err"], "ok": ok})
     u8 = torch.randint(0, 256, (3, 34, 50, 3), generator=g, device="cuda", dtype=torch.uint8)
     w = torch.randn((32, 3, 3, 3), generator=g, device="cuda") * 0.01
     bias = torch.randn(32, generator=g, device="cuda")
@@ -454,6 +554,7 @@ def device_profile(run, n: int = 3, unit: str = "chunk") -> dict:
             if kname in key:
                 ms, calls = port.get(kname, (0.0, 0))
                 port[kname] = (ms + us / n / 1e3, calls + count / n)
+                break
     return {f"{unit}s": n, f"device_ms_per_{unit}": device_us / n / 1e3,
             f"wall_ms_per_{unit}": wall / n * 1e3, "device_busy_share": device_us / 1e6 / wall,
             "kernels": [{"name": k[:100], f"ms_per_{unit}": us / n / 1e3,
@@ -572,18 +673,40 @@ def read_counters() -> dict:
     return {name: fn.launches for name, fn in train_kernel_counters().items()}
 
 
-def check_train_kernels(g, shape, dtype, bar):
+def train_designs(shape, dtype) -> list:
+    """The designs to run kernels 2 and 3 in at ``shape``: each that the
+    plan of either can choose, the plan's own choice first."""
+    both = designs("convlstm_train_forward", shape, dtype)
+    return both + [d for d in designs("convlstm_backward", shape, dtype) if d not in both]
+
+
+def train_plans(shape, dtype, design=None) -> dict:
+    """Kernels 2 and 3's plans at ``shape``: ``design`` where it fits the
+    kernel, else the plan's own choice."""
+    from vad_tpu_torch.ops.convlstm import recurrence_plan, resident_fits
+
+    plans = {}
+    for kname in ("convlstm_train_forward", "convlstm_backward"):
+        fits = design != "resident" or resident_fits(kname, *shape[2:], dtype)
+        plans[kname] = recurrence_plan(kname, *shape, dtype, design if fits else None)
+    return plans
+
+
+def check_train_kernels(g, shape, dtype, bar, design=None):
     """Kernel 2 against ``convlstm_forward_ref`` (h_seq, c_seq, finals) and
     kernel 3 against ``convlstm_backward_ref`` and against torch autograd
     of ``convlstm_recurrence_ref`` (random dh_seq, dhf, dcf), at ``shape``
-    (B, T, H, W, C).  Returns (record, ok, the kernels' inputs)."""
+    (B, T, H, W, C), in ``design`` where it fits (``train_plans``).  Also
+    that each launches what its plan says and that two calls of kernel 3
+    give bit-identical dWh.  Returns (record, ok, the kernels' inputs)."""
     import torch
 
+    from vad_tpu_torch.ops import convlstm as cl
     from vad_tpu_torch.ops.convlstm import (
-        convlstm_backward, convlstm_backward_ref, convlstm_forward_ref,
-        convlstm_recurrence_ref, convlstm_train_forward,
+        convlstm_backward_ref, convlstm_forward_ref, convlstm_recurrence_ref,
     )
 
+    plans = train_plans(shape, dtype, design)
     b, t, hgt, wid, c = shape
     rnd = lambda *dims, scale=1.0: torch.randn(dims, generator=g, device="cuda") * scale  # noqa
     gx = rnd(b, t, hgt, wid, 4 * c, scale=0.5).to(dtype)
@@ -591,10 +714,15 @@ def check_train_kernels(g, shape, dtype, bar):
     h0, c0 = rnd(b, hgt, wid, c, scale=0.1), rnd(b, hgt, wid, c, scale=0.1)
     dhs, dhf, dcf = rnd(b, t, hgt, wid, c).to(dtype), rnd(b, hgt, wid, c), rnd(b, hgt, wid, c)
     with no_tf32():
-        hs, cs, (hf, cf) = convlstm_train_forward(gx, wh, h0, c0)
+        cl.convlstm_train_forward.launches = cl.convlstm_backward.launches = 0
+        hs, cs, (hf, cf) = cl._forward_kernel(gx, wh, h0, c0, True,
+                                              plans["convlstm_train_forward"])
         rhs, rcs, (rhf, rcf) = convlstm_forward_ref(gx, wh, h0, c0, with_cell_seq=True)
         bwd_args = (gx, wh, h0, c0, rhs, rcs, dhs, dhf, dcf)
-        got = convlstm_backward(*bwd_args)
+        got = cl._backward_kernel(*bwd_args, plan=plans["convlstm_backward"])
+        again = cl._backward_kernel(*bwd_args, plan=plans["convlstm_backward"])
+        launches = {"convlstm_train_forward": cl.convlstm_train_forward.launches,
+                    "convlstm_backward": cl.convlstm_backward.launches // 2}
         ref = convlstm_backward_ref(*bwd_args)
         leaves = [x.detach().requires_grad_() for x in (gx, wh, h0, c0)]
         ahs, (ahf, acf) = convlstm_recurrence_ref(*leaves)
@@ -610,9 +738,14 @@ def check_train_kernels(g, shape, dtype, bar):
     bwd = {name: agree(a, r, bar, is_sum=name == "dw_h") for name, a, r in zip(names, got, ref)}
     vs_auto = {name: agree(a, r, bar, is_sum=name == "dw_h")
                for name, a, r in zip(names, got, auto)}
+    repeat = bool(torch.equal(got[1], again[1]))
+    as_planned = all(launches[k] == p.launches for k, p in plans.items())
     ok = (all(e[1] for e in fwd.values()) and all(r["ok"] for r in bwd.values())
-          and all(r["ok"] for r in vs_auto.values()))
-    rec = {"forward_vs_plain": {k: {"max_abs_err": e[0], "ok": e[1]} for k, e in fwd.items()},
+          and all(r["ok"] for r in vs_auto.values()) and repeat and as_planned)
+    rec = {"designs": {k: p.design for k, p in plans.items()},
+           "plans": {k: plan_record(k, shape, dtype, p.design) for k, p in plans.items()},
+           "launches_per_call": launches, "dw_h_bitwise_repeat": repeat,
+           "forward_vs_plain": {k: {"max_abs_err": e[0], "ok": e[1]} for k, e in fwd.items()},
            "backward_vs_plain": bwd, "backward_vs_autograd": vs_auto,
            "forward_max_abs_err": max(e[0] for e in fwd.values()),
            "backward_max_abs_err": max(r["max_abs_err"] for r in bwd.values())}
@@ -621,13 +754,15 @@ def check_train_kernels(g, shape, dtype, bar):
 
 
 def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> dict:
-    """Kernels 2 and 3 at the training shape (B=8, T=16, 16x16,
-    C=128), f32 (TF32 off) and bf16: checked, timed, bounded."""
+    """Kernels 2 and 3 at the training shape (B=8, T=16, 16x16, C=128),
+    f32 (TF32 off) and bf16, in every design their plans can choose there
+    (f32: stepwise; bf16: resident, and stepwise forced): checked, timed,
+    bounded, and kernel 3 timed by part (gate recompute, reverse loop, dWh)
+    from a device profile of three calls."""
     import torch
 
-    from vad_tpu_torch.ops.convlstm import (
-        convlstm_backward, convlstm_backward_ref, convlstm_forward_ref, convlstm_train_forward,
-    )
+    from vad_tpu_torch.ops import convlstm as cl
+    from vad_tpu_torch.ops.convlstm import convlstm_backward_ref, convlstm_forward_ref
 
     lat, c = IMAGE // 16, 128
     shape = (B_TRAIN, T, lat, lat, c)
@@ -635,44 +770,66 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
     out = {}
     for label, dtype, bar, flops_peak in (("f32", torch.float32, F32_BAR, f32_flops),
                                           ("bf16", torch.bfloat16, BF16_BAR, peak_flops)):
-        rec, ok, args = check_train_kernels(g, shape, dtype, bar)
-        gx, wh, h0, c0 = args[:4]
-        e = gx.element_size()
-        seq = B_TRAIN * T * lat * lat * c  # elements of one [B,T,H,W,C] tensor
-        state = B_TRAIN * lat * lat * c * 4  # bytes of one f32 [B,H,W,C] tensor
-        w_bytes = 9 * c * 4 * c * e
-        gemm = 2 * seq * 9 * c * 4  # one implicit GEMM of the recurrence, FLOP
-        costs = {
-            # gates_x in, h_seq and c_seq out, h0 c0 in, finals out, Wh in
-            "convlstm_train_forward": (gemm, seq * 4 * e + 2 * seq * e + 4 * state + w_bytes,
-                                       lambda: convlstm_train_forward(gx, wh, h0, c0),
-                                       lambda: convlstm_forward_ref(gx, wh, h0, c0, True)),
-            # gates_x, h_seq, c_seq, dh_seq, Wh, h0, c0, dhf, dcf in;
-            # dgates_x, dWh, dh0, dc0 out
-            "convlstm_backward": (3 * gemm, 2 * seq * 4 * e + 3 * seq * e + 2 * w_bytes
-                                  + 6 * state,
-                                  lambda: convlstm_backward(*args),
-                                  lambda: convlstm_backward_ref(*args)),
-        }
-        for kname, (flops, nbytes, kernel, plain) in costs.items():
-            counted = train_kernel_counters()[kname]
-            counted.launches = 0
-            kernel()
-            per_call = counted.launches
-            with no_tf32():
-                ms, plain_ms = time_ms(kernel, iters=10), time_ms(plain, iters=3, warmup=1)
-            t_ops, t_bytes = flops / flops_peak, nbytes / peak_bw
-            own = "forward" if kname == "convlstm_train_forward" else "backward"
-            krec = {"phase": "kernel_check", "kernel": kname, "dtype": label,
-                    "shape": list(shape), "bar": bar, "ok": ok, "ms": ms, "plain_ms": plain_ms,
-                    "launches_per_call": per_call, "bound_ms": max(t_ops, t_bytes) * 1e3,
-                    "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                    "flops": flops, "bytes": nbytes, **rec,
-                    "max_abs_err": rec[f"{own}_max_abs_err"]}
-            emit(krec)
-            if label == "bf16":
-                out[kname] = krec
-        require(ok, f"kernels 2 and 3 {label} vs plain versions and autograd within {bar}")
+        for design in train_designs(shape, dtype):
+            plans = train_plans(shape, dtype, design)
+            rec, ok, args = check_train_kernels(g, shape, dtype, bar, design)
+            gx, wh, h0, c0 = args[:4]
+            e = gx.element_size()
+            seq = B_TRAIN * T * lat * lat * c  # elements of one [B,T,H,W,C] tensor
+            state = B_TRAIN * lat * lat * c * 4  # bytes of one f32 [B,H,W,C] tensor
+            w_bytes = 9 * c * 4 * c * e
+            gemm = 2 * seq * 9 * c * 4  # one implicit GEMM of the recurrence, FLOP
+            fwd_plan, bwd_plan = plans["convlstm_train_forward"], plans["convlstm_backward"]
+            costs = {
+                # gates_x in, h_seq and c_seq out, h0 c0 in, finals out, Wh in
+                "convlstm_train_forward": (gemm, seq * 4 * e + 2 * seq * e + 4 * state + w_bytes,
+                                           lambda: cl._forward_kernel(gx, wh, h0, c0, True,
+                                                                      fwd_plan),
+                                           lambda: convlstm_forward_ref(gx, wh, h0, c0, True)),
+                # gates_x, h_seq, c_seq, dh_seq, Wh, h0, c0, dhf, dcf in;
+                # dgates_x, dWh, dh0, dc0 out
+                "convlstm_backward": (3 * gemm, 2 * seq * 4 * e + 3 * seq * e + 2 * w_bytes
+                                      + 6 * state,
+                                      lambda: cl._backward_kernel(*args, plan=bwd_plan),
+                                      lambda: convlstm_backward_ref(*args)),
+            }
+            for kname, (flops, nbytes, kernel, plain) in costs.items():
+                plan = plans[kname]
+                with no_tf32():
+                    ms = time_ms(kernel, iters=10)
+                    plain_ms = (time_ms(plain, iters=3, warmup=1) if design == train_designs(
+                        shape, dtype)[0] else None)
+                t_ops, t_bytes = flops / flops_peak, nbytes / peak_bw
+                own = "forward" if kname == "convlstm_train_forward" else "backward"
+                krec = {"phase": "kernel_check", "kernel": kname, "dtype": label,
+                        "shape": list(shape), **rec, "design": plan.design,
+                        "plan": rec["plans"][kname], "bar": bar, "ok": ok, "ms": ms,
+                        "plain_ms": plain_ms, "launches_per_call": rec["launches_per_call"][kname],
+                        "bound_ms": max(t_ops, t_bytes) * 1e3,
+                        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                        "tflops": flops / ms / 1e9, "flops": flops, "bytes": nbytes,
+                        "max_abs_err": rec[f"{own}_max_abs_err"]}
+                if plan.cluster > 1:
+                    krec["active_clusters"] = cl.active_clusters(kname, B_TRAIN, lat, lat, c)
+                if kname == "convlstm_backward":
+                    with no_tf32():
+                        prof = device_profile(lambda i: kernel(), n=3, unit="call")
+                    # per launch times the launches a call makes (the
+                    # profiler can miss the first launches of its window);
+                    # the stepwise loop launches once a step, the rest once
+                    parts = {}
+                    for name, r in prof["port_kernels"].items():
+                        per_launch = r["ms_per_call"] / r["calls_per_call"]
+                        part = BWD_PARTS[name]
+                        parts[part] = (parts.get(part, 0.0)
+                                       + per_launch * (T if name == "step_kernel" else 1))
+                    krec["ms_by_part"] = parts
+                    krec["profile"] = prof["port_kernels"]
+                emit(krec)
+                if label == "bf16" and plain_ms is not None:
+                    out[kname] = krec
+            require(ok, f"kernels 2 and 3 {label} {rec['designs']} vs plain versions and "
+                        f"autograd within {bar}, launches as planned, dWh deterministic")
     return out
 
 
@@ -979,10 +1136,14 @@ def main() -> int:
          "tools/ablate_block1.py:40", probes["launches"]),
     ):
         rec = checks[kname]
+        # kernels 1-3: launches per call from their plan at the path's shape
+        # (the kernel_check shapes); kernels 4-6 launch once a call
+        per_call = rec.get("launches_per_call", 1)
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_launches[kname], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "launches": path_launches[kname], "launches_per_call": per_call,
+            "calls": path_launches[kname] / per_call, "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
         })
     emit({"kernels": kernels})

@@ -26,6 +26,12 @@ Three kernels, each with its plain version beside it:
   gates from ``h_seq``/``c_seq`` (``convlstm_backward``; plain version
   ``convlstm_backward_ref``).
 
+Each has two designs, and ``recurrence_plan`` picks one from the shape and
+type alone: *resident* (bf16 frames of at most 256 pixels in 8x8 tiles:
+weights and the frame stay in shared memory, wgmma and TMA, one launch for
+kernels 1 and 2 and four for kernel 3) or *stepwise* (everything else:
+f32, ragged frames and widths; one launch per step).
+
 ``convlstm_recurrence`` is the one entry point.  When autograd records
 (grad enabled and an input requires grad) it goes through
 ``ConvLSTMRecurrence`` — kernel 2 forward, kernel 3 backward, the
@@ -38,7 +44,8 @@ only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,10 +59,141 @@ _KERNEL = "convlstm_serving"
 _BWD_KERNEL = "convlstm_backward"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "convlstm_serving_forward": [_P] * 6 + [_I] * 6 + [_P],
-    "convlstm_train_forward": [_P] * 7 + [_I] * 6 + [_P],
+    "convlstm_serving_forward": [_P] * 7 + [_I] * 7 + [_P],
+    "convlstm_train_forward": [_P] * 8 + [_I] * 7 + [_P],
+    "convlstm_serving_active_clusters": [_I] * 5,
 }
-_BWD_SIGNATURES = {"convlstm_backward": [_P] * 12 + [_I] * 6 + [_P]}
+_BWD_SIGNATURES = {
+    "convlstm_backward": [_P] * 14 + [_I] * 9 + [_P],
+    "convlstm_backward_active_clusters": [_I] * 4,
+}
+_DESIGN_CODES = {"stepwise": 0, "resident": 1}
+
+NUM_SMS = 132  # H100 SXM
+_NT = 64  # wgmma N: GEMM columns of a resident block
+_STEP_TILE = (64, 128)  # the stepwise core's output tile (pixels, columns)
+_STEP_SMEM = 41_472  # the stepwise core's static shared memory (3-stage ring)
+
+
+@dataclass(frozen=True)
+class RecurrencePlan:
+    """How one call of a recurrence kernel runs on the card.
+
+    ``design`` is ``"resident"`` or ``"stepwise"``; ``grids`` names each
+    launch's grid, ``cluster`` the blocks per cluster (1: none),
+    ``smem_bytes`` the largest block's shared memory, ``launches`` the
+    launches per call (what the kernel's counter adds), ``scratch_bytes``
+    the device scratch the wrapper allocates for the call."""
+
+    kernel: str
+    design: str
+    launches: int
+    cluster: int
+    smem_bytes: int
+    scratch_bytes: int
+    grids: Dict[str, Tuple[int, ...]] = field(default_factory=dict)
+    gate_groups: int = 0  # kernel 3 resident: frame groups of the gate launch
+    dw_splits: int = 0  # kernel 3: K splits of the dWh launch
+
+
+_KERNELS = ("convlstm_serving", "convlstm_train_forward", "convlstm_backward")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _even_splits(units: int, most: int) -> int:
+    """At most ``most`` splits of ``units`` into equal runs, none empty."""
+    return _cdiv(units, _cdiv(units, max(1, min(units, most))))
+
+
+def _plane_bytes(hgt: int, wid: int) -> int:
+    """One padded 8-channel plane of a frame in shared memory (TMA
+    destinations are 128-byte aligned)."""
+    return _cdiv((hgt + 2) * (wid + 2) * 16, 128) * 128
+
+
+def resident_fits(kernel: str, hgt: int, wid: int, ch: int, dtype: torch.dtype) -> bool:
+    """Whether the resident design takes this shape: bf16 (wgmma), a
+    frame of at most four 8x8 pixel tiles (one per warpgroup), 16 hidden
+    channels a block of a cluster of at most 8; kernel 3 also needs rows
+    of 16 pixels (its dWh walks K in 16-pixel runs) and 64 output channels
+    a block of its dh product."""
+    fits = (dtype == torch.bfloat16 and hgt % 8 == 0 and wid % 8 == 0
+            and (hgt // 8) * (wid // 8) <= 4 and ch % 16 == 0 and ch <= 128)
+    if kernel == "convlstm_backward":
+        fits = fits and wid % 16 == 0 and ch % 64 == 0
+    return fits
+
+
+def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
+                    dtype: torch.dtype, design: Optional[str] = None) -> RecurrencePlan:
+    """The design, grids, cluster size, shared memory, launches per call
+    and scratch of ``kernel`` (``"convlstm_serving"``, ``"convlstm_train_forward"``
+    or ``"convlstm_backward"``) at ``gates_x [b, t, hgt, wid, 4*ch]`` of
+    ``dtype``.  ``design=None`` takes the resident design wherever it fits,
+    else the stepwise one; naming a design that does not fit raises."""
+    if kernel not in _KERNELS:
+        raise ValueError(f"unknown recurrence kernel {kernel!r}")
+    fits = resident_fits(kernel, hgt, wid, ch, dtype)
+    if design is None:
+        design = "resident" if fits else "stepwise"
+    elif design not in _DESIGN_CODES:
+        raise ValueError(f"unknown design {design!r}")
+    elif design == "resident" and not fits:
+        raise ValueError(f"the resident design does not take {kernel} at "
+                         f"B={b} T={t} {hgt}x{wid} C={ch} {dtype}")
+    hw, four_c = hgt * wid, 4 * ch
+    act_bytes = b * t * hw * four_c * 4  # kernel 3's f32 gate activations
+    if kernel != "convlstm_backward":
+        if design == "resident":
+            return RecurrencePlan(kernel, design, launches=1, cluster=ch // 16,
+                                  smem_bytes=ch // 8 * _plane_bytes(hgt, wid) + 9 * ch * _NT * 2
+                                  + 16, scratch_bytes=0,
+                                  grids={"recurrence": (ch // 16, b)})
+        return RecurrencePlan(kernel, design, launches=t, cluster=1, smem_bytes=_STEP_SMEM,
+                              scratch_bytes=0,
+                              grids={"step": (_cdiv(b * hw, _STEP_TILE[0]), _cdiv(ch, 32))})
+    if design == "resident":
+        blocks = ch // 16
+        gate_groups = max(1, min(b * t, NUM_SMS // blocks))
+        dw_blocks = 3 * four_c // _NT
+        splits = _even_splits(b * t, 2 * NUM_SMS // dw_blocks)
+        frame = ch // 8 * _plane_bytes(hgt, wid)
+        wh_slice = 9 * ch * _NT * 2
+        smem = max(frame + wh_slice + 16,  # gate launch
+                   max(frame, hw * _NT * 4) + wh_slice,  # reverse loop
+                   frame + 8 * hw * 16 + 16)  # dWh
+        return RecurrencePlan(
+            kernel, design, launches=4, cluster=blocks, smem_bytes=smem,
+            scratch_bytes=act_bytes + splits * 9 * ch * four_c * 4,
+            grids={"gate": (blocks, gate_groups), "loop": (blocks, b),
+                   "dw": (dw_blocks, splits), "dw_reduce": (_cdiv(9 * ch * four_c, 256),)},
+            gate_groups=gate_groups, dw_splits=splits)
+    step = (_cdiv(b * hw, _STEP_TILE[0]), _cdiv(ch, _STEP_TILE[1]))
+    dw_tiles = (_cdiv(9 * ch, 64), _cdiv(four_c, _STEP_TILE[1]))
+    stages = _cdiv(b * t * hw, 64 // (2 if dtype == torch.bfloat16 else 4))  # 64-byte K stages
+    splits = _even_splits(stages, 2 * NUM_SMS // (dw_tiles[0] * dw_tiles[1]))
+    return RecurrencePlan(
+        kernel, design, launches=t + 3, cluster=1, smem_bytes=_STEP_SMEM,
+        scratch_bytes=act_bytes + splits * 9 * ch * four_c * 4,
+        grids={"gate": (_cdiv(b * t * hw, _STEP_TILE[0]), _cdiv(ch, 32)), "step": step,
+               "dw": dw_tiles + (splits,),
+               "finish": (step[0] * step[1] + _cdiv(9 * ch * four_c, 256),)},
+        dw_splits=splits)
+
+
+def active_clusters(kernel: str, b: int, hgt: int, wid: int, ch: int) -> int:
+    """Clusters of ``kernel``'s resident launch (kernels 1 and 2: the
+    recurrence; kernel 3: its reverse loop) that the card holds at once,
+    from ``cudaOccupancyMaxActiveClusters`` (CUDA only)."""
+    if kernel == "convlstm_backward":
+        lib = _build.load(_BWD_KERNEL, _BWD_SIGNATURES)
+        return lib.convlstm_backward_active_clusters(b, hgt, wid, ch)
+    lib = _build.load(_KERNEL, _SIGNATURES)
+    return lib.convlstm_serving_active_clusters(b, hgt, wid, ch,
+                                                int(kernel == "convlstm_train_forward"))
 
 
 def convlstm_step(
@@ -194,11 +332,23 @@ def _validate(who: str, gates_x, w_h, h0, c0) -> Tuple[int, int, int, int, int]:
     return b, t, hgt, wid, ch
 
 
-def _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq: bool):
-    """Kernel 1 (or kernel 2 with ``with_cell_seq``) on the card."""
-    who = "convlstm_train_forward" if with_cell_seq else "convlstm_recurrence"
+def _w_t(w_h: torch.Tensor) -> torch.Tensor:
+    """``w_h`` per tap transposed, ``[9, 4C, C]`` (the kernels' B layout)."""
+    ch = w_h.shape[2]
+    return w_h.reshape(9, ch, 4 * ch).transpose(1, 2).contiguous()
+
+
+def _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq: bool,
+                    plan: Optional[RecurrencePlan] = None):
+    """Kernel 1 (or kernel 2 with ``with_cell_seq``) on the card, in the
+    design of ``plan`` (``recurrence_plan``'s choice when None); adds the
+    plan's launches to the kernel's counter."""
+    who = "convlstm_train_forward" if with_cell_seq else "convlstm_serving"
     b, t, hgt, wid, ch = _validate(who, gates_x, w_h, h0, c0)
+    if plan is None:
+        plan = recurrence_plan(who, b, t, hgt, wid, ch, gates_x.dtype)
     gx, w = gates_x.contiguous(), w_h.contiguous()
+    w_t = _w_t(w) if plan.design == "resident" else w
     h0_in = h0.to(gates_x.dtype).contiguous()  # the conv's input at t = 0
     c = c0.to(torch.float32, copy=True).contiguous()  # updated in place
     h_final = torch.empty(h0.shape, dtype=torch.float32, device=gx.device)
@@ -208,16 +358,19 @@ def _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq: bool):
     lib = _build.load(_KERNEL, _SIGNATURES)
     with torch.cuda.device(gx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        shape = (b, t, hgt, wid, ch, int(gx.dtype == torch.bfloat16), stream)
+        shape = (b, t, hgt, wid, ch, int(gx.dtype == torch.bfloat16),
+                 _DESIGN_CODES[plan.design], stream)
         if with_cell_seq:
             status = lib.convlstm_train_forward(
-                gx.data_ptr(), w.data_ptr(), h0_in.data_ptr(), c.data_ptr(),
+                gx.data_ptr(), w.data_ptr(), w_t.data_ptr(), h0_in.data_ptr(), c.data_ptr(),
                 h_seq.data_ptr(), c_seq.data_ptr(), h_final.data_ptr(), *shape)
         else:
             status = lib.convlstm_serving_forward(
-                gx.data_ptr(), w.data_ptr(), h0_in.data_ptr(), c.data_ptr(),
+                gx.data_ptr(), w.data_ptr(), w_t.data_ptr(), h0_in.data_ptr(), c.data_ptr(),
                 h_seq.data_ptr(), h_final.data_ptr(), *shape)
     _build.check(lib, _KERNEL, status)
+    counter = convlstm_train_forward if with_cell_seq else convlstm_recurrence
+    counter.launches += plan.launches
     return h_seq, c_seq, (h_final, c)
 
 
@@ -226,21 +379,15 @@ def convlstm_train_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor, State]:
     """Kernel 2 (CUDA tensors only): the recurrence that also stores
     ``c_seq``; same contract as ``convlstm_forward_ref(...,
-    with_cell_seq=True)``.  One launch per time step, counted in
-    ``convlstm_train_forward.launches``."""
-    out = _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq=True)
-    convlstm_train_forward.launches += gates_x.shape[1]
-    return out
+    with_cell_seq=True)``.  Launches per call as ``recurrence_plan`` says
+    (1 resident, T stepwise), counted in ``convlstm_train_forward.launches``."""
+    return _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq=True)
 
 
-def convlstm_backward(
-    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-    h_seq: torch.Tensor, c_seq: torch.Tensor, dh_seq: torch.Tensor,
-    dhf: torch.Tensor, dcf: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel 3 (CUDA tensors only); same contract as
-    ``convlstm_backward_ref``.  2T+1 launches per call (two per time step,
-    one for dWh), counted in ``convlstm_backward.launches``."""
+def _backward_kernel(gates_x, w_h, h0, c0, h_seq, c_seq, dh_seq, dhf, dcf,
+                     plan: Optional[RecurrencePlan] = None):
+    """Kernel 3 on the card in the design of ``plan`` (``recurrence_plan``'s
+    choice when None); adds the plan's launches to its counter."""
     b, t, hgt, wid, ch = _validate("convlstm_backward", gates_x, w_h, h0, c0)
     seq_shape = (b, t, hgt, wid, ch)
     for name, tensor in (("h_seq", h_seq), ("c_seq", c_seq), ("dh_seq", dh_seq)):
@@ -250,8 +397,10 @@ def convlstm_backward(
     if dhf.shape != h0.shape or dcf.shape != h0.shape:
         raise ValueError(f"dhf/dcf must be {tuple(h0.shape)}")
     dt = gates_x.dtype
+    if plan is None:
+        plan = recurrence_plan("convlstm_backward", b, t, hgt, wid, ch, dt)
     gx, w = gates_x.contiguous(), w_h.contiguous()
-    w_t = w_h.reshape(9, ch, 4 * ch).transpose(1, 2).contiguous()  # [9, 4C, C]
+    w_t = _w_t(w)
     h0_in = h0.to(dt).contiguous()
     c0f = c0.to(torch.float32).contiguous()
     hs, cs, dhs = (x.to(dt).contiguous() for x in (h_seq, c_seq, dh_seq))
@@ -260,18 +409,36 @@ def convlstm_backward(
     dc_carry = dcf.to(dt).to(torch.float32, copy=True).contiguous()
     dgates_x = torch.empty_like(gx)
     dw = torch.empty((3, 3, ch, 4 * ch), dtype=torch.float32, device=gx.device)
+    # scratch for this call only (plan.scratch_bytes): the f32 gate
+    # activations and the dWh partials of each K split
+    act = torch.empty((b, t, hgt, wid, 4 * ch), dtype=torch.float32, device=gx.device)
+    part = torch.empty((plan.dw_splits, 9 * ch, 4 * ch), dtype=torch.float32, device=gx.device)
     lib = _build.load(_BWD_KERNEL, _BWD_SIGNATURES)
     with torch.cuda.device(gx.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.convlstm_backward(
             gx.data_ptr(), w.data_ptr(), w_t.data_ptr(), h0_in.data_ptr(), c0f.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(), dh_carry.data_ptr(),
-            dc_carry.data_ptr(), dgates_x.data_ptr(), dw.data_ptr(),
-            b, t, hgt, wid, ch, int(dt == torch.bfloat16), stream,
+            dc_carry.data_ptr(), dgates_x.data_ptr(), dw.data_ptr(), act.data_ptr(),
+            part.data_ptr(),
+            b, t, hgt, wid, ch, int(dt == torch.bfloat16), _DESIGN_CODES[plan.design],
+            plan.gate_groups, plan.dw_splits, stream,
         )
     _build.check(lib, _BWD_KERNEL, status)
-    convlstm_backward.launches += 2 * t + 1
+    convlstm_backward.launches += plan.launches
     return dgates_x, dw.to(w_h.dtype), dh_carry.to(h0.dtype), dc_carry.to(c0.dtype)
+
+
+def convlstm_backward(
+    gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+    h_seq: torch.Tensor, c_seq: torch.Tensor, dh_seq: torch.Tensor,
+    dhf: torch.Tensor, dcf: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 3 (CUDA tensors only); same contract as
+    ``convlstm_backward_ref``.  Launches per call as ``recurrence_plan``
+    says (4 resident, T + 3 stepwise), counted in
+    ``convlstm_backward.launches``."""
+    return _backward_kernel(gates_x, w_h, h0, c0, h_seq, c_seq, dh_seq, dhf, dcf)
 
 
 class ConvLSTMRecurrence(torch.autograd.Function):
@@ -308,8 +475,8 @@ def convlstm_recurrence(
 
     Under autograd (grad enabled, an input requiring grad) it runs
     ``ConvLSTMRecurrence``: kernels 2 and 3 on the card.  Otherwise kernel
-    1 on the card (one launch per time step, T per call, counted in
-    ``convlstm_recurrence.launches``), or the plain version for CPU
+    1 on the card (launches per call as ``recurrence_plan`` says, counted
+    in ``convlstm_recurrence.launches``), or the plain version for CPU
     tensors.  ``remat`` is accepted and does nothing here, as on the JAX
     package's Pallas path: the backward already recomputes the gates."""
     del remat
@@ -321,7 +488,6 @@ def convlstm_recurrence(
     if gates_x.device.type == "cpu":
         return convlstm_recurrence_ref(gates_x, w_h, h0, c0)
     h_seq, _, final = _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq=False)
-    convlstm_recurrence.launches += gates_x.shape[1]
     return h_seq, final
 
 
