@@ -9,8 +9,9 @@ spills), holds each against its plain PyTorch version on the card (f32
 with TF32 off, and bf16; the recurrence kernels 1-3 in every design their
 plan can choose at each checked shape, with the plan, the launches per
 call, the clusters that fit, kernel 3's time by part and its dWh repeated
-bit for bit), then drives three paths at the default video model's full
-width:
+bit for bit; kernel 4 with its design and time in both dtypes, and kernels
+4 and 6 at ragged frames), then drives three paths at the default video
+model's full width:
 
 - serving: ``MultiStreamScorer`` (S=16 streams, T=16 frames per chunk,
   256x256, bf16 with f32 cell state, random weights from a seed), checked
@@ -84,8 +85,16 @@ PROBE_FRAMES = 128  # kernel 5's pool inputs: B*T of the training step (8 x 16)
 # Ragged recurrence shapes (B, T, H, W, C): C=48 is no multiple of any
 # tile, C=20 of 8 (the plain-load path), 5x7 and 3x9 frames; 8x8 with C=32
 # (kernels 1-2 resident in a cluster of 2 with one pixel tile, kernel 3
-# stepwise) and 8x16 with C=64 (all resident, clusters of 4, two tiles).
-EDGE_SHAPES = ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20), (3, 2, 8, 8, 32), (2, 3, 8, 16, 64))
+# stepwise), 8x16 with C=64 (all resident, clusters of 4, two tiles) and
+# 8x32 with C=128 (four tiles, but the resident blocks would need 235,536
+# bytes of shared memory: every kernel stepwise).
+EDGE_SHAPES = ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20), (3, 2, 8, 8, 32), (2, 3, 8, 16, 64),
+               (2, 3, 8, 32, 128))
+# Ragged frames for kernels 4 and 6 (F, H, W, 3): rows of 150 and 810
+# bytes, off 16 (the masked byte path), and 17 and 11 pooled rows (ragged
+# last bands of 8); 270 wide spans three bands of 64 pooled columns; 208
+# wide has 16-byte rows (whole-chunk loads) and a ragged second span.
+EDGE_FRAMES = ((3, 34, 50, 3), (2, 22, 270, 3), (2, 26, 208, 3))
 
 
 def emit(obj) -> None:
@@ -287,8 +296,10 @@ def phase_first_block(peak_flops: float, peak_bw: float) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from vad_tpu_torch.ops import _build
     from vad_tpu_torch.ops.encoder_fused import (
-        fold_first_block, fused_first_block, fused_first_block_ref,
+        DESIGN, WEIGHT_TERMS, first_block_grid, fold_first_block, fused_first_block,
+        fused_first_block_ref,
     )
     from vad_tpu_torch.tools.ablate_block1 import block_cost
 
@@ -311,14 +322,25 @@ def phase_first_block(peak_flops: float, peak_bw: float) -> dict:
             torch.cuda.synchronize()
         require(got.shape == (n, IMAGE // 2, IMAGE // 2, 32) and got.dtype == dtype, "shape")
         err, ok = close(got, ref, bar)
+        ptxas = ptxas_summary(_build.build_log.get("first_block", {}).get("log", ""))
+        own = "first_block_kernel<" + ("__nv_bfloat16" if label == "bf16" else "float")
+        resources = {k: v for k, v in ptxas.items() if own in k}
         rec = {"phase": "kernel_check", "kernel": "first_block", "dtype": label,
-               "shape": list(u8.shape), "max_abs_err": err, "bar": bar, "ok": ok}
+               "shape": list(u8.shape), "max_abs_err": err, "bar": bar, "ok": ok,
+               "design": {**DESIGN, "weight_terms": WEIGHT_TERMS[dtype],
+                          "blocks": first_block_grid(n, IMAGE, IMAGE, dtype),
+                          "bands": n * (IMAGE // 2 // DESIGN["band_pooled_rows"])
+                          * -(-(IMAGE // 2) // DESIGN["band_pooled_cols"]),
+                          "ptxas": resources},
+               "ms": time_ms(lambda: fused_first_block(u8, w, b, out_dtype=dtype))}
+        flops, nbytes = block_cost(n, IMAGE, IMAGE, got.element_size())
+        rec["bound_ms"] = max(flops / peak_flops, nbytes / peak_bw) * 1e3
+        rec["bound_by"] = "operations" if flops / peak_flops > nbytes / peak_bw else "bytes"
         if label == "bf16":
             # the hand-off to block 2 must be a free view, not a copy
             nchw = got.permute(0, 3, 1, 2)
             require(nchw.is_contiguous(memory_format=torch.channels_last)
                     and nchw.data_ptr() == got.data_ptr(), "NHWC output views as channels-last")
-            rec["ms"] = time_ms(lambda: fused_first_block(u8, w, b, out_dtype=dtype))
             rec["plain_ms"] = time_ms(lambda: fused_first_block_ref(u8, w, b, out_dtype=dtype),
                                       iters=5)
             wk, bk = kernel.to(dtype), bias.to(dtype)
@@ -331,9 +353,6 @@ def phase_first_block(peak_flops: float, peak_bw: float) -> dict:
                 return F.leaky_relu(F.max_pool2d(y, 2), 0.2)
 
             rec["library_ms"] = time_ms(library, iters=5)
-            flops, nbytes = block_cost(n, IMAGE, IMAGE, got.element_size())
-            rec["bound_ms"] = max(flops / peak_flops, nbytes / peak_bw) * 1e3
-            rec["bound_by"] = "operations" if flops / peak_flops > nbytes / peak_bw else "bytes"
             out = rec
         emit(rec)
         require(ok, f"first_block {label} kernel vs plain version within {bar}")
@@ -348,7 +367,7 @@ def phase_edge_shapes() -> None:
     import torch
 
     from vad_tpu_torch.ops import convlstm as cl
-    from vad_tpu_torch.ops.convlstm import convlstm_recurrence_ref, recurrence_plan
+    from vad_tpu_torch.ops.convlstm import SMEM_LIMIT, convlstm_recurrence_ref, recurrence_plan
     from vad_tpu_torch.ops.encoder_fused import (
         ABLATION_MODES, first_block_ablate, first_block_ablate_ref, fused_first_block,
         fused_first_block_ref,
@@ -372,34 +391,44 @@ def phase_edge_shapes() -> None:
                 errs = [close(a, r, bar) for a, r in ((seq, rseq), (hf, rhf), (cf, rcf))]
                 cases.append({"kernel": "convlstm_serving", "shape": list(shape),
                               "dtype": str(dtype), "design": design,
+                              "smem_bytes": plan.smem_bytes,
                               "launches_per_call": cl.convlstm_recurrence.launches,
                               "max_abs_err": max(e[0] for e in errs),
-                              "ok": all(e[1] for e in errs)
+                              "ok": all(e[1] for e in errs) and plan.smem_bytes <= SMEM_LIMIT
                               and cl.convlstm_recurrence.launches == plan.launches})
     for shape in EDGE_SHAPES:
         for dtype, bar in ((torch.float32, F32_BAR), (torch.bfloat16, BF16_BAR)):
             for design in train_designs(shape, dtype):
                 rec, ok, _ = check_train_kernels(g, shape, dtype, bar, design)
+                smem = {k: p["smem_bytes"] for k, p in rec["plans"].items()}
                 cases.append({"kernel": "convlstm_train_forward+convlstm_backward",
                               "shape": list(shape), "dtype": str(dtype),
-                              "designs": rec["designs"],
+                              "designs": rec["designs"], "smem_bytes": smem,
                               "launches_per_call": rec["launches_per_call"],
                               "dw_h_bitwise_repeat": rec["dw_h_bitwise_repeat"],
-                              "max_abs_err": rec["max_abs_err"], "ok": ok})
-    u8 = torch.randint(0, 256, (3, 34, 50, 3), generator=g, device="cuda", dtype=torch.uint8)
-    w = torch.randn((32, 3, 3, 3), generator=g, device="cuda") * 0.01
-    bias = torch.randn(32, generator=g, device="cuda")
-    with no_tf32():
-        err, ok = close(fused_first_block(u8, w, bias), fused_first_block_ref(u8, w, bias), F32_BAR)
-    cases.append({"kernel": "first_block", "shape": list(u8.shape), "dtype": "torch.float32",
-                  "max_abs_err": err, "ok": ok})
-    for mode in ABLATION_MODES:
+                              "max_abs_err": rec["max_abs_err"],
+                              "ok": ok and max(smem.values()) <= SMEM_LIMIT})
+    # a frame of four tiles whose resident blocks would not fit: the plan's
+    # own choice must be stepwise for every kernel
+    over = [k for k in ("convlstm_serving", "convlstm_train_forward", "convlstm_backward")
+            if recurrence_plan(k, *EDGE_SHAPES[-1], torch.bfloat16).design != "stepwise"]
+    require(not over, f"8x32 C=128 bf16 takes the stepwise design, not resident: {over}")
+    for frames in EDGE_FRAMES:
+        u8 = torch.randint(0, 256, frames, generator=g, device="cuda", dtype=torch.uint8)
+        w = torch.randn((32, 3, 3, 3), generator=g, device="cuda") * 0.01
+        bias = torch.randn(32, generator=g, device="cuda")
         for dtype, bar in ((torch.float32, F32_BAR), (torch.bfloat16, BF16_BAR)):
             with no_tf32():
-                err, ok = close(first_block_ablate(u8, w, bias, mode, dtype),
-                                first_block_ablate_ref(u8, w, bias, mode, dtype), bar)
-            cases.append({"kernel": f"first_block_ablate {mode}", "shape": list(u8.shape),
-                          "dtype": str(dtype), "max_abs_err": err, "ok": ok})
+                err, ok = close(fused_first_block(u8, w, bias, dtype),
+                                fused_first_block_ref(u8, w, bias, dtype), bar)
+            cases.append({"kernel": "first_block", "shape": list(u8.shape), "dtype": str(dtype),
+                          "max_abs_err": err, "ok": ok})
+            for mode in ABLATION_MODES:
+                with no_tf32():
+                    err, ok = close(first_block_ablate(u8, w, bias, mode, dtype),
+                                    first_block_ablate_ref(u8, w, bias, mode, dtype), bar)
+                cases.append({"kernel": f"first_block_ablate {mode}", "shape": list(u8.shape),
+                              "dtype": str(dtype), "max_abs_err": err, "ok": ok})
     # C=20 is not a multiple of bf16's 8-per-16-byte vector (8-byte vectors
     # run), C=7 runs one element per thread; one case as a channels-last
     # NCHW view

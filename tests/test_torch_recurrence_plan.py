@@ -30,16 +30,33 @@ def plane(h, w):
     return -(-(h + 2) * (w + 2) * 16 // 128) * 128
 
 
+def resident_bytes(kernel, h, w, c):
+    """The resident blocks' shared memory, written out from the kernels'
+    layouts: C/8 planes of the padded frame, 9C x 64 bf16 of Wh and an
+    mbarrier; kernel 3's loop also holds 64 f32 dgates a pixel, its dWh
+    8 x 16 bytes a pixel."""
+    frame, wh = c // 8 * plane(h, w), 9 * c * 64 * 2
+    if kernel != "convlstm_backward":
+        return frame + wh + 16
+    return max(frame + wh + 16, max(frame, h * w * 256) + wh, frame + h * w * 128 + 16)
+
+
 def expected_design(kernel, shape, dtype):
     _, _, h, w, c = shape
     tiles_ok = h % 8 == 0 and w % 8 == 0 and (h // 8) * (w // 8) <= 4
     fits = dtype == BF16 and tiles_ok and c % 16 == 0 and c <= 128
     if kernel == "convlstm_backward":
         fits = fits and w % 16 == 0 and c % 64 == 0
+    fits = fits and resident_bytes(kernel, h, w, c) <= SMEM_LIMIT
     return "resident" if fits else "stepwise"
 
 
-ALL_SHAPES = (SERVING, TRAINING, *EDGE, IMAGE_512)
+# Frames of four 8x8 tiles in a row: at C=128 the resident blocks need
+# 16 x 5,504 + 147,456 + 16 = 235,536 bytes, over the limit; at C=112,
+# 14 x 5,504 + 129,024 + 16 = 206,096.
+WIDE_128, TALL_128 = (2, 3, 8, 32, 128), (2, 3, 32, 8, 128)
+WIDE_112, TALL_112 = (2, 3, 8, 32, 112), (2, 3, 32, 8, 112)
+ALL_SHAPES = (SERVING, TRAINING, *EDGE, IMAGE_512, WIDE_128, TALL_128, WIDE_112, TALL_112)
 
 
 @pytest.mark.parametrize("shape", ALL_SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -129,6 +146,32 @@ def test_unknown_kernel_or_design_raises():
         recurrence_plan("convlstm", *TRAINING, BF16)
     with pytest.raises(ValueError, match="unknown design"):
         recurrence_plan("convlstm_backward", *TRAINING, BF16, design="fused")
+
+
+@pytest.mark.parametrize("shape", (WIDE_128, TALL_128), ids=("8x32", "32x8"))
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_resident_plan_over_the_shared_memory_limit_goes_stepwise(kernel, shape):
+    """Four 8x8 tiles pass the tile rule, but C=128's planes and Wh slice
+    need 235,536 bytes a block: every kernel takes the stepwise design,
+    and naming the resident one raises."""
+    b, t, h, w, c = shape
+    assert resident_bytes(kernel, h, w, c) >= 235_520 > SMEM_LIMIT
+    plan = recurrence_plan(kernel, b, t, h, w, c, BF16)
+    assert plan.design == "stepwise" and plan.smem_bytes <= SMEM_LIMIT
+    assert not resident_fits(kernel, h, w, c, BF16)
+    with pytest.raises(ValueError, match="does not take"):
+        recurrence_plan(kernel, b, t, h, w, c, BF16, design="resident")
+
+
+@pytest.mark.parametrize("shape", (WIDE_112, TALL_112), ids=("8x32", "32x8"))
+@pytest.mark.parametrize("kernel", KERNELS[:2])
+def test_resident_plan_just_under_the_limit(kernel, shape):
+    """C=112 on the same frames fits (206,096 bytes): kernels 1-2 stay
+    resident, in clusters of 7."""
+    b, t, h, w, c = shape
+    plan = recurrence_plan(kernel, b, t, h, w, c, BF16)
+    assert (plan.design, plan.cluster) == ("resident", 7)
+    assert plan.smem_bytes == 14 * 5504 + 129_024 + 16 == 206_096
 
 
 def test_edge_plans_mix_designs():

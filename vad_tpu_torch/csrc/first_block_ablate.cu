@@ -5,11 +5,12 @@
 // kernel 4 with its stages stripped, which attributes kernel 4's time.
 //
 // Every mode of first_block.cuh (FULL, NO_EPILOGUE, NO_DOT, NO_BAND,
-// DMA_ONLY; their functions are written there) runs on kernel 4's grid and
-// reads and writes the same tensors, so the bytes bound is the same for all
-// of them (95 us at the serving shape on an H100 SXM).  FULL is kernel 4's
-// own instantiation: its output equals first_block.cu's bit for bit.  The
-// time each mode saves against FULL is what its stripped stage costs.
+// DMA_ONLY; their functions are written there) is the tensor-core body of
+// kernel 4 with one stage stripped, on kernel 4's persistent grid of bands,
+// and reads and writes the same tensors, so the bytes bound is the same for
+// all of them (95 us at the serving shape on an H100 SXM).  FULL is kernel
+// 4's own instantiation: its output equals first_block.cu's bit for bit.
+// The time each mode saves against FULL is what its stripped stage costs.
 
 #include "first_block.cuh"
 

@@ -73,6 +73,7 @@ NUM_SMS = 132  # H100 SXM
 _NT = 64  # wgmma N: GEMM columns of a resident block
 _STEP_TILE = (64, 128)  # the stepwise core's output tile (pixels, columns)
 _STEP_SMEM = 41_472  # the stepwise core's static shared memory (3-stage ring)
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (csrc/convlstm_tiles.cuh)
 
 
 @dataclass(frozen=True)
@@ -114,17 +115,32 @@ def _plane_bytes(hgt: int, wid: int) -> int:
     return _cdiv((hgt + 2) * (wid + 2) * 16, 128) * 128
 
 
+def _resident_smem(kernel: str, hgt: int, wid: int, ch: int) -> int:
+    """Dynamic shared memory of the resident design's largest block: the
+    padded frame's C/8 planes and a 16-channel x 4-gate slice of Wh (kernel
+    3: its gate, reverse-loop and dWh launches)."""
+    frame = ch // 8 * _plane_bytes(hgt, wid)
+    wh_slice = 9 * ch * _NT * 2
+    if kernel != "convlstm_backward":
+        return frame + wh_slice + 16  # + the TMA mbarrier
+    hw = hgt * wid
+    return max(frame + wh_slice + 16,  # gate launch
+               max(frame, hw * _NT * 4) + wh_slice,  # reverse loop
+               frame + 8 * hw * 16 + 16)  # dWh
+
+
 def resident_fits(kernel: str, hgt: int, wid: int, ch: int, dtype: torch.dtype) -> bool:
     """Whether the resident design takes this shape: bf16 (wgmma), a
     frame of at most four 8x8 pixel tiles (one per warpgroup), 16 hidden
     channels a block of a cluster of at most 8; kernel 3 also needs rows
     of 16 pixels (its dWh walks K in 16-pixel runs) and 64 output channels
-    a block of its dh product."""
+    a block of its dh product.  Its blocks' shared memory must also fit
+    the H100's ``SMEM_LIMIT`` (an 8x32 or 32x8 frame at C=128 does not)."""
     fits = (dtype == torch.bfloat16 and hgt % 8 == 0 and wid % 8 == 0
             and (hgt // 8) * (wid // 8) <= 4 and ch % 16 == 0 and ch <= 128)
     if kernel == "convlstm_backward":
         fits = fits and wid % 16 == 0 and ch % 64 == 0
-    return fits
+    return fits and _resident_smem(kernel, hgt, wid, ch) <= SMEM_LIMIT
 
 
 def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
@@ -149,9 +165,8 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
     if kernel != "convlstm_backward":
         if design == "resident":
             return RecurrencePlan(kernel, design, launches=1, cluster=ch // 16,
-                                  smem_bytes=ch // 8 * _plane_bytes(hgt, wid) + 9 * ch * _NT * 2
-                                  + 16, scratch_bytes=0,
-                                  grids={"recurrence": (ch // 16, b)})
+                                  smem_bytes=_resident_smem(kernel, hgt, wid, ch),
+                                  scratch_bytes=0, grids={"recurrence": (ch // 16, b)})
         return RecurrencePlan(kernel, design, launches=t, cluster=1, smem_bytes=_STEP_SMEM,
                               scratch_bytes=0,
                               grids={"step": (_cdiv(b * hw, _STEP_TILE[0]), _cdiv(ch, 32))})
@@ -160,13 +175,9 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
         gate_groups = max(1, min(b * t, NUM_SMS // blocks))
         dw_blocks = 3 * four_c // _NT
         splits = _even_splits(b * t, 2 * NUM_SMS // dw_blocks)
-        frame = ch // 8 * _plane_bytes(hgt, wid)
-        wh_slice = 9 * ch * _NT * 2
-        smem = max(frame + wh_slice + 16,  # gate launch
-                   max(frame, hw * _NT * 4) + wh_slice,  # reverse loop
-                   frame + 8 * hw * 16 + 16)  # dWh
         return RecurrencePlan(
-            kernel, design, launches=4, cluster=blocks, smem_bytes=smem,
+            kernel, design, launches=4, cluster=blocks,
+            smem_bytes=_resident_smem(kernel, hgt, wid, ch),
             scratch_bytes=act_bytes + splits * 9 * ch * four_c * 4,
             grids={"gate": (blocks, gate_groups), "loop": (blocks, b),
                    "dw": (dw_blocks, splits), "dw_reduce": (_cdiv(9 * ch * four_c, 256),)},

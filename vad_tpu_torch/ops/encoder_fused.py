@@ -10,6 +10,10 @@ the raw value 127.5.
 
 ``fused_first_block`` launches ``csrc/first_block.cu`` (kernel 4) for
 CUDA tensors and runs ``fused_first_block_ref`` only for CPU tensors.
+Kernel 4 runs the conv on the tensor cores (bf16 in, f32 accumulate): the
+bytes and the pad 127.5 are exact in bf16, and the f32 folded weight goes
+in as ``WEIGHT_TERMS`` bf16 terms whose sum is the weight
+(``weight_terms``), 3 for f32 output and 2 for bf16.
 Both take NHWC u8 frames ``[F,H,W,3]`` and return NHWC ``[F,H/2,W/2,32]``,
 contiguous — so ``out.permute(0, 3, 1, 2)`` is already a channels-last
 NCHW tensor.
@@ -21,9 +25,9 @@ stripped, to attribute kernel 4's time (the JAX package's
 by one pixel of 127.5 and ``b`` the folded bias:
 
 - ``full``: the fused block;
-- ``no-epilogue``: every FMA, no max-pool and no LeakyReLU:
+- ``no-epilogue``: every MMA, no max-pool and no LeakyReLU:
   ``conv(xpad)[2py, 2px] + b``;
-- ``no-dot``: no FMAs, each tap reads its patch's first value:
+- ``no-dot``: no MMAs, each tap reads its patch's first value:
   ``leaky(max_a xpad[2py + a//2, 2px + a%2, 0] + b)``;
 - ``no-band``: no out-of-frame test, clamped reads: the fused block on an
   edge-replicated frame;
@@ -33,6 +37,7 @@ by one pixel of 127.5 and ``b`` the folded bias:
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Mapping, Tuple
 
 import numpy as np
@@ -50,11 +55,20 @@ BN_EPS = 1e-5
 _KERNEL = "first_block"
 _ABLATE_KERNEL = "first_block_ablate"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"first_block_forward": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P]}
+_SIGNATURES = {"first_block_forward": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P],
+               "first_block_grid": [_I] * 4}
 _ABLATE_SIGNATURES = {"first_block_ablate_forward": [_I] + [_P] * 4 + [_I] * 3
                       + [_F, _F, _I, _P]}
 # kernel 6's modes, in the order of csrc/first_block.cuh's Mode enum
 ABLATION_MODES = ("full", "no-epilogue", "no-dot", "no-band", "dma-only")
+# bf16 terms of the folded weight per output dtype (csrc/first_block.cuh
+# OutTraits): 3 terms carry all 24 bits of an f32 weight
+WEIGHT_TERMS = {torch.float32: 3, torch.bfloat16: 2}
+K_TAPS, K_PAD = 27, 32  # conv taps (dy, dx, ci), padded to two k16 steps
+# kernel 4's design, for chip_smoke.py's record (csrc/first_block.cuh)
+DESIGN = {"mma": "wgmma.m64n32k16 bf16 -> f32, A from registers as 32-bit pairs",
+          "band_pooled_rows": 8, "band_pooled_cols": 64, "threads": 256, "blocks_per_sm": 3,
+          "staging": "cp.async 16 B into a u8 window, one pass into a bf16 window"}
 
 
 def fold_first_block(
@@ -97,6 +111,61 @@ def fold_from_variables(variables: Mapping) -> Tuple[torch.Tensor, torch.Tensor]
     )
 
 
+def pair_rows() -> torch.Tensor:
+    """Kernel 4's K order: ``[2, K_PAD]``, for each parity of a pixel's
+    first byte in the kernel's window, the tap ``(dy*3 + dx)*3 + ci`` each
+    row of B weights, or ``K_TAPS`` for a zero row.
+
+    The kernel reads its A operand as 32-bit pairs of bf16 values: row dy
+    of a pixel's 3x3x3 patch is 9 values in a row of the window, read as 5
+    aligned pairs.  Where the patch starts on an even element the pairs
+    are elements (0,1) .. (8,9), where on an odd one (-1,0) .. (7,8); the
+    value outside the patch gets a zero weight.  The 15 pairs of the three
+    rows and one zero pair are the 16 pairs of K = 32; logical row k of a
+    k16 step s is pair 8s + 4*(k%16 // 8) + k%8 // 2, element k % 2, the
+    m16n8k16 A fragment's order (thread q holds pairs q and q + 4)."""
+    rows = torch.full((2, K_PAD), K_TAPS, dtype=torch.long)
+    for parity in (0, 1):
+        for k in range(K_PAD):
+            pair = 8 * (k // 16) + 4 * (k % 16 // 8) + k % 8 // 2
+            el = 2 * (pair % 5) + k % 2 - parity  # dx*3 + ci within row dy
+            if pair < 15 and 0 <= el < 9:
+                rows[parity, k] = pair // 5 * 9 + el
+    return rows
+
+
+def weight_terms(weight: torch.Tensor, n_terms: int) -> torch.Tensor:
+    """Kernel 4's B operand: the folded ``[32,3,3,3]`` weight as K_PAD rows
+    in ``pair_rows`` order for both parities, split into ``n_terms`` bf16
+    terms, ``[n_terms, 2, K_PAD, 32]``: each term is the bf16 rounding of
+    what the earlier ones leave (hi, mid, lo), so their sum is the f32
+    weight to the terms' precision (all of it at 3)."""
+    taps = weight.detach().float().permute(2, 3, 1, 0).reshape(K_TAPS, -1)
+    taps = torch.cat([taps, taps.new_zeros(1, taps.shape[1])])  # row K_TAPS: zero
+    rest = taps[pair_rows().to(taps.device)]
+    terms = []
+    for _ in range(n_terms):
+        terms.append(rest.to(torch.bfloat16))
+        rest = rest - terms[-1].float()  # exact in f32
+    return torch.stack(terms).contiguous()
+
+
+# the last split per term count: (weakref to the weight, its version, terms)
+_TERMS_CACHE: dict = {}
+
+
+def _cached_terms(weight: torch.Tensor, n_terms: int) -> torch.Tensor:
+    """``weight_terms`` of a weight already on the card, reused while it is
+    the same tensor at the same version (a serving scorer passes one folded
+    weight every chunk): the split is a chain of small device ops."""
+    hit = _TERMS_CACHE.get(n_terms)
+    if hit is not None and hit[0]() is weight and hit[1] == weight._version:
+        return hit[2]
+    terms = weight_terms(weight, n_terms)
+    _TERMS_CACHE[n_terms] = (weakref.ref(weight), weight._version, terms)
+    return terms
+
+
 def fused_first_block_ref(
     u8: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, out_dtype=torch.float32
 ) -> torch.Tensor:
@@ -132,17 +201,17 @@ def _check_block_args(u8, weight, bias, out_dtype, name: str) -> None:
 
 def _launch_block(kernel: str, signatures: dict, lead: tuple, u8, weight, bias,
                   out_dtype) -> torch.Tensor:
-    """Fold the weights into the kernel's layout, allocate the output and
-    launch ``<kernel>_forward(*lead, x, w, bias, out, F, H, W, ...)``."""
+    """Split the weights into the kernel's bf16 terms, allocate the output
+    and launch ``<kernel>_forward(*lead, x, w_terms, bias, out, F, H, W, ...)``."""
     f, h, w, _ = u8.shape
-    w_hwio = weight.to(device=u8.device, dtype=torch.float32).permute(2, 3, 1, 0).contiguous()
+    w_terms = _cached_terms(weight.to(u8.device), WEIGHT_TERMS[out_dtype])
     b = bias.to(device=u8.device, dtype=torch.float32).contiguous()
     out = torch.empty((f, h // 2, w // 2, 32), dtype=out_dtype, device=u8.device)
     lib = _build.load(kernel, signatures)
     with torch.cuda.device(u8.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, f"{kernel}_forward")(
-            *lead, u8.data_ptr(), w_hwio.data_ptr(), b.data_ptr(), out.data_ptr(), f, h, w,
+            *lead, u8.data_ptr(), w_terms.data_ptr(), b.data_ptr(), out.data_ptr(), f, h, w,
             PAD_U8, NEGATIVE_SLOPE, int(out_dtype == torch.bfloat16), stream,
         )
     _build.check(lib, kernel, status)
@@ -166,6 +235,12 @@ def fused_first_block(
 
 
 fused_first_block.launches = 0
+
+
+def first_block_grid(frames: int, height: int, width: int, out_dtype) -> int:
+    """Blocks of kernel 4's persistent grid at this shape (CUDA only)."""
+    lib = _build.load(_KERNEL, _SIGNATURES)
+    return lib.first_block_grid(frames, height, width, int(out_dtype == torch.bfloat16))
 
 
 def first_block_ablate_ref(

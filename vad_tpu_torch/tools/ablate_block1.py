@@ -6,8 +6,8 @@ mode's function), on kernel 4's grid, at the JAX tool's shape: F=256
 frames of 256x256, bf16 out, folded weights from a seed.  The time a mode
 saves against ``full`` is what its stripped stage costs:
 
-- ``dma-only``: staging the window and storing, no FMAs, no epilogue;
-- ``no-dot``: without the 27 x 4 FMAs per channel;
+- ``dma-only``: staging the window and storing, no MMAs, no epilogue;
+- ``no-dot``: without the conv's tensor-core MMAs;
 - ``no-band``: without the out-of-frame test and pad value;
 - ``no-epilogue``: without the max-pool and LeakyReLU;
 - ``full``: kernel 4.
@@ -39,7 +39,7 @@ from vad_tpu_torch.ops.encoder_fused import (
 from vad_tpu_torch.utils.profiling import device_peaks, time_ms
 
 SEED = 0
-_CONV_MODES = ("full", "no-epilogue", "no-band")  # modes that keep the FMAs
+_CONV_MODES = ("full", "no-epilogue", "no-band")  # modes that keep the conv's MMAs
 
 
 def block_weights(gen: torch.Generator, device) -> Tuple[torch.Tensor, torch.Tensor]:
