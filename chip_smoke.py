@@ -10,7 +10,7 @@ with TF32 off, and bf16; the recurrence kernels 1-3 in every design their
 plan can choose at each checked shape, with the plan, the launches per
 call, the clusters that fit, kernel 3's time by part and its dWh repeated
 bit for bit; kernel 4 with its design and time in both dtypes, and kernels
-4 and 6 at ragged frames), then drives three paths at the default video
+4 and 6 at ragged frames), then drives four paths at the default video
 model's full width:
 
 - serving: ``MultiStreamScorer`` (S=16 streams, T=16 frames per chunk,
@@ -24,6 +24,13 @@ model's full width:
   then ``fit`` for 2 epochs over in-memory orbit windows, its best
   checkpoint scored by ``MultiStreamScorer``; then the train step timed
   (frames/s) and profiled in both precisions;
+- evaluation, on that checkpoint, f32 with TF32 off, frames made in memory:
+  ``--video-dir`` (``score_videos`` over 24 ragged clips on 16 slots,
+  through kernels 1 and 4), ``--video`` (``stream_scores``, kernel 1 at
+  batch 1) and dataset scoring (``score_windows``), each against the plain
+  versions and ``--video-dir`` also against each clip scored alone, with
+  frames/s and device time by kernel; then a 64-chunk bf16 stream whose
+  carried (h, c) must stay within the bf16 bar of the plain versions;
 - the kernel probes: kernel 5 (the tie-splitting 2x2 max-pool backward)
   held exactly against its plain version at the encoder's four pool
   inputs, kernel 6's five ablation modes against theirs (``full`` equal
@@ -95,6 +102,13 @@ EDGE_SHAPES = ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20), (3, 2, 8, 8, 32), (2, 3, 8, 1
 # last bands of 8); 270 wide spans three bands of 64 pooled columns; 208
 # wide has 16-byte rows (whole-chunk loads) and a ragged second span.
 EDGE_FRAMES = ((3, 34, 50, 3), (2, 22, 270, 3), (2, 26, 208, 3))
+# The evaluation paths (phase_eval): clips of 40-300 frames for --video-dir
+# (more clips than slots, so slots recycle), one clip for --video, all cut
+# from a bank of orbit frames; the profiled windows' chunks; and the long
+# stream whose carried state is checked for drift (64 chunks = 1,024
+# frames), with the chunks at which its distance is reported.
+EVAL_CLIPS, VIDEO_FRAMES, BANK_FRAMES, PROFILE_CHUNKS = 24, 300, 128, 4
+DRIFT_CHUNKS, DRIFT_REPORT = 64, (1, 4, 16, 64)
 
 
 def emit(obj) -> None:
@@ -135,16 +149,11 @@ def plain_versions():
         convlstm.convlstm_recurrence, encoder_fused.fused_first_block = saved
 
 
-@contextmanager
 def no_tf32():
-    import torch
+    """f32 convolutions and matrix products without TF32 inside the block."""
+    from vad_tpu_torch.utils.precision import tf32_off
 
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return tf32_off()
 
 
 def phase_device():
@@ -165,7 +174,7 @@ def phase_device():
           "cuda": torch.version.cuda, "count": torch.cuda.device_count(),
           "peaks_from": card, "peak_bf16_flops": flops, "peak_f32_flops": f32_flops,
           "peak_bytes_per_s": bw})
-    return name, flops, bw, f32_flops
+    return name, flops, bw, f32_flops, smi
 
 
 def ptxas_summary(log: str) -> dict:
@@ -228,10 +237,10 @@ def plan_record(kernel: str, shape, dtype, design=None) -> dict:
     return asdict(recurrence_plan(kernel, *shape, dtype, design))
 
 
-def phase_convlstm(peak_flops: float, peak_bw: float) -> dict:
+def phase_convlstm(peak_flops: float, peak_bw: float, f32_flops: float) -> dict:
     """Kernel 1 against its plain version at the serving shape, in every
     design its plan can choose there (f32: stepwise; bf16: resident, and
-    stepwise forced)."""
+    stepwise forced); the plan's own choice bounded in both dtypes."""
     import torch
 
     from vad_tpu_torch.ops import convlstm as cl
@@ -244,7 +253,7 @@ def phase_convlstm(peak_flops: float, peak_bw: float) -> dict:
     w_h = torch.randn((3, 3, c, 4 * c), generator=g, device="cuda") * 0.05
     h0 = torch.randn((S, lat, lat, c), generator=g, device="cuda") * 0.1
     c0 = torch.randn((S, lat, lat, c), generator=g, device="cuda") * 0.1
-    out = {}
+    out, f32 = {}, {}
     for label, dtype, bar in (("f32", torch.float32, F32_BAR), ("bf16", torch.bfloat16, BF16_BAR)):
         gx, wh = gates_x.to(dtype), w_h.to(dtype)
         choices = designs("convlstm_serving", shape, dtype)
@@ -271,22 +280,26 @@ def phase_convlstm(peak_flops: float, peak_bw: float) -> dict:
                    "bar": bar, "ok": ok, "ms": time_ms(kernel)}
             if plan.cluster > 1:
                 rec["active_clusters"] = cl.active_clusters("convlstm_serving", S, lat, lat, c)
-            if label == "bf16" and design == choices[0]:
-                out = rec
+            if design == choices[0]:
+                hw, e = lat * lat, gx.element_size()
+                flops = 2 * S * T * hw * 9 * c * 4 * c
+                nbytes = (S * T * hw * 4 * c * e + S * T * hw * c * e  # gates_x in, h_seq out
+                          + 4 * S * hw * c * 4 + 9 * c * 4 * c * e)  # h0, c0, h_T, c_T, Wh
+                t_ops = flops / (peak_flops if label == "bf16" else f32_flops)
+                rec["bound_ms"] = max(t_ops, nbytes / peak_bw) * 1e3
+                rec["bound_by"] = "operations" if t_ops > nbytes / peak_bw else "bytes"
+                rec["tflops"] = flops / rec["ms"] / 1e9
+                if label == "bf16":
+                    out = rec
+                else:
+                    f32 = {k: rec[k] for k in ("design", "ms", "bound_ms", "bound_by", "tflops")}
             emit(rec)
             require(ok, f"convlstm_serving {label} {design} vs plain version within {bar}, "
                         f"{per_call} launches as planned ({plan.launches})")
         if label == "bf16":
-            rec = out
-            rec["plain_ms"] = time_ms(lambda: convlstm_recurrence_ref(gx, wh, h0, c0), iters=5)
-            hw = lat * lat
-            flops = 2 * S * T * hw * 9 * c * 4 * c
-            nbytes = (S * T * hw * 4 * c * 2 + S * T * hw * c * 2  # gates_x in, h_seq out
-                      + 4 * S * hw * c * 4 + 9 * c * 4 * c * 2)  # h0, c0, h_T, c_T, Wh
-            rec["bound_ms"] = max(flops / peak_flops, nbytes / peak_bw) * 1e3
-            rec["bound_by"] = "operations" if flops / peak_flops > nbytes / peak_bw else "bytes"
-            rec["tflops"] = flops / rec["ms"] / 1e9
-            emit({**rec, "phase": "kernel_time"})
+            out["plain_ms"] = time_ms(lambda: convlstm_recurrence_ref(gx, wh, h0, c0), iters=5)
+            out["f32"] = f32
+            emit({**out, "phase": "kernel_time"})
     return out
 
 
@@ -1014,7 +1027,9 @@ def orbit_frame(t: int, size: int, phase: float, speed: float, anomaly: bool, rn
 
 class WindowSet:
     """In-memory windows with the IPAD dataset's sample dicts (uint8
-    frames): the machine with the card has no PIL to read PNG frames."""
+    frames), so the card's machine needs no image library or files."""
+
+    has_frame_labels = True  # every frame carries its window's label
 
     def __init__(self, labels, seed: int):
         import numpy as np
@@ -1038,11 +1053,13 @@ class WindowSet:
                 "frame_labels": np.full(T, self.labels[i], np.int64)}
 
 
-def phase_train() -> dict:
+def phase_train(results_dir: str):
     """``fit`` for 2 epochs at B=8, T=16, 256x256, bf16 over 32 normal
-    training windows and 16 test windows (half with the intruder); its
-    best checkpoint loaded back into a ``MultiStreamScorer``; then one
-    train step timed (frames/s) and profiled in bf16 and in f32."""
+    training windows and 16 test windows (half with the intruder), into
+    ``results_dir``; its best checkpoint loaded back into a
+    ``MultiStreamScorer``; then one train step timed (frames/s) and
+    profiled in bf16 and in f32.  Returns the launches of ``fit``, the
+    best checkpoint's path and the test windows."""
     import numpy as np
     import torch
 
@@ -1058,30 +1075,30 @@ def phase_train() -> dict:
 
     train_ds = WindowSet([0] * 32, SEED + 100)
     test_ds = WindowSet([0, 1] * 8, SEED + 200)
-    with tempfile.TemporaryDirectory() as tmp:
-        args = build_parser().parse_args([
-            "--category", "orbit", "--epochs", "2", "--batch-size", str(B_TRAIN),
-            "--sequence-length", str(T), "--image-size", str(IMAGE), "--precision", "bf16",
-            "--results-dir", tmp, "--num-workers", "2", "--seed", str(SEED),
-        ])
-        log = io.StringIO()
-        zero_counters()
-        start = time.perf_counter()
-        with contextlib.redirect_stdout(log):
-            result = fit(args, train_ds, test_ds, "cuda")
-        torch.cuda.synchronize()
-        fit_seconds = time.perf_counter() - start
-        launches = read_counters()
-        history, run_dir = result["history"], Path(result["results_dir"])
-        files = {f: (run_dir / f).exists()
-                 for f in ("best_model.ckpt", "final_model.ckpt", "metrics.jsonl")}
-        ckpt = load_checkpoint(run_dir / "best_model.ckpt")
-        model = VideoAutoencoder.from_config(VideoAEConfig.from_args(ckpt["args"]), device="cpu")
-        variables = {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]}
-        sc = MultiStreamScorer(model, variables, 2, T, IMAGE, dtype=torch.bfloat16)
-        for slot in range(2):
-            sc.attach(slot)
-        scores = sc.score_chunk(test_ds.frames[:2])
+    args = build_parser().parse_args([
+        "--category", "orbit", "--epochs", "2", "--batch-size", str(B_TRAIN),
+        "--sequence-length", str(T), "--image-size", str(IMAGE), "--precision", "bf16",
+        "--results-dir", results_dir, "--num-workers", "2", "--seed", str(SEED),
+    ])
+    log = io.StringIO()
+    zero_counters()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        result = fit(args, train_ds, test_ds, "cuda")
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - start
+    launches = read_counters()
+    history, run_dir = result["history"], Path(result["results_dir"])
+    # training_history.png is drawn only where matplotlib imports
+    files = {f: (run_dir / f).exists()
+             for f in ("best_model.ckpt", "final_model.ckpt", "metrics.jsonl")}
+    ckpt = load_checkpoint(run_dir / "best_model.ckpt")
+    model = VideoAutoencoder.from_config(VideoAEConfig.from_args(ckpt["args"]), device="cpu")
+    variables = {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]}
+    sc = MultiStreamScorer(model, variables, 2, T, IMAGE, dtype=torch.bfloat16)
+    for slot in range(2):
+        sc.attach(slot)
+    scores = sc.score_chunk(test_ds.frames[:2])
     losses = history["train_loss"] + history["val_loss"]
     record = {"phase": "train", "epochs": 2, "batch": [B_TRAIN, T, IMAGE, IMAGE, 3],
               "dtype": "bfloat16", "fit_seconds": fit_seconds, "launches": launches,
@@ -1126,7 +1143,242 @@ def phase_train() -> dict:
                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "profile": prof}
         require(math.isfinite(float(loss)), f"{label} timed steps give a finite loss")
     emit({"phase": "train_speed", "batch": [B_TRAIN, T, IMAGE, IMAGE, 3], **speed})
-    return launches
+    return launches, run_dir / "best_model.ckpt", test_ds
+
+
+# ----------------------------------------------------------- evaluation
+
+
+def orbit_bank(n: int, seed: int):
+    """``n`` orbit frames without and with the intruder, one orbit."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    phase, speed = rng.uniform(0, 2 * math.pi), rng.uniform(0.12, 0.2)
+    return tuple(np.stack([orbit_frame(t, IMAGE, phase, speed, anomaly, rng) for t in range(n)])
+                 for anomaly in (False, True))
+
+
+def clip_frames(bank, n: int, offset: int, anomalous: bool):
+    """A frame source: ``n`` frames of ``bank`` from ``offset`` (cycling),
+    the intruder over the middle 30% when ``anomalous``."""
+    normal, intruder = bank
+    lo, hi = (int(n * 0.4), int(n * 0.7)) if anomalous else (n, n)
+    for t in range(n):
+        yield (intruder if lo <= t < hi else normal)[(offset + t) % len(normal)]
+
+
+def counted(run):
+    """``run()`` with the kernels' launch counts zeroed just before and read
+    just after: (its result, wall seconds to a synchronized end, launches)."""
+    import torch
+
+    zero_counters()
+    start = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start, read_counters()
+
+
+def phase_eval(ckpt_path, test_ds, card: str) -> dict:
+    """The evaluation paths at full width on ``fit``'s best checkpoint, f32
+    with TF32 off, frames made in memory (no OpenCV, PIL or matplotlib):
+
+    - ``--video-dir``: ``score_videos`` over ``EVAL_CLIPS`` clips of 40-300
+      frames (half with the intruder) on 16 slots, so slots recycle and
+      clips end in padded short chunks; each clip's scores against the same
+      run on the plain versions and against the clip scored alone through
+      ``stream_scores`` (batch 1, the unfused first block), at the f32 bar;
+      kernels 1 and 4 must launch;
+    - ``--video``: ``stream_scores`` over one ``VIDEO_FRAMES``-frame clip,
+      scores and error maps against the plain versions; kernel 1 must
+      launch;
+    - dataset: ``score_windows`` over ``fit``'s test windows at batch 4,
+      against the plain versions, with both AUROCs;
+    - drift: a ``DRIFT_CHUNKS``-chunk stream through a bf16
+      ``MultiStreamScorer`` (kernel 1 resident, kernel 4) and through the
+      plain bf16 versions, each layer's carried (h, c) compared with
+      ``agree`` after every chunk and held to the bf16 bar at the last;
+      both also measured against the plain f32 stream.  Twice: with the
+      trained weights and with ``init_weights(SEED)`` (larger states).
+
+    frames/s are end to end (host pipeline included) from a second,
+    unprofiled run; device time by kernel and the busy share come from a
+    profiled window of ``PROFILE_CHUNKS`` chunks.  Every record carries the
+    card's name and power limit and the sub-path's seconds; a closing
+    ``eval`` line has the phase's."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.eval.batch_score import score_videos
+    from vad_tpu_torch.eval.metrics import auroc
+    from vad_tpu_torch.eval.serving import MultiStreamScorer
+    from vad_tpu_torch.eval.video_eval import load_video_model, score_windows
+    from vad_tpu_torch.eval.video_render import stream_scores
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+
+    phase_start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, _, _ = load_video_model(ckpt_path, "cuda")
+    bank = orbit_bank(BANK_FRAMES, SEED + 300)
+    rng = np.random.default_rng(SEED + 301)
+    lengths = rng.integers(40, 301, EVAL_CLIPS)
+    offsets = rng.integers(0, BANK_FRAMES, EVAL_CLIPS)
+
+    def clips(n_clips=EVAL_CLIPS, frames=None):
+        return {f"clip{i:02d}": clip_frames(bank, frames or int(lengths[i]), int(offsets[i]),
+                                            i % 2 == 1) for i in range(n_clips)}
+
+    def per_chunk(prof, chunks):
+        return {k: {"ms_per_chunk": v["ms_per_run"] / chunks,
+                    "launches_per_chunk": v["calls_per_run"] / chunks}
+                for k, v in prof["port_kernels"].items()}
+
+    out = {"launches": {}}
+    # --video-dir
+    start = time.perf_counter()
+    got, _, launches = counted(lambda: score_videos(model, None, clips(), IMAGE, T, S))
+    with plain_versions():
+        plain = score_videos(model, None, clips(), IMAGE, T, S)
+    alone = {name: stream_scores(model, None, src, IMAGE, chunk=T) for name, src in clips().items()}
+    cmp = {}
+    for name, res in got.items():
+        require(res["error"] is None and len(res["scores"]) == lengths[int(name[4:])],
+                f"{name}: every frame scored once ({res['error']})")
+        cmp[name] = {"vs_plain": agree(res["scores"], plain[name]["scores"], F32_BAR),
+                     "vs_alone": agree(res["scores"], alone[name], F32_BAR)}
+    frames = int(lengths.sum())
+    _, timed, _ = counted(lambda: score_videos(model, None, clips(), IMAGE, T, S))
+    # a window of full slots: S clips of PROFILE_CHUNKS chunks each
+    prof = device_profile(lambda i: score_videos(model, None, clips(S, PROFILE_CHUNKS * T),
+                                                 IMAGE, T, S), n=1, unit="run")
+    out["launches"]["video_dir"] = launches
+    emit({"phase": "eval_video_dir", "card": card, "clips": EVAL_CLIPS, "slots": S,
+          "frames": frames, "chunks_stepped": launches["first_block"],  # one per step
+          "dtype": "float32", "bar": F32_BAR, "launches": launches,
+          "frames_per_s": frames / timed, "slot_occupancy": frames / (
+              launches["first_block"] * S * T),
+          "profiled_window": {"steps": PROFILE_CHUNKS, "slots_busy": S,
+                              "device_busy_share": prof["device_busy_share"],
+                              "device_ms_per_chunk": prof["device_ms_per_run"] / PROFILE_CHUNKS,
+                              "wall_ms_per_chunk": prof["wall_ms_per_run"] / PROFILE_CHUNKS,
+                              "port_kernels": per_chunk(prof, PROFILE_CHUNKS)},
+          "worst": {what: max((c[what] for c in cmp.values()), key=lambda r: r["rel_l2"])
+                    for what in ("vs_plain", "vs_alone")},
+          "failed": {n: c for n, c in cmp.items() if not all(r["ok"] for r in c.values())},
+          "seconds": time.perf_counter() - start})
+    require(launches["convlstm_serving"] > 0 and launches["first_block"] > 0,
+            f"--video-dir went through kernels 1 and 4: {launches}")
+    require(all(r["ok"] for c in cmp.values() for r in c.values()),
+            f"--video-dir scores vs plain versions and vs each clip alone within {F32_BAR}")
+
+    # --video
+    def video_run(maps=None, frames=VIDEO_FRAMES):
+        on_frame = None if maps is None else (lambda o, r, e, sc: maps.append(e))
+        return stream_scores(model, None, clip_frames(bank, frames, 0, True), IMAGE, chunk=T,
+                             on_frame=on_frame)
+
+    start = time.perf_counter()
+    maps, plain_maps = [], []
+    scores, _, launches = counted(lambda: video_run(maps))
+    with plain_versions():
+        plain_scores = video_run(plain_maps)
+    _, timed, _ = counted(video_run)
+    prof = device_profile(lambda i: video_run(frames=PROFILE_CHUNKS * T), n=1, unit="run")
+    cmp = {"scores": agree(scores, plain_scores, F32_BAR),
+           "error_maps": agree(np.stack(maps), np.stack(plain_maps), F32_BAR)}
+    out["launches"]["video"] = launches
+    emit({"phase": "eval_video", "card": card, "frames": VIDEO_FRAMES, "dtype": "float32",
+          "bar": F32_BAR, "launches": launches, "frames_per_s": VIDEO_FRAMES / timed,
+          "profiled_window": {"chunks": PROFILE_CHUNKS,
+                              "device_busy_share": prof["device_busy_share"],
+                              "device_ms_per_chunk": prof["device_ms_per_run"] / PROFILE_CHUNKS,
+                              "wall_ms_per_chunk": prof["wall_ms_per_run"] / PROFILE_CHUNKS,
+                              "port_kernels": per_chunk(prof, PROFILE_CHUNKS)},
+          "compare": cmp, "seconds": time.perf_counter() - start})
+    require(len(scores) == VIDEO_FRAMES and len(maps) == VIDEO_FRAMES, "every frame scored once")
+    require(launches["convlstm_serving"] > 0, f"--video went through kernel 1: {launches}")
+    require(all(r["ok"] for r in cmp.values()), f"--video vs plain versions within {F32_BAR}")
+
+    # dataset
+    start = time.perf_counter()
+    scored, seconds, launches = counted(lambda: score_windows(model, test_ds, 4))
+    plain_start = time.perf_counter()
+    with plain_versions():
+        plain = score_windows(model, test_ds, 4)
+    plain_seconds = time.perf_counter() - plain_start
+    cmp = {k: agree(scored[k], plain[k], F32_BAR) for k in ("sequence", "frame")}
+
+    def aurocs(r):
+        return {"sequence": auroc(r["labels"], r["sequence"]),
+                "frame": auroc(r["frame_labels"].ravel(), r["frame"].ravel())}
+
+    out["launches"]["dataset"] = launches
+    emit({"phase": "eval_dataset", "card": card, "windows": len(test_ds), "batch_size": 4,
+          "dtype": "float32", "bar": F32_BAR, "launches": launches, "auroc": aurocs(scored),
+          "plain_auroc": aurocs(plain), "scoring_seconds": seconds,
+          "plain_scoring_seconds": plain_seconds, "compare": cmp,
+          "seconds": time.perf_counter() - start})
+    require(launches["convlstm_serving"] > 0, f"dataset scoring went through kernel 1: {launches}")
+    require(all(r["ok"] for r in cmp.values()), f"dataset scores vs plain within {F32_BAR}")
+
+    # long-stream drift of the carried state, bf16 (resident kernel 1, tanh.approx)
+    stream = torch.from_numpy(np.stack(list(clip_frames(bank, DRIFT_CHUNKS * T, 0, True))))
+    stream = stream.to("cuda").reshape(DRIFT_CHUNKS, 1, T, IMAGE, IMAGE, 3)
+    seeded = init_weights(VideoAutoencoder.from_config(VideoAEConfig(), device="cpu"), SEED)
+    launches = {}
+    for label, weights in (("trained", model), ("init_weights", seeded)):
+        start = time.perf_counter()
+
+        def scorer(dtype):
+            sc = MultiStreamScorer(copy.deepcopy(weights), None, 1, T, IMAGE, dtype=dtype,
+                                   device="cuda")
+            sc.attach(0)
+            return sc
+
+        kernels, plain_bf16, plain_f32 = (scorer(d) for d in (torch.bfloat16, torch.bfloat16,
+                                                            torch.float32))
+        curve = {}
+        zero_counters()
+        for i in range(DRIFT_CHUNKS):
+            kernels.score_chunk(stream[i])
+            with plain_versions():
+                plain_bf16.score_chunk(stream[i])
+                with no_tf32():
+                    plain_f32.score_chunk(stream[i])
+            curve[i + 1] = {
+                f"layer{j}_{n}": {"vs_plain_bf16": agree(a[k], b[k]),
+                                  "vs_plain_f32": agree(a[k], f[k])["rel_l2"],
+                                  "plain_bf16_vs_plain_f32": agree(b[k], f[k])["rel_l2"]}
+                for j, (a, b, f) in enumerate(zip(kernels.states, plain_bf16.states,
+                                                  plain_f32.states))
+                for k, n in ((0, "h"), (1, "c"))}
+        torch.cuda.synchronize()
+        launches = read_counters()
+        last = curve[DRIFT_CHUNKS]
+        emit({"phase": "eval_drift", "card": card, "weights": label, "chunks": DRIFT_CHUNKS,
+              "frames": DRIFT_CHUNKS * T, "dtype": "bfloat16", "bar": BF16_BAR,
+              "launches": launches,
+              "rel_l2_vs_plain_bf16": {c: {k: r["vs_plain_bf16"]["rel_l2"]
+                                           for k, r in curve[c].items()} for c in DRIFT_REPORT},
+              "rel_l2_vs_plain_f32": {c: {k: r["vs_plain_f32"] for k, r in curve[c].items()}
+                                      for c in DRIFT_REPORT},
+              "plain_bf16_rel_l2_vs_plain_f32": {
+                  c: {k: r["plain_bf16_vs_plain_f32"] for k, r in curve[c].items()}
+                  for c in DRIFT_REPORT},
+              "max_rel_l2_any_chunk": max(r["vs_plain_bf16"]["rel_l2"]
+                                          for per in curve.values() for r in per.values()),
+              "at_last_chunk": {k: r["vs_plain_bf16"] for k, r in last.items()},
+              "seconds": time.perf_counter() - start})
+        require(launches["convlstm_serving"] > 0 and launches["first_block"] > 0,
+                f"the drift stream went through kernels 1 and 4: {launches}")
+        require(all(r["vs_plain_bf16"]["ok"] for r in last.values()),
+                f"{label}: carried (h, c) after {DRIFT_CHUNKS} chunks vs plain bf16 within "
+                f"{BF16_BAR}")
+    out["launches"]["drift"] = launches
+    emit({"phase": "eval", "card": card, "seconds": time.perf_counter() - phase_start})
+    return out
 
 
 def main() -> int:
@@ -1138,15 +1390,17 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port ({exc}); run from the repository root",
               file=sys.stderr)
         return 1
-    name, peak_flops, peak_bw, f32_flops = phase_device()
+    name, peak_flops, peak_bw, f32_flops, card = phase_device()
     phase_build()
-    checks = {"convlstm_serving": phase_convlstm(peak_flops, peak_bw),
+    checks = {"convlstm_serving": phase_convlstm(peak_flops, peak_bw, f32_flops),
               "first_block": phase_first_block(peak_flops, peak_bw)}
     checks.update(phase_train_kernels(peak_flops, peak_bw, f32_flops))
     phase_edge_shapes()
     launches = phase_main_path()
     phase_train_step_compare()
-    train_launches = phase_train()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, best_ckpt, test_ds = phase_train(tmp)
+        evaluation = phase_eval(best_ckpt, test_ds, card)
     probes = phase_probes()
     checks.update(probes)
     kernels = []
@@ -1175,6 +1429,11 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
         })
+        if kname in ("convlstm_serving", "first_block"):  # the evaluation paths' launches
+            kernels[-1]["eval_launches"] = {path: counts[kname]
+                                            for path, counts in evaluation["launches"].items()}
+        if kname == "convlstm_serving":
+            kernels[-1]["f32"] = rec["f32"]
     emit({"kernels": kernels})
     import torch
 

@@ -28,7 +28,11 @@ from vad_tpu.models.video_autoencoder import VideoAutoencoder as JaxVAE
 from vad_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from vad_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from vad_tpu_torch.data.loader import DistributedLoader
-from vad_tpu_torch.data.video_dataset import IPADDataset, detect_video_dataset_class
+from vad_tpu_torch.data.video_dataset import (
+    IPADDataset,
+    VideoDataset,
+    detect_video_dataset_class,
+)
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_training_weights
 from vad_tpu_torch.ops.losses import mse_per_sample
 from vad_tpu_torch.train.steps import make_eval_step
@@ -150,9 +154,9 @@ def test_ipad_dataset_matches_jax(synthetic_video_root):
 
 
 def test_generic_layout_and_unported_options_raise(tmp_path):
+    # the generic layout is ported now: any layout that is not IPAD
     (tmp_path / "cat" / "train" / "good").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        detect_video_dataset_class(str(tmp_path), "cat")
+    assert detect_video_dataset_class(str(tmp_path), "cat") is VideoDataset
     for flags, item in ((["--model-parallel", "2"], "item 10"), (["--tensorboard"], "item 11"),
                         (["--profile-dir", "p"], "item 11"), (["--debug-nans"], "item 11")):
         with pytest.raises(NotImplementedError, match=item):
@@ -205,7 +209,7 @@ def test_cli_trains_and_jax_reads_its_checkpoints(synthetic_video_root, tmp_path
     (run,) = tmp_path.glob("video_S01_*")
     names = sorted(p.name for p in run.iterdir())
     assert names == ["best_model.ckpt", "checkpoint_epoch_2.ckpt", "final_model.ckpt",
-                     "metrics.jsonl"]
+                     "metrics.jsonl", "training_history.png"]
     best = load_checkpoint(run / "best_model.ckpt")
     final = load_checkpoint(run / "final_model.ckpt")
     assert set(best) == BEST_KEYS and set(final) == FINAL_KEYS

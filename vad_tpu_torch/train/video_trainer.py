@@ -26,7 +26,6 @@ datasets of the same sample dicts.
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
 from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict
@@ -39,6 +38,7 @@ from vad_tpu_torch.data.loader import DistributedLoader
 from vad_tpu_torch.data.video_dataset import detect_video_dataset_class
 from vad_tpu_torch.eval.drift import score_baseline
 from vad_tpu_torch.eval.metrics import calibrate_threshold
+from vad_tpu_torch.eval.plots import plot_or_skip, plot_training_history
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_training_weights
 from vad_tpu_torch.ops.losses import make_per_sample_loss_fn
 from vad_tpu_torch.train.state import (
@@ -53,6 +53,7 @@ from vad_tpu_torch.utils.checkpoint import (
     rotate_epoch_checkpoints,
     save_checkpoint,
 )
+from vad_tpu_torch.utils.precision import tf32_off
 from vad_tpu_torch.utils.profiling import MetricsLogger
 from vad_tpu_torch.utils.weights import load_flax_variables, state_dict_to_flax
 
@@ -110,18 +111,6 @@ def train(args: Any) -> Dict[str, Any]:
     return fit(args, train_ds, test_ds, device)
 
 
-@contextmanager
-def _tf32_off(enabled: bool):
-    """f32 training means f32: cuDNN would run f32 convolutions in TF32."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    if enabled:
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def fit(args: Any, train_ds, test_ds, device=None) -> Dict[str, Any]:
     """Train on ``train_ds`` and select on ``test_ds`` (samples: dicts with
     uint8 ``frames [T,H,W,3]`` and ``label``); returns the model, the
@@ -130,7 +119,7 @@ def fit(args: Any, train_ds, test_ds, device=None) -> Dict[str, Any]:
     device = resolve_device(device)
     refuse_unported(args)
     f32 = (getattr(args, "precision", "f32") or "f32") == "f32"
-    with _tf32_off(f32 and device.type == "cuda"):
+    with tf32_off(f32 and device.type == "cuda"):
         return _fit(args, train_ds, test_ds, device)
 
 
@@ -328,11 +317,12 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
         args.epochs, torch_opt_state=optimizer.state_dict(), history=history,
         best_epoch=best_epoch, best_separation=best_separation))
 
+    if history["train_loss"]:
+        plot_or_skip(plot_training_history, history, results_dir / "training_history.png")
+
     print("-" * 60)
     print("Training complete!")
     print(f"Best separation ratio: {best_separation:.2f}x at epoch {best_epoch}")
     print(f"Models saved to: {results_dir}")
-    print("(training_history.png is not written: the plots module is not ported yet, "
-          "ROADMAP Queue 1 item 4)")
     return {"model": model, "history": history, "results_dir": results_dir,
             "best_separation": best_separation, "best_epoch": best_epoch}

@@ -8,11 +8,26 @@ conv's input and the emitted hidden sequence are cast down.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Any, Mapping
 
 import torch
 
 STATE_DTYPE = torch.float32  # (h, c) carried across chunks
+
+
+@contextmanager
+def tf32_off(enabled: bool = True):
+    """f32 means f32: with ``enabled``, cuDNN's convolutions and cuBLAS's
+    matrix products run without TF32 inside the block (cuDNN's default is
+    TF32), and the flags are restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if enabled:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
