@@ -31,6 +31,16 @@ model's full width:
   versions and ``--video-dir`` also against each clip scored alone, with
   frames/s and device time by kernel; then a 64-chunk bf16 stream whose
   carried (h, c) must stay within the bf16 bar of the plain versions;
+  ``temporal_features`` (kernel 1 stepwise, f32) against the plain
+  versions; and ``--scorer latent`` (the latent-distance scorer fitted on
+  training windows' frames) over the test windows, with its AUROC;
+- the image model (``ImageAEConfig()``, 256x256) on an MVTec-format
+  fixture written with the port's generator: one train step on the card
+  against the same step on the CPU (f32 with TF32 off, and bf16), then
+  ``python -m vad_tpu_torch.train`` for 2 epochs and ``python -m
+  vad_tpu_torch.evaluate`` with both scorers (in process), the card's
+  scores and latent maps against the CPU's, train and evaluation images/s
+  and profiles (no port kernel runs there);
 - the kernel probes: kernel 5 (the tie-splitting 2x2 max-pool backward)
   held exactly against its plain version at the encoder's four pool
   inputs, kernel 6's five ablation modes against theirs (``full`` equal
@@ -109,6 +119,10 @@ EDGE_FRAMES = ((3, 34, 50, 3), (2, 22, 270, 3), (2, 26, 208, 3))
 # frames), with the chunks at which its distance is reported.
 EVAL_CLIPS, VIDEO_FRAMES, BANK_FRAMES, PROFILE_CHUNKS = 24, 300, 128, 4
 DRIFT_CHUNKS, DRIFT_REPORT = 64, (1, 4, 16, 64)
+# The image phase: training images per step of the card-vs-CPU step
+# comparison (the CPU takes the same step), and the largest relative L2
+# distance between the card's and the CPU's scores and maps (f32, TF32 off).
+IMAGE_COMPARE_B, IMAGE_CPU_REL_L2 = 8, 1e-4
 
 
 def emit(obj) -> None:
@@ -885,6 +899,65 @@ def pre_batch_norm_biases(model) -> list:
             + [f"decoder.deconvs.{i}.bias" for i in range(len(model.decoder.norms))])
 
 
+TRAIN_BARS = {"f32": (F32_BAR, TRAIN_F32_BAR), "bf16": (BF16_BAR, BF16_BAR)}
+
+
+def judge_train_step(test: dict, ref: dict, exact: dict, label: str,
+                     zero_by_construction, anchor: dict | None = None) -> dict:
+    """``test``'s train step against ``ref``'s (each ``{"loss", "grads",
+    "stats"}`` from the same weights and batch, ``label`` its precision)
+    with ``agree`` at ``TRAIN_BARS``: the loss and statistics at the first
+    bar, the gradients at the second; ``exact`` is the reference's f32
+    gradients, for the bf16 noise floor (see ``phase_train_step_compare``).
+
+    ``anchor`` (a float64 step's gradients) judges a gradient that misses
+    the bar when the two steps run on different implementations (the card
+    against the CPU): it passes when it lies no further from the anchor
+    than ``ref``'s does (x1.25, + 1e-5 in f32, + 0.005 in bf16) and within
+    the gradient bar's rtol (f32) or ``BF16_NOISY_VS_PLAIN`` (bf16) of
+    ``ref``.  Returns the summary the phase lines carry."""
+    import torch
+
+    bar, grad_bar = TRAIN_BARS[label]
+    cmp = {"loss": agree(test["loss"], ref["loss"], bar)}
+    cmp.update({f"stat:{n}": agree(st, ref["stats"][n], bar) for n, st in test["stats"].items()})
+    for n, gr in test["grads"].items():
+        rec = agree(gr, ref["grads"][n], grad_bar, atol_of_max=label == "f32")
+        if n in zero_by_construction:
+            rec["ok"] = bool(torch.allclose(gr.float(), ref["grads"][n].float(), **bar))
+            rec["judged_by"] = "allclose only: zero by construction"
+        elif anchor is not None and not rec["ok"]:
+            slack, most = (1e-5, grad_bar["rtol"]) if label == "f32" else (0.005,
+                                                                            BF16_NOISY_VS_PLAIN)
+            err_k = agree(gr, anchor[n])["rel_l2"]
+            err_p = agree(ref["grads"][n], anchor[n])["rel_l2"]
+            rec.update(ok=err_k <= 1.25 * err_p + slack and rec["rel_l2"] <= most,
+                       rel_l2_vs_f64=err_k, ref_rel_l2_vs_f64=err_p, judged_by="float64 anchor")
+        elif label == "bf16" and not rec["ok"]:
+            err_k = agree(gr, exact[n])["rel_l2"]
+            err_p = agree(ref["grads"][n], exact[n])["rel_l2"]
+            if err_p >= BF16_NOISY:
+                rec.update(ok=err_k <= 1.25 * err_p + 0.005
+                           and rec["rel_l2"] <= BF16_NOISY_VS_PLAIN,
+                           rel_l2_vs_f32=err_k, plain_rel_l2_vs_f32=err_p,
+                           judged_by="bf16 noise floor")
+        cmp[f"grad:{n}"] = rec
+    judged = {n: r for n, r in cmp.items() if "judged_by" not in r}
+    worst = max(judged.items(), key=lambda kv: kv[1]["rel_l2"])
+    return {
+        "compared": len(cmp), "failed": {n: r for n, r in cmp.items() if not r["ok"]},
+        "worst_by_bar": {"name": worst[0], **worst[1]},
+        "worst_abs_err_of_max": max((r["max_abs_err"] / max(r["max_abs_ref"], 1e-30)
+                                     for n, r in judged.items() if n.startswith("grad:")),
+                                    default=0.0),
+        "noise_floor": {n: r for n, r in cmp.items()
+                        if r.get("judged_by") in ("bf16 noise floor", "float64 anchor")},
+        "zero_by_construction_max_abs": max((float(test["grads"][n].abs().max())
+                                             for n in zero_by_construction), default=0.0),
+        "zero_grads": [n for n, gr in test["grads"].items() if not bool(gr.abs().max() > 0)],
+    }
+
+
 def phase_train_step_compare() -> None:
     """One full-width ``make_train_step`` step (B=8, T=16, 256x256, the
     default model from ``init_weights(seed)``) through kernels 2 and 3,
@@ -933,43 +1006,14 @@ def phase_train_step_compare() -> None:
             }
     exact = runs["f32", "plain"]["grads"]
     results = {}
-    bars = {"f32": (F32_BAR, TRAIN_F32_BAR), "bf16": (BF16_BAR, BF16_BAR)}
     for label in ("f32", "bf16"):
         k, pl = runs[label, "kernels"], runs[label, "plain"]
-        bar, grad_bar = bars[label]
-        cmp = {"loss": agree(k["loss"], pl["loss"], bar)}
-        cmp.update({f"stat:{n}": agree(st, pl["stats"][n], bar)
-                    for n, st in k["stats"].items()})
-        for n, gr in k["grads"].items():
-            rec = agree(gr, pl["grads"][n], grad_bar, atol_of_max=label == "f32")
-            if n in zero_by_construction:
-                rec["ok"] = bool(torch.allclose(gr.float(), pl["grads"][n].float(), **bar))
-                rec["judged_by"] = "allclose only: zero by construction"
-            elif label == "bf16" and not rec["ok"]:
-                err_k = agree(gr, exact[n])["rel_l2"]
-                err_p = agree(pl["grads"][n], exact[n])["rel_l2"]
-                if err_p >= BF16_NOISY:
-                    rec.update(ok=err_k <= 1.25 * err_p + 0.005
-                               and rec["rel_l2"] <= BF16_NOISY_VS_PLAIN,
-                               rel_l2_vs_f32=err_k, plain_rel_l2_vs_f32=err_p,
-                               judged_by="bf16 noise floor")
-            cmp[f"grad:{n}"] = rec
-        zero_grads = [n for n, gr in k["grads"].items() if not bool(gr.abs().max() > 0)]
-        judged = {n: r for n, r in cmp.items() if "judged_by" not in r}
-        worst = max(judged.items(), key=lambda kv: kv[1]["rel_l2"])
         results[label] = {
             "loss": float(k["loss"]), "plain_loss": float(pl["loss"]),
             "launches": k["launches"], "plain_launches": pl["launches"],
-            "compared": len(cmp), "failed": {n: r for n, r in cmp.items() if not r["ok"]},
-            "worst_by_bar": {"name": worst[0], **worst[1]},
-            "worst_abs_err_of_max": max(r["max_abs_err"] / max(r["max_abs_ref"], 1e-30)
-                                        for n, r in judged.items() if n.startswith("grad:")),
-            "noise_floor": {n: r for n, r in cmp.items()
-                            if r.get("judged_by") == "bf16 noise floor"},
-            "zero_by_construction_max_abs": max(float(k["grads"][n].abs().max())
-                                                for n in zero_by_construction),
-            "zero_grads": zero_grads,
+            **judge_train_step(k, pl, exact, label, zero_by_construction),
         }
+        zero_grads = results[label]["zero_grads"]
         require(k["launches"]["convlstm_train_forward"] > 0
                 and k["launches"]["convlstm_backward"] > 0,
                 f"{label} train step went through kernels 2 and 3: {k['launches']}")
@@ -978,11 +1022,11 @@ def phase_train_step_compare() -> None:
                 f"{label} plain step launched no recurrence kernel: {pl['launches']}")
         require(not zero_grads, f"{label}: every parameter got a non-zero gradient")
     emit({"phase": "train_step_compare", "batch": [B_TRAIN, T, IMAGE, IMAGE, 3],
-          "bars": {"f32": bars["f32"], "bf16": bars["bf16"][0],
+          "bars": {"f32": TRAIN_BARS["f32"], "bf16": TRAIN_BARS["bf16"][0],
                    "bf16_noise_floor_from": BF16_NOISY,
                    "bf16_noisy_vs_plain": BF16_NOISY_VS_PLAIN}, **results})
     require(all(not r["failed"] for r in results.values()),
-            f"train step through the kernels vs the plain versions within {bars}")
+            f"train step through the kernels vs the plain versions within {TRAIN_BARS}")
 
 
 def _gradient_bg(size: int):
@@ -1200,7 +1244,12 @@ def phase_eval(ckpt_path, test_ds, card: str) -> dict:
       plain bf16 versions, each layer's carried (h, c) compared with
       ``agree`` after every chunk and held to the bf16 bar at the last;
       both also measured against the plain f32 stream.  Twice: with the
-      trained weights and with ``init_weights(SEED)`` (larger states).
+      trained weights and with ``init_weights(SEED)`` (larger states);
+    - ``temporal_features`` over the test windows at batch 4 (kernel 1
+      stepwise, f32) against the plain versions at the f32 bar;
+    - ``--scorer latent``: ``latent_frame_maps`` fitted on 8 training
+      windows' frames, then ``score_windows`` over the test windows, with
+      both AUROCs (no port kernel: the scorer reads the encoder only).
 
     frames/s are end to end (host pipeline included) from a second,
     unprofiled run; device time by kernel and the busy share come from a
@@ -1214,9 +1263,10 @@ def phase_eval(ckpt_path, test_ds, card: str) -> dict:
     from vad_tpu_torch.eval.batch_score import score_videos
     from vad_tpu_torch.eval.metrics import auroc
     from vad_tpu_torch.eval.serving import MultiStreamScorer
-    from vad_tpu_torch.eval.video_eval import load_video_model, score_windows
+    from vad_tpu_torch.eval.video_eval import latent_frame_maps, load_video_model, score_windows
     from vad_tpu_torch.eval.video_render import stream_scores
     from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+    from vad_tpu_torch.train.steps import u8_normalize
 
     phase_start = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -1323,6 +1373,47 @@ def phase_eval(ckpt_path, test_ds, card: str) -> dict:
     require(launches["convlstm_serving"] > 0, f"dataset scoring went through kernel 1: {launches}")
     require(all(r["ok"] for r in cmp.values()), f"dataset scores vs plain within {F32_BAR}")
 
+    # temporal_features: the last ConvLSTM layer's h_seq, kernel 1 stepwise in f32
+    start = time.perf_counter()
+    windows = torch.from_numpy(test_ds.frames).to("cuda")
+
+    def temporal():
+        with torch.no_grad(), no_tf32():
+            return torch.cat([model.temporal_features(u8_normalize(w))[0]
+                              for w in windows.split(4)])
+
+    h_seq, seconds, launches = counted(temporal)
+    with plain_versions():
+        plain_h = temporal()
+    cmp = agree(h_seq, plain_h, F32_BAR)
+    out["launches"]["temporal_features"] = launches
+    emit({"phase": "eval_temporal_features", "card": card, "windows": len(test_ds),
+          "batch": [4, T, IMAGE, IMAGE, 3], "h_seq": list(h_seq.shape), "dtype": "float32",
+          "bar": F32_BAR, "plan": plan_record("convlstm_serving", (4, T, IMAGE // 16,
+                                                                    IMAGE // 16, 128),
+                                              torch.float32),
+          "launches": launches, "seconds_4_calls": seconds, "compare": cmp,
+          "phase_seconds": time.perf_counter() - start})
+    require(launches["convlstm_serving"] > 0,
+            f"temporal_features went through kernel 1: {launches}")
+    require(cmp["ok"], f"temporal_features vs plain versions within {F32_BAR}")
+
+    # --scorer latent on the in-memory windows: fit on 8 training windows' frames
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        (maps_fn, state), fit_seconds, fit_launches = counted(
+            lambda: latent_frame_maps(model, WindowSet([0] * 8, SEED + 100), 4))
+    scored, seconds, launches = counted(
+        lambda: score_windows(model, test_ds, 4, frame_maps_fn=maps_fn, scorer_state=state))
+    out["launches"]["latent_fit"], out["launches"]["latent"] = fit_launches, launches
+    emit({"phase": "eval_latent", "card": card, "fit_frames": 8 * T, "windows": len(test_ds),
+          "dtype": "float32", "grid": int(state[0].shape[0] ** 0.5),
+          "dim": int(state[0].shape[1]), "launches": launches, "fit_seconds": fit_seconds,
+          "scoring_seconds": seconds, "auroc": aurocs(scored),
+          "phase_seconds": time.perf_counter() - start})
+    require(bool(np.isfinite(scored["frame"]).all()) and scored["frame"].shape == (16, T),
+            "latent frame scores finite, one per frame")
+
     # long-stream drift of the carried state, bf16 (resident kernel 1, tanh.approx)
     stream = torch.from_numpy(np.stack(list(clip_frames(bank, DRIFT_CHUNKS * T, 0, True))))
     stream = stream.to("cuda").reshape(DRIFT_CHUNKS, 1, T, IMAGE, IMAGE, 3)
@@ -1381,6 +1472,239 @@ def phase_eval(ckpt_path, test_ds, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ image model
+
+
+def image_pre_norm_biases(model) -> list:
+    """The image model's conv biases that feed a train-mode BatchNorm (every
+    conv but the last): exact gradient zero, computed ones are noise."""
+    if model.norm != "batch":
+        return []
+    return [n for n, _ in model.named_parameters()
+            if n.endswith(".bias") and "norm" not in n and n != "decoder.conv.bias"]
+
+
+def image_step_run(base, batch, dtype, device: str) -> dict:
+    """One ``make_train_step`` step of a copy of ``base`` on ``device``:
+    the loss, every gradient and the running statistics, on the CPU."""
+    import torch
+
+    from vad_tpu_torch.ops.losses import mse_per_sample
+    from vad_tpu_torch.train.state import make_optimizer
+    from vad_tpu_torch.train.steps import make_train_step
+
+    model = copy.deepcopy(base).to(device)
+    optimizer = make_optimizer(model.parameters(), 1e-3)
+    start = time.perf_counter()
+    with no_tf32():
+        loss = make_train_step(mse_per_sample, dtype)(model, optimizer, batch.to(device),
+                                                      batch.shape[0])
+    return {"loss": loss.cpu(), "seconds": time.perf_counter() - start,
+            "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            "stats": {n: b.cpu() for n, b in model.named_buffers() if ".running_" in n}}
+
+
+def phase_image(card: str) -> dict:
+    """The image model at the default width (``ImageAEConfig()``: latent
+    256, 256x256, BatchNorm, pool stem) on an MVTec-format fixture written
+    with the port's ``synthetic.py`` (50 train, 10 good and 20 defect test
+    images with masks):
+
+    - one train step on the card against the same step on the CPU (same
+      weights from ``init_training_weights(SEED)``, same ``IMAGE_COMPARE_B``
+      training images) in f32 (TF32 off) and bf16, judged as
+      ``phase_train_step_compare`` judges the video step, with the CPU's
+      float64 step as ``judge_train_step``'s anchor: this step's gradients
+      are sums with heavy cancellation (BatchNorm's backward), so cuDNN's
+      and the CPU's f32 steps can lie as far from float64 as from each
+      other, with single entries off by more than the bar's atol;
+    - ``python -m vad_tpu_torch.train`` for 2 epochs at batch 16 (in
+      process, through ``main``), then ``python -m vad_tpu_torch.evaluate``
+      on its best checkpoint with ``--scorer recon``, with ``--score-mode
+      max --score-smooth 4``, and with ``--scorer latent``;
+    - the card's recon scores and latent maps (from the evaluation's
+      ``latent_stats.npz``) against the same model's on the CPU, rel L2 <=
+      ``IMAGE_CPU_REL_L2``;
+    - train images/s and a profile of the train step (both precisions),
+      evaluation images/s and a profile of the scoring pass.
+
+    The image path runs no port kernel: the launch counts must stay 0."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch import evaluate as eval_cli
+    from vad_tpu_torch.core.config import ImageAEConfig
+    from vad_tpu_torch.data.image_dataset import MVTecDataset
+    from vad_tpu_torch.data.synthetic import create_synthetic_image_data
+    from vad_tpu_torch.eval import image_eval
+    from vad_tpu_torch.eval.latent_score import load_stats, make_distance_fn, stats_state
+    from vad_tpu_torch.models.autoencoder import ConvAutoencoder
+    from vad_tpu_torch.models.video_autoencoder import init_training_weights
+    from vad_tpu_torch.ops.losses import mse_per_sample
+    from vad_tpu_torch.train import __main__ as train_cli
+    from vad_tpu_torch.train.state import make_optimizer
+    from vad_tpu_torch.train.steps import make_train_step, u8_normalize
+
+    phase_start = time.perf_counter()
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        create_synthetic_image_data(tmp, "synthetic", 50, 10, 20, IMAGE)
+        train_ds = MVTecDataset(tmp, "synthetic", "train", IMAGE, normalize=False)
+        test_ds = MVTecDataset(tmp, "synthetic", "test", IMAGE, normalize=False)
+        fixture_seconds = time.perf_counter() - start
+
+        # one train step, card against CPU
+        cfg = ImageAEConfig()
+        base = init_training_weights(ConvAutoencoder.from_config(cfg, device="cpu"), SEED)
+        zero_by_construction = set(image_pre_norm_biases(base))
+        batch = torch.from_numpy(np.stack([train_ds[i]["image"]
+                                           for i in range(IMAGE_COMPARE_B)]))
+        runs = {}
+        zero_counters()
+        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            for where in ("cuda", "cpu"):
+                runs[label, where] = image_step_run(base, batch, dtype, where)
+        out["launches"]["step_compare"] = read_counters()
+        anchor = image_step_run(base, batch, torch.float64, "cpu")
+        compare = {}
+        for label in ("f32", "bf16"):
+            k, ref = runs[label, "cuda"], runs[label, "cpu"]
+            compare[label] = {"loss": float(k["loss"]), "cpu_loss": float(ref["loss"]),
+                              "cpu_seconds": ref["seconds"],
+                              **judge_train_step(k, ref, runs["f32", "cpu"]["grads"], label,
+                                                 zero_by_construction, anchor["grads"])}
+        emit({"phase": "image_step_compare", "card": card,
+              "batch": [IMAGE_COMPARE_B, IMAGE, IMAGE, 3], "config": cfg.to_dict(),
+              "parameters": sum(p.numel() for p in base.parameters()),
+              "bars": {"f32": TRAIN_BARS["f32"], "bf16": TRAIN_BARS["bf16"][0]}, **compare})
+        require(all(not r["failed"] for r in compare.values()),
+                f"image train step card vs CPU within {TRAIN_BARS}")
+        require(all(not r["zero_grads"] for r in compare.values()),
+                "image train step: every parameter got a non-zero gradient")
+
+        # the two CLIs
+        results = Path(tmp) / "results"
+        log = io.StringIO()
+        zero_counters()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            trained = train_cli.main([
+                "--category", "synthetic", "--data-dir", tmp, "--image-size", str(IMAGE),
+                "--epochs", "2", "--batch-size", "16", "--num-workers", "4",
+                "--results-dir", str(results), "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        train_seconds = time.perf_counter() - start
+        out["launches"]["train_cli"] = read_counters()
+        history, run_dir = trained["history"], Path(trained["results_dir"])
+        ckpt = run_dir / "best_model.ckpt"
+        emit({"phase": "image_train", "card": card, "epochs": 2, "batch": 16,
+              "train_images": len(train_ds), "test_images": len(test_ds),
+              "fixture_seconds": fixture_seconds, "cli_seconds": train_seconds,
+              "history": history, "launches": out["launches"]["train_cli"],
+              "files": sorted(p.name for p in run_dir.iterdir()),
+              "log_tail": log.getvalue().splitlines()[-6:]})
+        require(len(history["train_loss"]) == 2
+                and all(math.isfinite(v) for v in history["train_loss"] + history["val_loss"]),
+                "image training: 2 epochs with finite losses")
+        require(ckpt.exists() and (run_dir / "final_model.ckpt").exists(),
+                "image training wrote best_model.ckpt and final_model.ckpt")
+
+        evals = {}
+        for name, flags in (("recon", ["--scorer", "recon"]),
+                            ("recon_max_smooth4", ["--score-mode", "max", "--score-smooth", "4"]),
+                            ("latent", ["--scorer", "latent"])):
+            log = io.StringIO()
+            zero_counters()
+            start = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                score = eval_cli.main(["--checkpoint", str(ckpt), *flags])
+            torch.cuda.synchronize()
+            text = (run_dir / "evaluation" / "results.txt").read_text()
+            metric = {key: float(m.group(1)) for key, rx in (
+                ("pixel_auroc", r"Pixel-level AUROC: ([0-9.]+)"),
+                ("aupro", r"AUPRO \(FPR<=0\.3\): ([0-9.]+)"),
+                ("ap", r"Average precision \(AUPRC\): ([0-9.]+)"))
+                      if (m := re.search(rx, text))}
+            out["launches"][f"evaluate_{name}"] = read_counters()
+            evals[name] = {"auroc": score, **metric, "cli_seconds": time.perf_counter() - start}
+            require(0.0 <= score <= 1.0 and math.isfinite(metric.get("pixel_auroc", 0.0)),
+                    f"image evaluation {name}: AUROC {score}")
+
+        # card against CPU on the trained model: recon scores, latent maps
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, _, _ = image_eval.load_image_model(ckpt, "cuda")
+            cpu_model, _, _ = image_eval.load_image_model(ckpt, "cpu")
+        stats = load_stats(run_dir / "evaluation" / "latent_stats.npz")
+        dfn = make_distance_fn(lambda m, x: m.feature_pyramid(x), stats.layers, stats.grid)
+        x = torch.from_numpy(np.stack([test_ds[i]["image"] for i in range(len(test_ds))]))
+        vs_cpu = {}
+        card_state, cpu_state = stats_state(stats, "cuda"), stats_state(stats)
+        with torch.no_grad(), no_tf32():
+            for what, fn in (("recon_scores", lambda m, st, xs: m.reconstruction_error(xs)),
+                             ("recon_maps", lambda m, st, xs: m.error_map(xs)),
+                             ("latent_maps", dfn)):
+                got = torch.cat([fn(model, card_state, u8_normalize(xb.cuda())).cpu()
+                                 for xb in x.split(10)])
+                want = torch.cat([fn(cpu_model, cpu_state, u8_normalize(xb))
+                                  for xb in x.split(10)])
+                vs_cpu[what] = agree(got, want, dict(rtol=IMAGE_CPU_REL_L2, atol=0.0))
+                vs_cpu[what]["ok"] = vs_cpu[what]["rel_l2"] <= IMAGE_CPU_REL_L2
+        require(all(r["ok"] for r in vs_cpu.values()),
+                f"image scores and latent maps card vs CPU within rel L2 {IMAGE_CPU_REL_L2}")
+
+        # speed: the train step in both precisions, the scoring pass
+        g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        u8 = torch.randint(0, 256, (16, IMAGE, IMAGE, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+        speed = {}
+        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            net = copy.deepcopy(base).to("cuda")
+            opt = make_optimizer(net.parameters(), 1e-3)
+            step = make_train_step(mse_per_sample, dtype)
+            with no_tf32():
+                for _ in range(3):
+                    step(net, opt, u8, 16)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                n = 20
+                start = time.perf_counter()
+                for _ in range(n):
+                    loss = step(net, opt, u8, 16)
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - start
+                prof = device_profile(lambda i: step(net, opt, u8, 16), n=5, unit="step")
+            speed[label] = {"train_images_per_s": n * 16 / elapsed,
+                            "ms_per_step": elapsed / n * 1e3, "loss": float(loss),
+                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                            "profile": prof}
+        image_eval.score_split(model, test_ds, keep_maps=True)  # warm
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        split = image_eval.score_split(model, test_ds, keep_maps=True)
+        torch.cuda.synchronize()
+        score_seconds = time.perf_counter() - start
+        prof = device_profile(lambda i: image_eval.score_split(model, test_ds, keep_maps=True),
+                              n=2, unit="pass")
+    record = {"phase": "image", "card": card, "config": cfg.to_dict(),
+              "train_images_per_s": {k: v["train_images_per_s"] for k, v in speed.items()},
+              "eval_images_per_s": len(split["scores"]) / score_seconds,
+              "device_busy_share": {"train_step_f32": speed["f32"]["profile"][
+                  "device_busy_share"], "train_step_bf16": speed["bf16"]["profile"][
+                  "device_busy_share"], "eval_pass": prof["device_busy_share"]},
+              "auroc": {n: e["auroc"] for n, e in evals.items()},
+              "pixel_auroc": {n: e.get("pixel_auroc") for n, e in evals.items()},
+              "aupro": {n: e.get("aupro") for n, e in evals.items()},
+              "vs_cpu": vs_cpu, "evaluations": evals, "train_speed": speed,
+              "eval_profile": prof, "launches": out["launches"],
+              "seconds": time.perf_counter() - phase_start}
+    emit(record)
+    launched = [(path, k, v) for path, counts in out["launches"].items()
+                for k, v in counts.items() if v]
+    require(not launched, f"the image path launched no port kernel: {launched}")
+    return out
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -1401,6 +1725,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, best_ckpt, test_ds = phase_train(tmp)
         evaluation = phase_eval(best_ckpt, test_ds, card)
+    phase_image(card)
     probes = phase_probes()
     checks.update(probes)
     kernels = []

@@ -363,6 +363,24 @@ def test_evaluate_ipad_matches_jax(small, ipad_root, tmp_path, objective, flags)
     assert "Frame-level AUROC" in (got_dir / "results.txt").read_text()
 
 
+def test_evaluate_latent_scorer_matches_jax(small, ipad_root, tmp_path):
+    """``--scorer latent`` from one ``--latent-stats`` npz (the JAX
+    evaluator's own fit): the same AUROC to 4 decimals, the results within
+    the f32 bar, the ``Scorer: latent`` line and the latent heatmaps."""
+    _, variables = small
+    fit_ckpt = write_ckpt(tmp_path / "fit" / "best_model.ckpt", variables)
+    jax_eval.evaluate(jax_cli.build_parser().parse_args(
+        ["--checkpoint", str(fit_ckpt), "--data-dir", ipad_root, "--category", "S01",
+         "--batch-size", "3", "--scorer", "latent", "--latent-proj-dim", "24"]))
+    npz = fit_ckpt.parent / "evaluation" / "latent_stats.npz"
+    got, want, got_dir, want_dir = run_both(small, tmp_path, ipad_root, "S01", "reconstruct",
+                                            ["--scorer", "latent", "--latent-stats", str(npz)])
+    assert round(got, 4) == round(want, 4)
+    assert_same_results(got_dir, want_dir)
+    text = (got_dir / "results.txt").read_text()
+    assert "Scorer: latent" in text and "Frame-level AUROC" in text
+
+
 def test_evaluate_generic_mp4_matches_jax(small, mp4_layout, tmp_path):
     got, want, got_dir, want_dir = run_both(small, tmp_path, mp4_layout, "cat", "reconstruct",
                                             [])
@@ -413,8 +431,7 @@ def test_load_video_model_reads_both_packages_checkpoints(small, tmp_path):
 
 def test_refusals():
     base = ["--checkpoint", "x.ckpt", "--device", "cpu"]
-    for flags, item in ((["--data-parallel"], "item 10"),
-                        (["--scorer", "latent"], r"items 2 \(rest\) and 7")):
+    for flags, item in ((["--data-parallel"], "item 10"),):
         with pytest.raises(NotImplementedError, match=item):
             video_eval.evaluate(cli.build_parser().parse_args(base + flags))
     args = cli.build_parser().parse_args(base + ["--latent-proj-dim", "64", "--latent-grid", "8",

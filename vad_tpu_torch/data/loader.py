@@ -2,9 +2,9 @@
 ``DistributedLoader`` for one process, without a mesh).
 
 Decode runs on a thread pool (PIL and numpy release the GIL) two batches
-ahead of the consumer; the ``frames`` array goes to the device through
-pinned memory with a non-blocking copy, so the transfer overlaps the
-step that is running.  Sharding over several processes or cards waits for
+ahead of the consumer; the ``frames`` (video) or ``image`` array goes to
+the device through pinned memory with a non-blocking copy, so the
+transfer overlaps the step that is running.  Sharding over several processes or cards waits for
 the scaling item of the port.
 """
 
@@ -19,9 +19,9 @@ import torch
 from vad_tpu_torch.core.device import resolve_device
 
 # Keys that hold per-sample str metadata rather than stackable arrays.
-_META_KEYS = ("video",)
+_META_KEYS = ("path", "defect_type", "video")
 # Array keys moved to the device; the rest stay host numpy.
-DEVICE_KEYS = ("frames",)
+DEVICE_KEYS = ("frames", "image")
 
 
 def collate(samples: List[Dict]) -> Dict[str, Any]:
@@ -50,7 +50,7 @@ class DistributedLoader:
         pad_to: static batch shape (>= batch_size).
         shuffle/seed: epoch-seeded permutation.
         num_workers: decode threads (0 = synchronous).
-        device: where ``frames`` goes (``None`` means CUDA).
+        device: where ``frames`` or ``image`` goes (``None`` means CUDA).
     """
 
     def __init__(

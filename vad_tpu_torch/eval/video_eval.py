@@ -5,6 +5,13 @@ exist, average precision, score statistics and separation, the ROC and
 score-distribution plots, side-by-side visualization PNGs, and
 ``results.txt`` in the JAX evaluator's format.
 
+``--scorer latent`` scores by the latent-distance scorer
+(``eval/latent_score.py``) instead of the reconstruction error: per-position
+Gaussians fitted on the training split's frames (or read from
+``--latent-stats``; the fit is written to ``evaluation/latent_stats.npz``),
+a frame's score the mean of its Mahalanobis map.  It is purely spatial, so
+it ignores the ConvLSTM and the training objective.
+
 Frames stay uint8 to the device and are normalized there; scoring runs in
 f32 with TF32 off on the card (so its scores hold the f32 bar), the
 recurrence through kernel 1.  ``score_windows`` is the scoring loop alone,
@@ -25,6 +32,12 @@ from vad_tpu_torch.core.config import VideoAEConfig
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.data.loader import DistributedLoader
 from vad_tpu_torch.data.video_dataset import cv2_module, detect_video_dataset_class
+from vad_tpu_torch.eval.latent_score import (
+    fit_or_load,
+    make_distance_fn,
+    stats_state,
+    upsample_maps,
+)
 from vad_tpu_torch.eval.metrics import auroc, average_precision
 from vad_tpu_torch.eval.plots import (
     plot_or_skip,
@@ -44,8 +57,6 @@ SCORE_MODES = ("mean", "max", "p99")
 # (attribute, whether the value asks for it, flag, ROADMAP item).
 _NOT_PORTED = (
     ("data_parallel", bool, "--data-parallel", "Queue 1 item 10 (scaling)"),
-    ("scorer", lambda v: (v or "recon") == "latent", "--scorer latent",
-     "Queue 1 items 2 (rest) and 7 (feature_pyramid, latent_score)"),
 )
 
 
@@ -124,11 +135,14 @@ def _score_method(objective: str):
 
 
 def score_windows(model: VideoAutoencoder, dataset, batch_size: int = 4,
-                  objective: str = "reconstruct") -> Dict[str, Any]:
+                  objective: str = "reconstruct", frame_maps_fn=None,
+                  scorer_state=None) -> Dict[str, Any]:
     """Score every window of ``dataset`` (``__len__``, ``__getitem__`` ->
     {"frames" uint8 [T,H,W,3], "label", "frame_labels"}, ``labels``,
     ``has_frame_labels``) in batches of ``batch_size`` on the model's
-    device, in eval mode.
+    device, in eval mode.  ``frame_maps_fn(model, scorer_state, frames
+    [N,H,W,C]) -> [N,G,G]`` (the latent scorer, ``latent_frame_maps``)
+    replaces the reconstruction error: a frame's score is its map's mean.
 
     Returns float64 numpy arrays: ``sequence`` [N] (the mean of each
     window's frame scores), ``frame`` [N, T'] (T' = T, or T-1 aligned to
@@ -142,7 +156,12 @@ def score_windows(model: VideoAutoencoder, dataset, batch_size: int = 4,
     model.eval()
     with torch.no_grad(), tf32_off(device.type == "cuda"):
         for batch, n_real in loader:
-            frame = method(model, u8_normalize(batch["frames"]), per_frame=True)[:n_real]
+            x = u8_normalize(batch["frames"])
+            if frame_maps_fn is not None:
+                maps = frame_maps_fn(model, scorer_state, x.flatten(0, 1))
+                frame = maps.mean(dim=(1, 2)).reshape(x.shape[:2])[:n_real]
+            else:
+                frame = method(model, x, per_frame=True)[:n_real]
             seqs.append(frame.mean(dim=1).cpu().numpy())
             frames.append(frame.cpu().numpy())
             labels.append(np.asarray(batch["label"])[:n_real])
@@ -153,6 +172,24 @@ def score_windows(model: VideoAutoencoder, dataset, batch_size: int = 4,
     return {"sequence": cat(seqs, np.float64), "frame": cat(frames, np.float64),
             "labels": cat(labels, np.int64),
             "frame_labels": cat(frame_labels, np.int64) if has_frame_labels else None}
+
+
+def latent_frame_maps(model: VideoAutoencoder, train_ds, batch_size: int = 4,
+                      proj_dim: int = 128, grid=None, save_path=None, load_path=None):
+    """Fit the latent scorer on every frame of ``train_ds``'s windows (or
+    load it from ``load_path``); returns ``(frame_maps_fn, scorer_state)``,
+    ``frame_maps_fn(model, state, frames [N,H,W,C]) -> [N,G,G]``."""
+    def pyramid_fn(m, frames):
+        return m.feature_pyramid(frames)
+
+    device = model.device
+    model.eval()
+    loader = DistributedLoader(train_ds, batch_size, num_workers=2, device=device)
+    frames = (u8_normalize(b["frames"][:n]).flatten(0, 1) for b, n in loader)  # [B*T,H,W,C]
+    with tf32_off(device.type == "cuda"):
+        stats = fit_or_load(pyramid_fn, model, frames, proj_dim=proj_dim, grid=grid, seed=0,
+                            save_path=save_path, load_path=load_path, what="frames")
+    return make_distance_fn(pyramid_fn, stats.layers, stats.grid), stats_state(stats, device)
 
 
 def evaluate(args: Any) -> float:
@@ -177,7 +214,25 @@ def evaluate(args: Any) -> float:
     print(f"Test sequences: {len(test_ds)}")
 
     objective = saved.get("objective", "reconstruct") or "reconstruct"
-    if objective == "predict":
+    scorer = getattr(args, "scorer", "recon") or "recon"
+    eval_dir = Path(args.checkpoint).parent / "evaluation"
+    eval_dir.mkdir(exist_ok=True)
+    frame_maps_fn = scorer_state = None
+    if scorer == "latent":
+        objective = "reconstruct"  # latent maps align 1:1 with frames
+        train_ds = dataset_class(args.data_dir, category, "train",
+                                 sequence_length=sequence_length, stride=sequence_length,
+                                 image_size=image_size, normalize=False)
+        load_path = getattr(args, "latent_stats", None)
+        print("Latent-distance scorer:" if load_path else
+              f"Latent-distance scorer: fitting per-position Gaussians on "
+              f"{len(train_ds)} normal training windows...")
+        frame_maps_fn, scorer_state = latent_frame_maps(
+            model, train_ds, args.batch_size,
+            proj_dim=int(getattr(args, "latent_proj_dim", 128) or 128),
+            grid=getattr(args, "latent_grid", None), save_path=eval_dir / "latent_stats.npz",
+            load_path=load_path)
+    elif objective == "predict":
         print("Scoring objective: future-frame prediction error")
     score_mode = getattr(args, "score_mode", None) or "mean"
     score_smooth = float(getattr(args, "score_smooth", 0.0) or 0.0)
@@ -187,7 +242,8 @@ def evaluate(args: Any) -> float:
               + (f" (temporal gaussian sigma={score_smooth})" if score_smooth > 0 else ""))
 
     print("\nComputing anomaly scores...")
-    scored = score_windows(model, test_ds, args.batch_size, objective)
+    scored = score_windows(model, test_ds, args.batch_size, objective, frame_maps_fn,
+                           scorer_state)
     all_labels = scored["labels"]
     all_scores = (aggregate_sequence_scores(scored["frame"], score_mode, score_smooth)
                   if custom_agg else scored["sequence"])
@@ -225,8 +281,6 @@ def evaluate(args: Any) -> float:
         print(f"  Anomaly - mean: {anomaly.mean():.6f}, std: {anomaly.std():.6f}")
         print(f"  Separation ratio: {anomaly.mean() / normal.mean():.2f}x")
 
-    eval_dir = Path(args.checkpoint).parent / "evaluation"
-    eval_dir.mkdir(exist_ok=True)
     if len(np.unique(all_labels)) > 1:
         print()
         plot_or_skip(plot_roc_curve, all_labels, all_scores, eval_dir / "roc_curve.png",
@@ -238,12 +292,15 @@ def evaluate(args: Any) -> float:
                  plot_empty_anomaly=False)
 
     print("\nGenerating visualizations...")
-    generate_visualizations(model, test_ds, eval_dir, num_samples=4, objective=objective)
+    generate_visualizations(model, test_ds, eval_dir, num_samples=4, objective=objective,
+                            frame_maps_fn=frame_maps_fn, scorer_state=scorer_state)
 
     with open(eval_dir / "results.txt", "w") as f:
         f.write("Video Anomaly Detection Evaluation\n")
         f.write("=" * 50 + "\n\n")
         f.write(f"Category: {category}\n")
+        if scorer != "recon":
+            f.write(f"Scorer: {scorer}\n")
         if custom_agg:
             f.write(f"Sequence score mode: {score_mode}"
                     + (f" (temporal gaussian sigma={score_smooth})" if score_smooth > 0 else "")
@@ -269,12 +326,14 @@ def evaluate(args: Any) -> float:
 
 
 def generate_visualizations(model: VideoAutoencoder, dataset, output_dir: Path,
-                            num_samples: int = 4, objective: str = "reconstruct") -> None:
+                            num_samples: int = 4, objective: str = "reconstruct",
+                            frame_maps_fn=None, scorer_state=None) -> None:
     """Side-by-side PNGs (original | reconstruction | error heatmap) of the
     middle frame of a few normal and anomalous windows of ``dataset``
     (uint8 frames).  For a predict-trained model the panels and the score
     use the prediction error (output t against frame t+1), as the metrics
-    do."""
+    do.  With ``frame_maps_fn`` (the latent scorer) the heatmap and the
+    score are its maps, upsampled to the frame."""
     cv2 = cv2_module()
     labels = dataset.labels
     normal_idx = [i for i, lab in enumerate(labels) if lab == 0][: num_samples // 2]
@@ -290,7 +349,11 @@ def generate_visualizations(model: VideoAutoencoder, dataset, output_dir: Path,
         with torch.no_grad(), tf32_off(device.type == "cuda"):
             x = u8_normalize(torch.as_tensor(sample["frames"][None], device=device))
             recon = model(x)
-            err = method(model, x, per_pixel=True)
+            if frame_maps_fn is not None:
+                maps = frame_maps_fn(model, scorer_state, x.flatten(0, 1))
+                err = upsample_maps(maps, x.shape[2]).reshape(x.shape[:4])
+            else:
+                err = method(model, x, per_pixel=True)
             seq = err.mean(dim=(1, 2, 3))
         frames, recon, err = x[0].cpu().numpy(), recon[0].cpu().numpy(), err[0].cpu().numpy()
 
@@ -306,7 +369,8 @@ def generate_visualizations(model: VideoAutoencoder, dataset, output_dir: Path,
         white = (255, 255, 255)
         cv2.putText(combined, "Original", (10, 25), cv2.FONT_HERSHEY_SIMPLEX, 0.7, white, 2)
         cv2.putText(combined, middle_title, (w + 10, 25), cv2.FONT_HERSHEY_SIMPLEX, 0.7, white, 2)
-        cv2.putText(combined, "Error Heatmap", (2 * w + 10, 25), cv2.FONT_HERSHEY_SIMPLEX, 0.7,
+        heat_title = "Latent Distance" if frame_maps_fn is not None else "Error Heatmap"
+        cv2.putText(combined, heat_title, (2 * w + 10, 25), cv2.FONT_HERSHEY_SIMPLEX, 0.7,
                     white, 2)
         cv2.putText(combined, f"{label_name} | Score: {float(seq[0]):.4f}",
                     (10, combined.shape[0] - 6), cv2.FONT_HERSHEY_SIMPLEX, 0.6,

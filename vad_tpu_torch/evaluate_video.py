@@ -12,8 +12,9 @@ kernels).  Three modes:
 - ``--video-dir``: every video under a directory, batched over stream
   slots, into ``batch_scores.json`` and a timeline per video.
 
-``--data-parallel`` and ``--scorer latent`` raise: their modules are not
-ported yet.
+``--scorer latent`` scores dataset mode by the latent-distance scorer
+(``eval/latent_score.py``); the streaming modes refuse it, as in the JAX
+package.  ``--data-parallel`` raises: its module is not ported yet.
 
 Usage:
     python -m vad_tpu_torch.evaluate_video --checkpoint results/video_S01_x/best_model.ckpt
@@ -60,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Score batches data-parallel over all cards (not ported yet)")
     parser.add_argument("--scorer", type=str, default="recon", choices=["recon", "latent"],
                         help="Frame score source: 'recon' = reconstruction error; 'latent' = "
-                             "Mahalanobis distance of encoder features (not ported yet)")
+                             "Mahalanobis distance of encoder features (dataset mode)")
     parser.add_argument("--latent-proj-dim", type=int, default=128,
                         help="Random-projection dimension for the latent scorer's embeddings")
     parser.add_argument("--latent-grid", type=int, default=None,

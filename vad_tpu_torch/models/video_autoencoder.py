@@ -146,13 +146,18 @@ class VideoEncoder(nn.Module):
         )
         self.norms = nn.ModuleList(make_norm(norm, co) for co in widths)
 
-    def forward(self, x: torch.Tensor, *, skip_first_block: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, skip_first_block: bool = False,
+                return_pyramid: bool = False):
         """``[N,H,W,C]`` or ``[B,T,H,W,C]`` -> features of the same rank.
 
         ``skip_first_block``: ``x`` is already the first block's pooled
-        32-channel output (the fused u8 input block) — run blocks 2-4."""
+        32-channel output (the fused u8 input block) — run blocks 2-4.
+        ``return_pyramid``: also return every block's output, in block
+        order (the finest first), with the leading dims of ``x`` (the latent
+        scorer's input)."""
         x, seq = _flatten_time(x)
         y = _nchw(x)
+        pyramid = []
         for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
             if i == 0 and skip_first_block:
                 continue
@@ -164,8 +169,16 @@ class VideoEncoder(nn.Module):
                 # the two commute and the activation runs on 1/4 the pixels
                 y = F.max_pool2d(y, 2)
             y = F.leaky_relu(y, NEGATIVE_SLOPE)
+            if return_pyramid:
+                pyramid.append(y)
         out = _nhwc(y)
-        return out if seq is None else out.reshape(*seq, *out.shape[1:])
+        out = out if seq is None else out.reshape(*seq, *out.shape[1:])
+        if not return_pyramid:
+            return out
+        pyramid = [_nhwc(f) for f in pyramid]
+        if seq is not None:
+            pyramid = [f.reshape(*seq, *f.shape[1:]) for f in pyramid]
+        return out, tuple(pyramid)
 
 
 class VideoDecoder(nn.Module):
@@ -239,6 +252,22 @@ class VideoAutoencoder(nn.Module):
         z, _ = self._temporal(self.encoder(x), None)
         return self.decoder(z)
 
+    def feature_pyramid(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Each encoder block's output for frames ``[N,H,W,C]`` or windows
+        ``[B,T,H,W,C]``, in block order (the finest first), with the matching
+        leading dims (the latent scorer's input; the ConvLSTM plays no
+        part).  Run it in eval mode."""
+        return self.encoder(x, return_pyramid=True)[1]
+
+    def temporal_features(self, x: torch.Tensor) -> Tuple[torch.Tensor]:
+        """The last ConvLSTM layer's hidden maps ``[B,T,h,w,hidden]`` of
+        windows ``[B,T,H,W,C]`` as a 1-level pyramid: h_t carries the
+        window's history, so motion that contradicts it moves h_t off the
+        normal manifold where every frame alone looks normal.  Run it in
+        eval mode under ``torch.no_grad()``: the recurrence is then kernel 1
+        on the card."""
+        return (self.convlstm(self.encoder(x))[0],)
+
     def stream_step(self, x: torch.Tensor, states):
         """Streaming chunk inference carrying ConvLSTM state across calls.
 
@@ -310,19 +339,21 @@ class VideoAutoencoder(nn.Module):
 XAVIER_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
-def init_training_weights(model: VideoAutoencoder, seed: int) -> VideoAutoencoder:
+def init_training_weights(model: nn.Module, seed: int) -> nn.Module:
     """The JAX model's initialization, drawn from a seeded CPU generator
     (other numbers than ``jax.random``, the same distribution): every conv
     kernel Xavier-normal truncated at two standard deviations (Flax's
     ``xavier_normal``, fans of the Flax kernel: a ConvLSTM layer's
     ``w_x``/``w_h`` share the fused ``[3,3,I+H,4H]`` kernel's), biases 0,
-    norm scales 1, running statistics (0, 1)."""
+    norm scales 1, running statistics (0, 1).  Serves both model families
+    (``models/autoencoder.ConvAutoencoder`` too)."""
     gen = torch.Generator().manual_seed(seed)
+    norm_scales = {f"{name}.weight" for name, m in model.named_modules()
+                   if isinstance(m, (nn.BatchNorm2d, nn.GroupNorm))}
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() < 2:
-                p.fill_(1.0 if name.startswith(("encoder.norms", "decoder.norms"))
-                        and name.endswith("weight") else 0.0)
+                p.fill_(1.0 if name in norm_scales else 0.0)
                 continue
             if name.endswith(("w_x", "w_h")):
                 layer = model.convlstm.layers[int(name.split(".")[2])]

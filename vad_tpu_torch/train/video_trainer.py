@@ -84,6 +84,21 @@ def padded_batch_size(batch_size: int, accum_steps: int = 1) -> int:
     return ((batch_size + n - 1) // n) * n
 
 
+def run_epoch_train(train_step, model, optimizer, loader, key: str = "frames") -> float:
+    """One epoch of ``train_step`` over ``loader``'s ``key`` batches; the mean
+    loss.  Each loss is read one step late, so host and device overlap."""
+    total, n_batches, pending = 0.0, 0, None
+    for batch, n_real in loader:
+        loss = train_step(model, optimizer, batch[key], n_real)
+        if pending is not None:
+            total += float(pending)
+        pending = loss
+        n_batches += 1
+    if pending is not None:
+        total += float(pending)
+    return total / max(n_batches, 1)
+
+
 def _to_tensors(tree: Any) -> Any:
     """numpy leaves of a stored optimizer state -> tensors."""
     if isinstance(tree, dict):
@@ -213,18 +228,6 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     print("\n*** SAVING BASED ON SEPARATION RATIO (not loss) ***")
     print("-" * 60)
 
-    def run_train_epoch() -> float:
-        total, n_batches, pending = 0.0, 0, None
-        for batch, n_real in train_loader:
-            loss = train_step(model, optimizer, batch["frames"], n_real)
-            if pending is not None:  # read one step late: host and device overlap
-                total += float(pending)
-            pending = loss
-            n_batches += 1
-        if pending is not None:
-            total += float(pending)
-        return total / max(n_batches, 1)
-
     def payload(epoch: int, **extra) -> Dict[str, Any]:
         return {"epoch": epoch, **state_dict_to_flax(model), **extra, "args": args_dict,
                 "model_type": "video", "score_threshold": score_threshold,
@@ -236,7 +239,7 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     score_threshold = frame_score_threshold = frame_score_baseline = None
     for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
-        train_loss = run_train_epoch()
+        train_loss = run_epoch_train(train_step, model, optimizer, train_loader)
 
         loss_sum, n_eval = 0.0, 0
         normal_err, anomaly_err, normal_frame_scores = [], [], []

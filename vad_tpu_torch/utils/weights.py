@@ -13,6 +13,9 @@ with numpy leaves (as a ``.ckpt`` holds it).  Layout rules:
 - the ConvLSTM's fused gate kernel ``[3,3,I+H,4H]`` splits at input
   channel I into ``w_x`` (-> OIHW) and ``w_h`` (kept HWIO).
 
+Both model families go through it: ``VideoAutoencoder`` and the image
+model's ``ConvAutoencoder``.
+
 Every key the model needs must be there and every leaf of the tree must
 be used; anything else raises.  ``state_dict_to_flax`` inverts each rule,
 so a checkpoint the port trains loads into the JAX package's model.
@@ -20,14 +23,16 @@ so a checkpoint the port trains loads into the JAX package's model.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
+from vad_tpu_torch.models.autoencoder import ConvAutoencoder
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
 
 Path = Tuple[str, ...]
+Model = Union[VideoAutoencoder, ConvAutoencoder]
 
 
 def _conv(k: np.ndarray) -> np.ndarray:
@@ -46,29 +51,59 @@ def _conv_transpose_inverse(w: np.ndarray) -> np.ndarray:
     return np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]  # IOHW -> HWIO, flip
 
 
-def _norm_entries(prefix: str, scope: str, name: str, kind: str) -> List[tuple]:
+def _norm_entries(prefix: str, scope: Path, name: str, kind: str) -> List[tuple]:
     flax = ("BatchNorm_" if kind == "batch" else "GroupNorm_") + name
     out = [
-        (f"{prefix}.weight", ("params", scope, flax, "scale"), None),
-        (f"{prefix}.bias", ("params", scope, flax, "bias"), None),
+        (f"{prefix}.weight", ("params", *scope, flax, "scale"), None),
+        (f"{prefix}.bias", ("params", *scope, flax, "bias"), None),
     ]
     if kind == "batch":
         out += [
-            (f"{prefix}.running_mean", ("batch_stats", scope, flax, "mean"), None),
-            (f"{prefix}.running_var", ("batch_stats", scope, flax, "var"), None),
+            (f"{prefix}.running_mean", ("batch_stats", *scope, flax, "mean"), None),
+            (f"{prefix}.running_var", ("batch_stats", *scope, flax, "var"), None),
         ]
     return out
 
 
-def _entries(model: VideoAutoencoder) -> List[Tuple[str, Path, Callable | None]]:
+def _layer_entries(prefix: str, scope: Path, convert: Callable) -> List[tuple]:
+    """A conv's (or ConvTranspose's) kernel and bias at Flax path ``scope``."""
+    return [(f"{prefix}.weight", ("params", *scope, "kernel"), convert),
+            (f"{prefix}.bias", ("params", *scope, "bias"), None)]
+
+
+def _image_entries(model: ConvAutoencoder) -> List[Tuple[str, Path, Callable | None]]:
+    entries: List[tuple] = []
+    for i in range(len(model.encoder.blocks)):
+        scope = ("encoder", f"EncoderBlock_{i}")
+        for j in (0, 1):
+            entries += _layer_entries(f"encoder.blocks.{i}.conv{j + 1}", scope + (f"Conv_{j}",),
+                                      _conv)
+            entries += _norm_entries(f"encoder.blocks.{i}.norm{j + 1}", scope, str(j),
+                                     model.norm)
+    for i in range(len(model.decoder.blocks)):
+        scope, prefix = ("decoder", f"DecoderBlock_{i}"), f"decoder.blocks.{i}"
+        entries += _layer_entries(f"{prefix}.deconv", scope + ("ConvTranspose_0",),
+                                  _conv_transpose)
+        entries += _norm_entries(f"{prefix}.norm1", scope, "0", model.norm)
+        entries += _layer_entries(f"{prefix}.conv", scope + ("Conv_0",), _conv)
+        entries += _norm_entries(f"{prefix}.norm2", scope, "1", model.norm)
+    entries += _layer_entries("decoder.deconv", ("decoder", "ConvTranspose_0"), _conv_transpose)
+    entries += _norm_entries("decoder.norm", ("decoder",), "0", model.norm)
+    entries += _layer_entries("decoder.conv", ("decoder", "Conv_0"), _conv)
+    return entries
+
+
+def _entries(model: Model) -> List[Tuple[str, Path, Callable | None]]:
     """(state_dict key, path in the Flax tree, layout conversion)."""
+    if isinstance(model, ConvAutoencoder):
+        return _image_entries(model)
     entries: List[tuple] = []
     for i in range(len(model.encoder.convs)):
         entries += [
             (f"encoder.convs.{i}.weight", ("params", "encoder", f"Conv_{i}", "kernel"), _conv),
             (f"encoder.convs.{i}.bias", ("params", "encoder", f"Conv_{i}", "bias"), None),
         ]
-        entries += _norm_entries(f"encoder.norms.{i}", "encoder", str(i), model.norm)
+        entries += _norm_entries(f"encoder.norms.{i}", ("encoder",), str(i), model.norm)
     for i, layer in enumerate(model.convlstm.layers):
         n_in = layer.input_dim
         path = ("params", "convlstm", f"ConvLSTMLayer_{i}")
@@ -89,7 +124,7 @@ def _entries(model: VideoAutoencoder) -> List[Tuple[str, Path, Callable | None]]
             (f"decoder.deconvs.{i}.bias", path + ("bias",), None),
         ]
     for i in range(len(model.decoder.norms)):
-        entries += _norm_entries(f"decoder.norms.{i}", "decoder", str(i), model.norm)
+        entries += _norm_entries(f"decoder.norms.{i}", ("decoder",), str(i), model.norm)
     return entries
 
 
@@ -102,7 +137,7 @@ def _leaves(tree: Any, prefix: Path = ()) -> List[Path]:
     return [prefix]
 
 
-def flax_to_state_dict(model: VideoAutoencoder, variables: Mapping) -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(model: Model, variables: Mapping) -> Dict[str, torch.Tensor]:
     """The model's full ``state_dict`` (f32 CPU tensors) built from a Flax
     variables tree.  Raises KeyError for a missing key, ValueError for a
     shape mismatch or an unused leaf."""
@@ -139,7 +174,7 @@ def flax_to_state_dict(model: VideoAutoencoder, variables: Mapping) -> Dict[str,
     return out
 
 
-def state_dict_to_flax(model: VideoAutoencoder) -> Dict[str, Dict]:
+def state_dict_to_flax(model: Model) -> Dict[str, Dict]:
     """The model's weights as the JAX package's ``{"params",
     "batch_stats"}`` tree (f32 numpy leaves, on the host), the inverse of
     ``flax_to_state_dict``: OIHW -> HWIO, IOHW -> flipped HWIO, and each
@@ -168,7 +203,7 @@ def state_dict_to_flax(model: VideoAutoencoder) -> Dict[str, Dict]:
     return tree
 
 
-def load_flax_variables(model: VideoAutoencoder, variables: Mapping) -> VideoAutoencoder:
+def load_flax_variables(model: Model, variables: Mapping) -> Model:
     """Fill ``model`` in place (its device and dtype kept) from a Flax
     variables tree; returns the model."""
     model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
