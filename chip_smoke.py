@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import http.client
 import io
 import json
 import math
@@ -65,6 +66,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -123,6 +125,11 @@ DRIFT_CHUNKS, DRIFT_REPORT = 64, (1, 4, 16, 64)
 # comparison (the CPU takes the same step), and the largest relative L2
 # distance between the card's and the CPU's scores and maps (f32, TF32 off).
 IMAGE_COMPARE_B, IMAGE_CPU_REL_L2 = 8, 1e-4
+# The serve phase: chunks a stream sends (the reload after SERVE_RELOAD_AT),
+# chunks a stream sends while timed, rounds (one chunk a stream) profiled,
+# threads posting /v1/images, and chunks a stream through the CLI daemon.
+SERVE_CHUNKS, SERVE_RELOAD_AT, SERVE_TIMED_CHUNKS, SERVE_PROFILE_ROUNDS = 8, 4, 16, 4
+IMAGE_THREADS, CLI_CHUNKS = 4, 3
 
 
 def emit(obj) -> None:
@@ -1504,7 +1511,7 @@ def image_step_run(base, batch, dtype, device: str) -> dict:
             "stats": {n: b.cpu() for n, b in model.named_buffers() if ".running_" in n}}
 
 
-def phase_image(card: str) -> dict:
+def phase_image(card: str, workdir: Path) -> dict:
     """The image model at the default width (``ImageAEConfig()``: latent
     256, 256x256, BatchNorm, pool stem) on an MVTec-format fixture written
     with the port's ``synthetic.py`` (50 train, 10 good and 20 defect test
@@ -1528,7 +1535,10 @@ def phase_image(card: str) -> dict:
     - train images/s and a profile of the train step (both precisions),
       evaluation images/s and a profile of the scoring pass.
 
-    The image path runs no port kernel: the launch counts must stay 0."""
+    The image path runs no port kernel: the launch counts must stay 0.
+    Everything is written under ``workdir``; returns the launches, the best
+    checkpoint, the evaluation's ``latent_stats.npz`` and the test images
+    (uint8) for ``phase_serve``."""
     import numpy as np
     import torch
 
@@ -1547,145 +1557,146 @@ def phase_image(card: str) -> dict:
 
     phase_start = time.perf_counter()
     out = {"launches": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        start = time.perf_counter()
-        create_synthetic_image_data(tmp, "synthetic", 50, 10, 20, IMAGE)
-        train_ds = MVTecDataset(tmp, "synthetic", "train", IMAGE, normalize=False)
-        test_ds = MVTecDataset(tmp, "synthetic", "test", IMAGE, normalize=False)
-        fixture_seconds = time.perf_counter() - start
+    tmp = str(workdir)
+    Path(tmp).mkdir(parents=True, exist_ok=True)
+    start = time.perf_counter()
+    create_synthetic_image_data(tmp, "synthetic", 50, 10, 20, IMAGE)
+    train_ds = MVTecDataset(tmp, "synthetic", "train", IMAGE, normalize=False)
+    test_ds = MVTecDataset(tmp, "synthetic", "test", IMAGE, normalize=False)
+    fixture_seconds = time.perf_counter() - start
 
-        # one train step, card against CPU
-        cfg = ImageAEConfig()
-        base = init_training_weights(ConvAutoencoder.from_config(cfg, device="cpu"), SEED)
-        zero_by_construction = set(image_pre_norm_biases(base))
-        batch = torch.from_numpy(np.stack([train_ds[i]["image"]
-                                           for i in range(IMAGE_COMPARE_B)]))
-        runs = {}
-        zero_counters()
-        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
-            for where in ("cuda", "cpu"):
-                runs[label, where] = image_step_run(base, batch, dtype, where)
-        out["launches"]["step_compare"] = read_counters()
-        anchor = image_step_run(base, batch, torch.float64, "cpu")
-        compare = {}
-        for label in ("f32", "bf16"):
-            k, ref = runs[label, "cuda"], runs[label, "cpu"]
-            compare[label] = {"loss": float(k["loss"]), "cpu_loss": float(ref["loss"]),
-                              "cpu_seconds": ref["seconds"],
-                              **judge_train_step(k, ref, runs["f32", "cpu"]["grads"], label,
-                                                 zero_by_construction, anchor["grads"])}
-        emit({"phase": "image_step_compare", "card": card,
-              "batch": [IMAGE_COMPARE_B, IMAGE, IMAGE, 3], "config": cfg.to_dict(),
-              "parameters": sum(p.numel() for p in base.parameters()),
-              "bars": {"f32": TRAIN_BARS["f32"], "bf16": TRAIN_BARS["bf16"][0]}, **compare})
-        require(all(not r["failed"] for r in compare.values()),
-                f"image train step card vs CPU within {TRAIN_BARS}")
-        require(all(not r["zero_grads"] for r in compare.values()),
-                "image train step: every parameter got a non-zero gradient")
+    # one train step, card against CPU
+    cfg = ImageAEConfig()
+    base = init_training_weights(ConvAutoencoder.from_config(cfg, device="cpu"), SEED)
+    zero_by_construction = set(image_pre_norm_biases(base))
+    batch = torch.from_numpy(np.stack([train_ds[i]["image"]
+                                       for i in range(IMAGE_COMPARE_B)]))
+    runs = {}
+    zero_counters()
+    for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        for where in ("cuda", "cpu"):
+            runs[label, where] = image_step_run(base, batch, dtype, where)
+    out["launches"]["step_compare"] = read_counters()
+    anchor = image_step_run(base, batch, torch.float64, "cpu")
+    compare = {}
+    for label in ("f32", "bf16"):
+        k, ref = runs[label, "cuda"], runs[label, "cpu"]
+        compare[label] = {"loss": float(k["loss"]), "cpu_loss": float(ref["loss"]),
+                          "cpu_seconds": ref["seconds"],
+                          **judge_train_step(k, ref, runs["f32", "cpu"]["grads"], label,
+                                             zero_by_construction, anchor["grads"])}
+    emit({"phase": "image_step_compare", "card": card,
+          "batch": [IMAGE_COMPARE_B, IMAGE, IMAGE, 3], "config": cfg.to_dict(),
+          "parameters": sum(p.numel() for p in base.parameters()),
+          "bars": {"f32": TRAIN_BARS["f32"], "bf16": TRAIN_BARS["bf16"][0]}, **compare})
+    require(all(not r["failed"] for r in compare.values()),
+            f"image train step card vs CPU within {TRAIN_BARS}")
+    require(all(not r["zero_grads"] for r in compare.values()),
+            "image train step: every parameter got a non-zero gradient")
 
-        # the two CLIs
-        results = Path(tmp) / "results"
+    # the two CLIs
+    results = Path(tmp) / "results"
+    log = io.StringIO()
+    zero_counters()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        trained = train_cli.main([
+            "--category", "synthetic", "--data-dir", tmp, "--image-size", str(IMAGE),
+            "--epochs", "2", "--batch-size", "16", "--num-workers", "4",
+            "--results-dir", str(results), "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - start
+    out["launches"]["train_cli"] = read_counters()
+    history, run_dir = trained["history"], Path(trained["results_dir"])
+    ckpt = run_dir / "best_model.ckpt"
+    emit({"phase": "image_train", "card": card, "epochs": 2, "batch": 16,
+          "train_images": len(train_ds), "test_images": len(test_ds),
+          "fixture_seconds": fixture_seconds, "cli_seconds": train_seconds,
+          "history": history, "launches": out["launches"]["train_cli"],
+          "files": sorted(p.name for p in run_dir.iterdir()),
+          "log_tail": log.getvalue().splitlines()[-6:]})
+    require(len(history["train_loss"]) == 2
+            and all(math.isfinite(v) for v in history["train_loss"] + history["val_loss"]),
+            "image training: 2 epochs with finite losses")
+    require(ckpt.exists() and (run_dir / "final_model.ckpt").exists(),
+            "image training wrote best_model.ckpt and final_model.ckpt")
+
+    evals = {}
+    for name, flags in (("recon", ["--scorer", "recon"]),
+                        ("recon_max_smooth4", ["--score-mode", "max", "--score-smooth", "4"]),
+                        ("latent", ["--scorer", "latent"])):
         log = io.StringIO()
         zero_counters()
         start = time.perf_counter()
         with contextlib.redirect_stdout(log):
-            trained = train_cli.main([
-                "--category", "synthetic", "--data-dir", tmp, "--image-size", str(IMAGE),
-                "--epochs", "2", "--batch-size", "16", "--num-workers", "4",
-                "--results-dir", str(results), "--seed", str(SEED)])
+            score = eval_cli.main(["--checkpoint", str(ckpt), *flags])
         torch.cuda.synchronize()
-        train_seconds = time.perf_counter() - start
-        out["launches"]["train_cli"] = read_counters()
-        history, run_dir = trained["history"], Path(trained["results_dir"])
-        ckpt = run_dir / "best_model.ckpt"
-        emit({"phase": "image_train", "card": card, "epochs": 2, "batch": 16,
-              "train_images": len(train_ds), "test_images": len(test_ds),
-              "fixture_seconds": fixture_seconds, "cli_seconds": train_seconds,
-              "history": history, "launches": out["launches"]["train_cli"],
-              "files": sorted(p.name for p in run_dir.iterdir()),
-              "log_tail": log.getvalue().splitlines()[-6:]})
-        require(len(history["train_loss"]) == 2
-                and all(math.isfinite(v) for v in history["train_loss"] + history["val_loss"]),
-                "image training: 2 epochs with finite losses")
-        require(ckpt.exists() and (run_dir / "final_model.ckpt").exists(),
-                "image training wrote best_model.ckpt and final_model.ckpt")
+        text = (run_dir / "evaluation" / "results.txt").read_text()
+        metric = {key: float(m.group(1)) for key, rx in (
+            ("pixel_auroc", r"Pixel-level AUROC: ([0-9.]+)"),
+            ("aupro", r"AUPRO \(FPR<=0\.3\): ([0-9.]+)"),
+            ("ap", r"Average precision \(AUPRC\): ([0-9.]+)"))
+                  if (m := re.search(rx, text))}
+        out["launches"][f"evaluate_{name}"] = read_counters()
+        evals[name] = {"auroc": score, **metric, "cli_seconds": time.perf_counter() - start}
+        require(0.0 <= score <= 1.0 and math.isfinite(metric.get("pixel_auroc", 0.0)),
+                f"image evaluation {name}: AUROC {score}")
 
-        evals = {}
-        for name, flags in (("recon", ["--scorer", "recon"]),
-                            ("recon_max_smooth4", ["--score-mode", "max", "--score-smooth", "4"]),
-                            ("latent", ["--scorer", "latent"])):
-            log = io.StringIO()
-            zero_counters()
-            start = time.perf_counter()
-            with contextlib.redirect_stdout(log):
-                score = eval_cli.main(["--checkpoint", str(ckpt), *flags])
+    # card against CPU on the trained model: recon scores, latent maps
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, _, _ = image_eval.load_image_model(ckpt, "cuda")
+        cpu_model, _, _ = image_eval.load_image_model(ckpt, "cpu")
+    stats = load_stats(run_dir / "evaluation" / "latent_stats.npz")
+    dfn = make_distance_fn(lambda m, x: m.feature_pyramid(x), stats.layers, stats.grid)
+    x = torch.from_numpy(np.stack([test_ds[i]["image"] for i in range(len(test_ds))]))
+    vs_cpu = {}
+    card_state, cpu_state = stats_state(stats, "cuda"), stats_state(stats)
+    with torch.no_grad(), no_tf32():
+        for what, fn in (("recon_scores", lambda m, st, xs: m.reconstruction_error(xs)),
+                         ("recon_maps", lambda m, st, xs: m.error_map(xs)),
+                         ("latent_maps", dfn)):
+            got = torch.cat([fn(model, card_state, u8_normalize(xb.cuda())).cpu()
+                             for xb in x.split(10)])
+            want = torch.cat([fn(cpu_model, cpu_state, u8_normalize(xb))
+                              for xb in x.split(10)])
+            vs_cpu[what] = agree(got, want, dict(rtol=IMAGE_CPU_REL_L2, atol=0.0))
+            vs_cpu[what]["ok"] = vs_cpu[what]["rel_l2"] <= IMAGE_CPU_REL_L2
+    require(all(r["ok"] for r in vs_cpu.values()),
+            f"image scores and latent maps card vs CPU within rel L2 {IMAGE_CPU_REL_L2}")
+
+    # speed: the train step in both precisions, the scoring pass
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    u8 = torch.randint(0, 256, (16, IMAGE, IMAGE, 3), generator=g, device="cuda",
+                       dtype=torch.uint8)
+    speed = {}
+    for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        net = copy.deepcopy(base).to("cuda")
+        opt = make_optimizer(net.parameters(), 1e-3)
+        step = make_train_step(mse_per_sample, dtype)
+        with no_tf32():
+            for _ in range(3):
+                step(net, opt, u8, 16)
             torch.cuda.synchronize()
-            text = (run_dir / "evaluation" / "results.txt").read_text()
-            metric = {key: float(m.group(1)) for key, rx in (
-                ("pixel_auroc", r"Pixel-level AUROC: ([0-9.]+)"),
-                ("aupro", r"AUPRO \(FPR<=0\.3\): ([0-9.]+)"),
-                ("ap", r"Average precision \(AUPRC\): ([0-9.]+)"))
-                      if (m := re.search(rx, text))}
-            out["launches"][f"evaluate_{name}"] = read_counters()
-            evals[name] = {"auroc": score, **metric, "cli_seconds": time.perf_counter() - start}
-            require(0.0 <= score <= 1.0 and math.isfinite(metric.get("pixel_auroc", 0.0)),
-                    f"image evaluation {name}: AUROC {score}")
-
-        # card against CPU on the trained model: recon scores, latent maps
-        with contextlib.redirect_stdout(io.StringIO()):
-            model, _, _ = image_eval.load_image_model(ckpt, "cuda")
-            cpu_model, _, _ = image_eval.load_image_model(ckpt, "cpu")
-        stats = load_stats(run_dir / "evaluation" / "latent_stats.npz")
-        dfn = make_distance_fn(lambda m, x: m.feature_pyramid(x), stats.layers, stats.grid)
-        x = torch.from_numpy(np.stack([test_ds[i]["image"] for i in range(len(test_ds))]))
-        vs_cpu = {}
-        card_state, cpu_state = stats_state(stats, "cuda"), stats_state(stats)
-        with torch.no_grad(), no_tf32():
-            for what, fn in (("recon_scores", lambda m, st, xs: m.reconstruction_error(xs)),
-                             ("recon_maps", lambda m, st, xs: m.error_map(xs)),
-                             ("latent_maps", dfn)):
-                got = torch.cat([fn(model, card_state, u8_normalize(xb.cuda())).cpu()
-                                 for xb in x.split(10)])
-                want = torch.cat([fn(cpu_model, cpu_state, u8_normalize(xb))
-                                  for xb in x.split(10)])
-                vs_cpu[what] = agree(got, want, dict(rtol=IMAGE_CPU_REL_L2, atol=0.0))
-                vs_cpu[what]["ok"] = vs_cpu[what]["rel_l2"] <= IMAGE_CPU_REL_L2
-        require(all(r["ok"] for r in vs_cpu.values()),
-                f"image scores and latent maps card vs CPU within rel L2 {IMAGE_CPU_REL_L2}")
-
-        # speed: the train step in both precisions, the scoring pass
-        g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-        u8 = torch.randint(0, 256, (16, IMAGE, IMAGE, 3), generator=g, device="cuda",
-                           dtype=torch.uint8)
-        speed = {}
-        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
-            net = copy.deepcopy(base).to("cuda")
-            opt = make_optimizer(net.parameters(), 1e-3)
-            step = make_train_step(mse_per_sample, dtype)
-            with no_tf32():
-                for _ in range(3):
-                    step(net, opt, u8, 16)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                n = 20
-                start = time.perf_counter()
-                for _ in range(n):
-                    loss = step(net, opt, u8, 16)
-                torch.cuda.synchronize()
-                elapsed = time.perf_counter() - start
-                prof = device_profile(lambda i: step(net, opt, u8, 16), n=5, unit="step")
-            speed[label] = {"train_images_per_s": n * 16 / elapsed,
-                            "ms_per_step": elapsed / n * 1e3, "loss": float(loss),
-                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                            "profile": prof}
-        image_eval.score_split(model, test_ds, keep_maps=True)  # warm
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        split = image_eval.score_split(model, test_ds, keep_maps=True)
-        torch.cuda.synchronize()
-        score_seconds = time.perf_counter() - start
-        prof = device_profile(lambda i: image_eval.score_split(model, test_ds, keep_maps=True),
-                              n=2, unit="pass")
+            torch.cuda.reset_peak_memory_stats()
+            n = 20
+            start = time.perf_counter()
+            for _ in range(n):
+                loss = step(net, opt, u8, 16)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            prof = device_profile(lambda i: step(net, opt, u8, 16), n=5, unit="step")
+        speed[label] = {"train_images_per_s": n * 16 / elapsed,
+                        "ms_per_step": elapsed / n * 1e3, "loss": float(loss),
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "profile": prof}
+    image_eval.score_split(model, test_ds, keep_maps=True)  # warm
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    split = image_eval.score_split(model, test_ds, keep_maps=True)
+    torch.cuda.synchronize()
+    score_seconds = time.perf_counter() - start
+    prof = device_profile(lambda i: image_eval.score_split(model, test_ds, keep_maps=True),
+                          n=2, unit="pass")
     record = {"phase": "image", "card": card, "config": cfg.to_dict(),
               "train_images_per_s": {k: v["train_images_per_s"] for k, v in speed.items()},
               "eval_images_per_s": len(split["scores"]) / score_seconds,
@@ -1702,7 +1713,403 @@ def phase_image(card: str) -> dict:
     launched = [(path, k, v) for path, counts in out["launches"].items()
                 for k, v in counts.items() if v]
     require(not launched, f"the image path launched no port kernel: {launched}")
+    out.update(ckpt=ckpt, latent_stats=run_dir / "evaluation" / "latent_stats.npz",
+               test_images=x.numpy())
     return out
+
+
+# --------------------------------------------------------------- serving
+
+
+def threaded(fn, calls, timeout: float = 300.0) -> list:
+    """``fn(*args)`` for each ``args`` of ``calls``, one thread each, all at
+    once; their results in order.  The first error is raised."""
+    results, errors = [None] * len(calls), []
+
+    def run(i, args):
+        try:
+            results[i] = fn(*args)
+        except BaseException as exc:  # handed to the caller below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    require(not any(t.is_alive() for t in threads), f"{len(calls)} client threads finished")
+    if errors:
+        raise errors[0]
+    return results
+
+
+@contextmanager
+def webhook_receiver():
+    """A stdlib alert receiver on a thread: (its URL, the bodies it got, an
+    Event set on the first ``stream_anomaly``)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    received, anomaly = [], threading.Event()
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args) -> None:
+            pass
+
+        def do_POST(self) -> None:
+            body = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+            received.append(body)
+            if body.get("type") == "stream_anomaly":
+                anomaly.set()
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}/alert", received, anomaly
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+
+
+def prometheus_samples(text: str) -> dict:
+    """``{series: value}`` from Prometheus text; raises on a malformed line."""
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("# HELP ") or line.startswith("# TYPE "):
+            continue
+        m = re.fullmatch(r'([a-z_0-9]+\{(?:[a-z_]+="[^"]*",?)+\}) (\S+)', line)
+        require(m is not None, f"Prometheus line parses: {line!r}")
+        samples[m.group(1)] = float(m.group(2))
+    return samples
+
+
+def serve_cli(ckpt: Path, streams: list) -> dict:
+    """``python -m vad_tpu_torch.serve --dtype float32`` as a subprocess on
+    ``ckpt``: its ``Serving ... on host:port`` line, one chunk after another
+    of each of ``streams`` (a list of ``[chunks, T, H, W, 3]`` arrays, on
+    slots 0, 1, ...) through the client, then SIGINT.  Returns the scores,
+    the exit code and the seconds to the Serving line."""
+    import queue
+    import signal
+
+    from vad_tpu_torch.eval.client import ScoringClient
+
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vad_tpu_torch.serve", "--checkpoint", str(ckpt), "--port", "0",
+         "--host", "127.0.0.1", "--dtype", "float32"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def read() -> None:
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        log, port = [], None
+        while port is None:
+            line = lines.get(timeout=300)
+            require(line is not None, f"the serve CLI printed its Serving line: {log[-20:]}")
+            log.append(line.rstrip())
+            m = re.match(r"Serving \S+ on 127\.0\.0\.1:(\d+) \(", line)
+            port = int(m.group(1)) if m else None
+        ready = time.perf_counter() - start
+        client = ScoringClient("127.0.0.1", port)
+        slots = [client.attach() for _ in streams]
+        scores = [[client.score_chunk(slot, chunk)["scores"] for chunk in frames]
+                  for slot, frames in zip(slots, streams)]
+        health = client.health()
+        proc.send_signal(signal.SIGINT)
+        code = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    return {"slots": slots, "scores": scores, "exit_code": code, "ready_seconds": ready,
+            "serving_line": log[-1], "health": health}
+
+
+def phase_serve(card: str, video_ckpt: Path, image: dict) -> dict:
+    """The serving daemon at full width, in process and as the CLI:
+
+    - one dual daemon, ``serve_from_checkpoint(fit's best checkpoint,
+      image_checkpoint=the image phase's best)`` at its defaults (16 slots,
+      chunks of 16, bf16, ``fused_input`` on); 16 client threads attach
+      and stream ``SERVE_CHUNKS`` chunks of orbit frames each (every fourth
+      stream with the intruder), with ``/v1/reload`` to another epoch's
+      checkpoint after ``SERVE_RELOAD_AT`` chunks; every chunk's scores
+      against a direct bf16 ``MultiStreamScorer`` that makes the same reload
+      at the same point (``agree`` at the bf16 bar), the reload refolding
+      kernel 4's weights; kernels 1 and 4 must launch;
+    - served frames/s end to end and request latency over
+      ``SERVE_TIMED_CHUNKS`` more chunks a stream, a profiled window of
+      ``SERVE_PROFILE_ROUNDS`` rounds (one chunk a stream each), the direct
+      scorer's frames/s on the same host batches, and the host's batch
+      assembly alone;
+    - a ``stream_anomaly`` alert on one stream to a local webhook
+      (threshold below its scores, 3 consecutive chunks);
+    - ``/v1/images`` from ``IMAGE_THREADS`` threads over the image
+      fixture's test images against ``reconstruction_error`` (f32, TF32
+      off) at the bf16 bar, and an f32 latent daemon on the image phase's
+      ``latent_stats.npz`` against the latent scorer's map means;
+    - ``/v1/metrics``: exactly the requests and frames sent, no error, and
+      the Prometheus text parses;
+    - ``python -m vad_tpu_torch.serve --dtype float32`` as a subprocess:
+      ``CLI_CHUNKS`` chunks of two streams against a direct f32 scorer at
+      the f32 bar, then SIGINT and exit code 0."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.eval import image_eval
+    from vad_tpu_torch.eval.alerts import AlertNotifier
+    from vad_tpu_torch.eval.client import ScoringClient
+    from vad_tpu_torch.eval.http_server import serve_from_checkpoint
+    from vad_tpu_torch.eval.latent_score import load_stats, make_distance_fn, stats_state
+    from vad_tpu_torch.eval.serving import MultiStreamScorer
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
+    from vad_tpu_torch.train.steps import u8_normalize
+    from vad_tpu_torch.utils.checkpoint import load_checkpoint
+
+    phase_start = time.perf_counter()
+    saved_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    best = load_checkpoint(video_ckpt)
+    run_dir = Path(video_ckpt).parent
+    leaf = lambda ck: ck["params"]["encoder"]["Conv_0"]["kernel"]  # noqa: E731
+    others = [p for p in sorted(run_dir.glob("checkpoint_epoch_*.ckpt"))
+              if not np.array_equal(leaf(load_checkpoint(p)), leaf(best))]
+    require(bool(others), f"an epoch checkpoint with other weights than the best in {run_dir}")
+    reload_path = others[0]
+    reload_ckpt = load_checkpoint(reload_path)
+
+    bank = orbit_bank(BANK_FRAMES, SEED + 400)
+    streams = [np.stack(list(clip_frames(bank, SERVE_CHUNKS * T, 9 * k, k % 4 == 3)))
+               .reshape(SERVE_CHUNKS, T, IMAGE, IMAGE, 3) for k in range(S)]
+
+    def direct_scorer(ckpt, dtype):
+        model = VideoAutoencoder.from_config(VideoAEConfig.from_args(ckpt["args"]), device="cpu")
+        sc = MultiStreamScorer(model, {"params": ckpt["params"],
+                                       "batch_stats": ckpt["batch_stats"]}, S, T, IMAGE,
+                               dtype=dtype)
+        for slot in range(S):
+            sc.attach(slot)
+        return sc
+
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        srv = serve_from_checkpoint(str(video_ckpt), host="127.0.0.1", port=0,
+                                    image_checkpoint=str(image["ckpt"]))
+    start_seconds = time.perf_counter() - start
+    srv.start_background()
+    vsvc, scorer = srv.services["video"], srv.services["video"].scorer
+    require(scorer.fused_input and scorer.dtype == torch.bfloat16 and scorer.num_slots == S,
+            "the daemon serves bf16 with fused_input on, 16 slots")
+    sent = {"video": 0, "image": 0, "image_frames": 0}
+    try:
+        clients = [ScoringClient("127.0.0.1", srv.port) for _ in range(S)]
+
+        def stream(k, lo, hi, lat=None):
+            out = []
+            for i in range(lo, hi):
+                t0 = time.perf_counter()
+                out.append(clients[k].score_chunk(slots[k], streams[k][i % SERVE_CHUNKS])["scores"])
+                if lat is not None:
+                    lat.append(time.perf_counter() - t0)
+            return np.asarray(out)
+
+        # the main path: 16 streams, a reload mid-stream
+        zero_counters()
+        slots = threaded(lambda c: c.attach(), [(c,) for c in clients])
+        require(sorted(slots) == list(range(S)), f"16 streams got the 16 slots: {slots}")
+        served = threaded(stream, [(k, 0, SERVE_RELOAD_AT) for k in range(S)])
+        folded = scorer._w_folded.clone()
+        reply = clients[0].reload(str(reload_path))
+        require(reply == {"reloaded": str(reload_path), "model_type": "video"}, f"reload {reply}")
+        require(not torch.equal(scorer._w_folded, folded), "the reload refolded kernel 4's weights")
+        served = [np.concatenate([a, b]) for a, b in zip(served, threaded(
+            stream, [(k, SERVE_RELOAD_AT, SERVE_CHUNKS) for k in range(S)]))]
+        sent["video"] += S * SERVE_CHUNKS
+        torch.cuda.synchronize()
+        launches = read_counters()
+        require(launches["convlstm_serving"] > 0 and launches["first_block"] > 0,
+                f"/v1/streams went through kernels 1 and 4: {launches}")
+        require(vsvc.health()["active_slots"] == list(range(S)), "streams kept their slots")
+
+        # the same chunks through a direct scorer, the same reload at the same point
+        direct = direct_scorer(best, torch.bfloat16)
+        want = np.zeros((S, SERVE_CHUNKS, T), np.float32)
+        for i in range(SERVE_CHUNKS):
+            if i == SERVE_RELOAD_AT:
+                direct.reload_variables({"params": reload_ckpt["params"],
+                                         "batch_stats": reload_ckpt["batch_stats"]})
+            batch = np.zeros((S, T, IMAGE, IMAGE, 3), np.uint8)
+            for k in range(S):
+                batch[slots[k]] = streams[k][i]
+            scores = direct.score_chunk(batch)
+            for k in range(S):
+                want[k, i] = scores[slots[k]]
+        served = np.stack(served)
+        require(torch.equal(direct._w_folded, scorer._w_folded),
+                "daemon and direct scorer fold the same kernel-4 weights after the reload")
+        streams_cmp = {"before_reload": agree(served[:, :SERVE_RELOAD_AT],
+                                              want[:, :SERVE_RELOAD_AT]),
+                       "after_reload": agree(served[:, SERVE_RELOAD_AT:],
+                                             want[:, SERVE_RELOAD_AT:])}
+        per_stream = [agree(served[k], want[k]) for k in range(S)]
+        require(all(r["ok"] for r in [*streams_cmp.values(), *per_stream]),
+                f"16 streams vs the direct scorer within {BF16_BAR}: {streams_cmp}")
+
+        # end to end speed and latency, then a profiled window
+        lat: list = []
+        m0 = vsvc.metrics.snapshot()
+        start = time.perf_counter()
+        threaded(stream, [(k, 0, SERVE_TIMED_CHUNKS, lat) for k in range(S)])
+        served_seconds = time.perf_counter() - start
+        m1 = vsvc.metrics.snapshot()
+        sent["video"] += S * SERVE_TIMED_CHUNKS
+        timed_ticks = m1["device_steps"] - m0["device_steps"]
+        lat_ms = np.asarray(lat) * 1e3
+        prof = device_profile(lambda i: threaded(stream, [(k, i, i + 1) for k in range(S)]),
+                              n=SERVE_PROFILE_ROUNDS, unit="round")
+        m2 = vsvc.metrics.snapshot()
+        sent["video"] += S * SERVE_PROFILE_ROUNDS
+        prof_ticks = m2["device_steps"] - m1["device_steps"]
+
+        # the direct scorer on the same host batches, and the host's assembly alone
+        host_batches = [np.stack([streams[k][i] for k in range(S)]) for i in range(SERVE_CHUNKS)]
+        direct.score_chunk(host_batches[0])
+        torch.cuda.synchronize()
+        n = 10
+        start = time.perf_counter()
+        for i in range(n):
+            direct.score_chunk(host_batches[i % SERVE_CHUNKS])  # host scores: synchronizes
+        direct_fps = n * S * T / (time.perf_counter() - start)
+        start = time.perf_counter()
+        for i in range(n):
+            batch = np.zeros((S, T, IMAGE, IMAGE, 3), np.uint8)
+            for k in range(S):
+                batch[k] = streams[k][i % SERVE_CHUNKS]
+        assembly_ms = (time.perf_counter() - start) / n * 1e3
+
+        # one stream over a threshold below its scores: one stream_anomaly
+        with webhook_receiver() as (url, received, anomaly):
+            vsvc.notifier = AlertNotifier(url, consecutive=3, cooldown=1000.0)
+            threshold, vsvc.score_threshold = vsvc.score_threshold, float(served[0].min()) / 2
+            stream(0, 0, 3)
+            sent["video"] += 3
+            fired = anomaly.wait(timeout=60)
+            vsvc.notifier.close()  # delivers what was queued
+            alerts = [a for a in received if a["type"] == "stream_anomaly"]
+            vsvc.notifier, vsvc.score_threshold = None, threshold
+        require(fired and len(alerts) == 1 and alerts[0]["slot"] == slots[0]
+                and alerts[0]["consecutive_chunks"] == 3,
+                f"one stream_anomaly alert for slot {slots[0]}: {alerts}")
+
+        # images: recon through the dual daemon, from 4 threads
+        test_images = image["test_images"]
+        parts = np.array_split(np.arange(len(test_images)), IMAGE_THREADS)
+        got = threaded(lambda idx: ScoringClient("127.0.0.1", srv.port).score_images(
+            test_images[idx])["scores"], [(p,) for p in parts])
+        sent["image"] += IMAGE_THREADS
+        sent["image_frames"] += len(test_images)
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, _, _ = image_eval.load_image_model(image["ckpt"], "cuda")
+        x = torch.from_numpy(test_images).cuda()
+        with torch.no_grad(), no_tf32():
+            ref = torch.cat([model.reconstruction_error(u8_normalize(xb)) for xb in x.split(10)])
+        images_cmp = agree(np.concatenate(got), ref.cpu())
+        require(images_cmp["ok"], f"/v1/images vs reconstruction_error within {BF16_BAR}")
+
+        # the metrics count what was sent
+        metrics = ScoringClient("127.0.0.1", srv.port).metrics()
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        conn.request("GET", "/v1/metrics?format=prometheus")
+        samples = prometheus_samples(conn.getresponse().read().decode())
+        conn.close()
+        video_m, image_m = metrics["video"], metrics["image"]
+        require((video_m["requests"], video_m["frames_scored"], video_m["errors"])
+                == (sent["video"], sent["video"] * T, 0)
+                and (image_m["requests"], image_m["frames_scored"], image_m["errors"])
+                == (sent["image"], sent["image_frames"], 0),
+                f"/v1/metrics counts what was sent: {sent}, {metrics}")
+        require(samples['vad_requests_total{model="video"}'] == sent["video"],
+                "Prometheus requests counter")
+        health = ScoringClient("127.0.0.1", srv.port).health()
+    finally:
+        srv.close()
+
+    # the latent scorer: an f32 image daemon on the image phase's statistics
+    with contextlib.redirect_stdout(io.StringIO()):
+        lsrv = serve_from_checkpoint(str(image["ckpt"]), host="127.0.0.1", port=0,
+                                     dtype="float32", latent_stats=str(image["latent_stats"]))
+    lsrv.start_background()
+    try:
+        got = ScoringClient("127.0.0.1", lsrv.port).score_images(test_images)["scores"]
+    finally:
+        lsrv.close()
+    stats = load_stats(image["latent_stats"])
+    dfn = make_distance_fn(lambda m, xs: m.feature_pyramid(xs), stats.layers, stats.grid)
+    state = stats_state(stats, "cuda")
+    with torch.no_grad(), no_tf32():
+        ref = torch.cat([dfn(model, state, u8_normalize(xb)).flatten(1).mean(1)
+                         for xb in x.split(10)])
+    latent_cmp = agree(got, ref.cpu(), F32_BAR)
+    require(latent_cmp["ok"], f"latent daemon vs the latent scorer within {F32_BAR}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+
+    # the CLI, f32, against a direct f32 scorer (TF32 off)
+    cli_streams = [streams[k][:CLI_CHUNKS] for k in range(2)]
+    cli = serve_cli(video_ckpt, cli_streams)
+    require(cli["exit_code"] == 0, f"the serve CLI exits 0 on SIGINT: {cli['exit_code']}")
+    with no_tf32():
+        direct32 = direct_scorer(best, torch.float32)
+        want32 = np.zeros((2, CLI_CHUNKS, T), np.float32)
+        for i in range(CLI_CHUNKS):
+            batch = np.zeros((S, T, IMAGE, IMAGE, 3), np.uint8)
+            for k, slot in enumerate(cli["slots"]):
+                batch[slot] = cli_streams[k][i]
+            scores = direct32.score_chunk(batch)
+            for k, slot in enumerate(cli["slots"]):
+                want32[k, i] = scores[slot]
+    cli_cmp = agree(np.asarray(cli["scores"]), want32, F32_BAR)
+    require(cli_cmp["ok"] and cli["health"]["dtype"] == "torch.float32"
+            and cli["health"]["fused_input"], f"the f32 CLI daemon vs a direct f32 scorer "
+                                               f"within {F32_BAR}: {cli_cmp}")
+
+    record = {
+        "phase": "serve", "card": card, "streams": S, "chunk": T, "image": IMAGE,
+        "dtype": "bfloat16", "fused_input": True, "reloaded": reload_path.name,
+        "launches": launches, "start_seconds": start_seconds,
+        "streams_vs_direct": streams_cmp,
+        "worst_stream_max_abs_err": max(r["max_abs_err"] for r in per_stream),
+        "served_frames_per_s": S * SERVE_TIMED_CHUNKS * T / served_seconds,
+        "direct_frames_per_s": direct_fps,
+        "request_ms": {"p50": float(np.percentile(lat_ms, 50)),
+                       "p99": float(np.percentile(lat_ms, 99)), "max": float(lat_ms.max())},
+        "device_step_ms": {"mean": video_m["device_step_latency"]["mean_ms"],
+                           "min": video_m["device_step_latency"]["min_ms"],
+                           "max": video_m["device_step_latency"]["max_ms"]},
+        "slots_per_tick": {"timed": S * SERVE_TIMED_CHUNKS / timed_ticks,
+                           "profiled": S * SERVE_PROFILE_ROUNDS / prof_ticks,
+                           "phase": video_m["requests"] / video_m["device_steps"]},
+        "host_batch_assembly_ms": assembly_ms,
+        "profile": {**prof, "ticks": prof_ticks}, "alerts": len(alerts),
+        "images_vs_reconstruction_error": images_cmp, "latent_vs_scorer": latent_cmp,
+        "cli": {"vs_direct_f32": cli_cmp, "exit_code": cli["exit_code"],
+                "ready_seconds": cli["ready_seconds"], "serving_line": cli["serving_line"]},
+        "metrics": {k: {f: m[f] for f in ("requests", "frames_scored", "device_steps", "errors")}
+                    for k, m in metrics.items()},
+        "hbm": health["video"]["hbm"], "seconds": time.perf_counter() - phase_start,
+    }
+    emit(record)
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -1725,7 +2132,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, best_ckpt, test_ds = phase_train(tmp)
         evaluation = phase_eval(best_ckpt, test_ds, card)
-    phase_image(card)
+        image = phase_image(card, Path(tmp) / "image")
+        serve = phase_serve(card, best_ckpt, image)
     probes = phase_probes()
     checks.update(probes)
     kernels = []
@@ -1757,6 +2165,8 @@ def main() -> int:
         if kname in ("convlstm_serving", "first_block"):  # the evaluation paths' launches
             kernels[-1]["eval_launches"] = {path: counts[kname]
                                             for path, counts in evaluation["launches"].items()}
+        if kname in ("convlstm_serving", "first_block"):  # behind the daemon's /v1/streams
+            kernels[-1]["serve_launches"] = serve["launches"][kname]
         if kname == "convlstm_serving":
             kernels[-1]["f32"] = rec["f32"]
     emit({"kernels": kernels})

@@ -69,7 +69,7 @@ class MultiStreamScorer:
         if variables is not None:
             load_flax_variables(model, variables)
         self.num_slots, self.chunk = num_slots, chunk
-        self.image_hw = hw
+        self.image_size, self.image_hw = image_size, hw  # as given; (H, W)
         self.return_maps, self.dtype, self.fused_input = return_maps, dtype, fused_input
         self._fold(model.state_dict())  # from the weights before the serving cast
         self.model = model.to(device=self.device, dtype=dtype).eval()

@@ -61,3 +61,34 @@ def checked_cast_like(variables: Any, reference: Any, dtype: torch.dtype) -> Any
             "change architectures"
         )
     return new
+
+
+def check_served_image_size(ckpt_args: dict, served) -> None:
+    """Reject a hot reload of a checkpoint trained at another resolution:
+    fully convolutional weights pass the structural check at any
+    image_size, so a retrain at a new resolution would otherwise swap in
+    silently and score frames of the old size meaninglessly.  ``served``
+    is an int or (H, W)."""
+    ck = ckpt_args.get("image_size")
+    if ck is None:
+        return  # checkpoints without args (imported weights): allow
+    hw = tuple(served) if isinstance(served, (tuple, list)) else (served, served)
+    if (int(ck), int(ck)) != (int(hw[0]), int(hw[1])):
+        raise ValueError(
+            f"checkpoint was trained at image_size={ck} but the server "
+            f"is compiled for {hw}; restart the server to change resolutions"
+        )
+
+
+def check_served_stem(ckpt_args: dict, served_stem: str) -> None:
+    """Reject a hot reload across encoder stems: 'pool' and 'stride2'
+    checkpoints have identical parameter shapes (the pool has none), so
+    the structural check cannot tell them apart, but they are different
+    functions."""
+    ck = str(ckpt_args.get("stem", "pool"))
+    if ck != str(served_stem or "pool"):
+        raise ValueError(
+            f"checkpoint was trained with --stem {ck} but the server is "
+            f"compiled for the '{served_stem}' stem (identical parameter "
+            "shapes, different function); restart the server to change stems"
+        )

@@ -1,13 +1,14 @@
 """Run metrics as JSON lines (the JAX package's ``MetricsLogger`` without
-its TensorBoard writer), and the timing helper and peak rates the port's
-measuring tools share."""
+its TensorBoard writer), the device-memory report the daemon's health
+shows, and the timing helper and peak rates the port's measuring tools
+share."""
 
 from __future__ import annotations
 
 import json
 import time
 from pathlib import Path
-from typing import Callable, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +29,31 @@ def device_peaks(name: str) -> Tuple[str, float, float, float]:
         if key in name:
             return (key, *val)
     return ("H100", *DEVICE_PEAKS["H100"])
+
+
+def device_memory_report(device=None) -> Optional[Dict[str, float]]:
+    """Live memory of a CUDA device (``None``: the current one) from the
+    caching allocator, in GiB, under the JAX package's keys: ``in_use_gib``
+    and ``peak_gib`` (tensors allocated now and at most), ``limit_gib`` (the
+    card's total).  None on the CPU, so callers print nothing."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return None
+    gib = 1024**3
+    stats = torch.cuda.memory_stats(device)
+    _, total = torch.cuda.mem_get_info(device)
+    return {"in_use_gib": round(stats.get("allocated_bytes.all.current", 0) / gib, 3),
+            "peak_gib": round(stats.get("allocated_bytes.all.peak", 0) / gib, 3),
+            "limit_gib": round(total / gib, 3)}
+
+
+def format_memory_report(mem: Optional[Dict[str, float]]) -> Optional[str]:
+    """One human line from ``device_memory_report()``, or None."""
+    if not mem:
+        return None
+    parts = [f"{label} {mem[key]:.2f} GiB" for key, label in (
+        ("peak_gib", "peak"), ("in_use_gib", "in use"), ("limit_gib", "limit")) if key in mem]
+    return "HBM: " + ", ".join(parts) if parts else None
 
 
 def time_ms(fn: Callable[[], object], device: torch.device | str = "cuda", iters: int = 20,
