@@ -41,6 +41,15 @@ model's full width:
   vad_tpu_torch.evaluate`` with both scorers (in process), the card's
   scores and latent maps against the CPU's, train and evaluation images/s
   and profiles (no port kernel runs there);
+- the deployment paths, on ``fit``'s and the image phase's checkpoints:
+  ``python -m vad_tpu_torch.export_model`` (bf16 and f32 video artifacts
+  with kernel 1 inside, each loaded in a fresh process and held against
+  direct scorers; a symbolic-batch image artifact against
+  ``reconstruction_error``), ``python -m vad_tpu_torch.utils.torch_import``
+  both ways through reference-layout modules, ``stream_step_fast``
+  against ``stream_step``, ``python -m vad_tpu_torch.train_video`` with
+  ``--tensorboard --profile-dir --debug-nans`` (a trace naming kernels 2
+  and 3), and the UI's logic on both checkpoints;
 - the kernel probes: kernel 5 (the tie-splitting 2x2 max-pool backward)
   held exactly against its plain version at the encoder's four pool
   inputs, kernel 6's five ablation modes against theirs (``full`` equal
@@ -48,7 +57,8 @@ model's full width:
   probe_pool_bwd`` and ``... ablate_block1`` at their defaults.
 
 Each phase prints one JSON line; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no such line,
+``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py --artifact-check
+<artifact> <checkpoint> <dtype>`` is the export phase's loading process.  Exits non-zero, with no such line,
 when there is no CUDA device, outside a checkout of the repository, or
 when any check fails.
 """
@@ -130,6 +140,12 @@ IMAGE_COMPARE_B, IMAGE_CPU_REL_L2 = 8, 1e-4
 # threads posting /v1/images, and chunks a stream through the CLI daemon.
 SERVE_CHUNKS, SERVE_RELOAD_AT, SERVE_TIMED_CHUNKS, SERVE_PROFILE_ROUNDS = 8, 4, 16, 4
 IMAGE_THREADS, CLI_CHUNKS = 4, 3
+# The export phase: chunks through each loaded artifact (the last slot idle
+# on the third) and JAX's bar for an f32 artifact against the live scorer
+# (tests/test_export.py).  The profiling phase's IPAD set: frames of its
+# training and test videos (32 and 16 windows of T at stride 4).
+EXPORT_CHUNKS, EXPORT_F32_BAR = 4, dict(rtol=1e-5, atol=1e-7)
+PROFILE_TRAIN_FRAMES, PROFILE_TEST_FRAMES = 140, 76
 
 
 def emit(obj) -> None:
@@ -2112,6 +2128,607 @@ def phase_serve(card: str, video_ckpt: Path, image: dict) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------- export and the reference
+
+
+def graph_counts(program) -> dict:
+    """Call nodes of an exported program: kernel 1's operator, and the
+    plain recurrence's sigmoids (an unrolled time loop would hold them)."""
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    return {"nodes": len(targets),
+            "convlstm_recurrence": sum("vad_tpu_torch.convlstm_recurrence" in t
+                                       for t in targets),
+            "sigmoid": sum("sigmoid" in t for t in targets)}
+
+
+def artifact_check(path: str, ckpt_path: str, dtype_name: str) -> int:
+    """The loading side of ``phase_export``, run as ``chip_smoke.py
+    --artifact-check`` in a fresh process: ``load_artifact`` (the port's ops
+    registered by it), ``EXPORT_CHUNKS`` chunks with the state threaded by
+    hand and the last slot unsubmitted on the third, kernel 1's launches
+    counted in this process, the scores against direct ``MultiStreamScorer``s
+    on the same checkpoint, and both timed on device-resident chunks.
+    Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.eval.serving import MultiStreamScorer
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
+    from vad_tpu_torch.ops import convlstm
+    from vad_tpu_torch.utils.checkpoint import load_checkpoint
+    from vad_tpu_torch.utils.export import load_artifact
+
+    start = time.perf_counter()
+    exported = load_artifact(path)
+    load_seconds = time.perf_counter() - start
+    dtype = getattr(torch, dtype_name)
+    ckpt = load_checkpoint(ckpt_path)
+    cfg = VideoAEConfig.from_args(ckpt["args"])
+    variables = {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    chunks = torch.randint(0, 256, (EXPORT_CHUNKS, S, T, IMAGE, IMAGE, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    masks = [np.ones(S, bool) for _ in range(EXPORT_CHUNKS)]
+    masks[2][S - 1] = False  # attached but idle on the third chunk
+    lat = IMAGE // 16
+    states = tuple((torch.zeros((S, lat, lat, cfg.lstm_hidden_dim), device="cuda"),
+                    torch.zeros((S, lat, lat, cfg.lstm_hidden_dim), device="cuda"))
+                   for _ in range(cfg.lstm_layers))
+    got, per_call, idle_kept = [], [], None
+    for i in range(EXPORT_CHUNKS):
+        before = [(h[S - 1].clone(), c[S - 1].clone()) for h, c in states]
+        convlstm.convlstm_recurrence.launches = 0
+        scores, states = exported.call(chunks[i], states, torch.as_tensor(masks[i], device="cuda"))
+        torch.cuda.synchronize()
+        per_call.append(convlstm.convlstm_recurrence.launches)
+        got.append(scores.cpu().numpy())
+        if i == 2:
+            idle_kept = all(torch.equal(h[S - 1], h0) and torch.equal(c[S - 1], c0)
+                            for (h, c), (h0, c0) in zip(states, before))
+    got = np.stack(got)
+    plan = convlstm.recurrence_plan("convlstm_serving", S, T, lat, lat, cfg.lstm_hidden_dim, dtype)
+
+    def direct(**kw):
+        model = VideoAutoencoder.from_config(cfg, device="cpu")
+        sc = MultiStreamScorer(model, variables, S, T, IMAGE, dtype=dtype, device="cuda", **kw)
+        for slot in range(S):
+            sc.attach(slot)
+        return sc
+
+    scorers = {"fused_input_false": direct(fused_input=False)}
+    if dtype == torch.bfloat16:
+        scorers["fused_input_default"] = direct()
+    bar = EXPORT_F32_BAR if dtype == torch.float32 else BF16_BAR
+    cmp = {}
+    for label, sc in scorers.items():
+        want = np.stack([sc.score_chunk(chunks[i], masks[i]) for i in range(EXPORT_CHUNKS)])
+        cmp[label] = {**agree(got, want, bar), "bit_equal": bool(np.array_equal(got, want))}
+    # frames/s on device-resident chunks, the scores brought to the host
+    n, fps = 10, {}
+    ones = torch.ones(S, dtype=torch.bool, device="cuda")
+    for label, run in (("artifact", lambda i: exported.call(chunks[i % EXPORT_CHUNKS], states,
+                                                            ones)[0].cpu()),
+                       ("scorer", lambda i: scorers["fused_input_false"].score_chunk(
+                           chunks[i % EXPORT_CHUNKS]))):
+        for i in range(2):
+            run(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            run(i)
+        fps[label] = n * S * T / (time.perf_counter() - t0)
+    emit({"artifact": path, "dtype": dtype_name, "load_seconds": load_seconds,
+          "graph": graph_counts(exported.program), "launches_per_call": per_call,
+          "plan_launches": plan.launches, "layers": cfg.lstm_layers, "idle_slot_kept": idle_kept,
+          "bar": bar, "compare": cmp, "frames_per_s": fps, "score_mean": float(got.mean())})
+    return 0
+
+
+def phase_export(card: str, video_ckpt: Path, image: dict, workdir: Path) -> dict:
+    """``python -m vad_tpu_torch.export_model`` on ``fit``'s best checkpoint
+    (``VideoAEConfig()``, 16 slots x 16 frames, 256x256) in bf16 and in f32,
+    each artifact loaded in a fresh process (``artifact_check``): kernel 1's
+    operator one node a layer and no unrolled recurrence in the graph, its
+    launches per call, the unsubmitted slot's (h, c) bit for bit, the
+    scores against direct scorers (bf16: ``fused_input=False`` bit for bit
+    or within the bf16 bar, the default scorer within the bf16 bar; f32 at
+    rtol 1e-5 / atol 1e-7, JAX's bar), and the artifact's frames/s beside
+    the scorer's.  Then the image checkpoint exported in f32 with a
+    symbolic batch, scored at batches 1, 7 and 16 against
+    ``reconstruction_error`` (TF32 off) at that bar."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.eval.image_eval import load_image_model
+    from vad_tpu_torch.utils.export import load_artifact
+
+    phase_start = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+
+    def export(ckpt: Path, out: Path, *flags) -> dict:
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "vad_tpu_torch.export_model",
+                               "--checkpoint", str(ckpt), "--output", str(out), *flags],
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - start
+        require(proc.returncode == 0, f"export_model exits 0: {proc.stderr[-2000:]}")
+        sidecar = json.loads(Path(str(out) + ".json").read_text())
+        return {"seconds": seconds, "bytes": sidecar["bytes"], "sidecar": sidecar,
+                "printed": proc.stdout.strip().splitlines()[-4:]}
+
+    video, launches = {}, 0
+    for dtype in ("bfloat16", "float32"):
+        out = workdir / f"video_{dtype}.pt2"
+        rec = export(video_ckpt, out, "--slots", str(S), "--chunk", str(T), "--dtype", dtype)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--artifact-check",
+                               str(out), str(video_ckpt), dtype],
+                              capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, f"the {dtype} artifact loads and runs in a fresh "
+                                      f"process: {proc.stderr[-3000:]}")
+        check = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["load"] = check
+        video[dtype] = rec
+        layers = check["layers"]
+        require(check["graph"]["convlstm_recurrence"] == layers and
+                check["graph"]["sigmoid"] == 0,
+                f"{dtype} artifact: kernel 1's operator one node a layer, no unrolled "
+                f"recurrence: {check['graph']}")
+        require(all(n == layers * check["plan_launches"] for n in check["launches_per_call"]),
+                f"{dtype} artifact launches kernel 1 {layers * check['plan_launches']} times "
+                f"a call: {check['launches_per_call']}")
+        launches += sum(check["launches_per_call"])
+        require(check["idle_slot_kept"], f"{dtype} artifact keeps an unsubmitted slot's (h, c)")
+        require(all(c["ok"] for c in check["compare"].values()),
+                f"{dtype} artifact vs direct scorers: {check['compare']}")
+        require(rec["sidecar"]["platforms"] == ["cuda"] and
+                not rec["sidecar"]["uses_shape_polymorphism"], f"{dtype} sidecar: {rec['sidecar']}")
+
+    # the image model, symbolic batch, f32
+    out = workdir / "image_float32.pt2"
+    img = export(image["ckpt"], out, "--dtype", "float32")
+    require(img["sidecar"]["uses_shape_polymorphism"], "the image artifact's batch is symbolic")
+    saved_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        exported = load_artifact(out)  # f32: TF32 off for the process
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, _, _ = load_image_model(image["ckpt"], device="cuda")
+        images = torch.from_numpy(image["test_images"]).cuda()
+        batches = {}
+        for b in (1, 7, 16):
+            u8 = images[:b]
+            got = exported.call(u8)
+            with torch.no_grad():
+                want = model.reconstruction_error(u8.float() / 127.5 - 1.0)
+            batches[b] = {**agree(got, want, EXPORT_F32_BAR),
+                          "bit_equal": bool(torch.equal(got, want))}
+            require(tuple(got.shape) == (b,) and batches[b]["ok"],
+                    f"image artifact at batch {b} vs reconstruction_error: {batches[b]}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    img["batches"] = batches
+    img["graph"] = graph_counts(exported.program)
+    emit({"phase": "export", "card": card, "video": video, "image": img,
+          "artifact_vs_scorer": {d: r["load"]["frames_per_s"]["artifact"]
+                                 / r["load"]["frames_per_s"]["scorer"]
+                                 for d, r in video.items()},
+          "launches": launches, "seconds": time.perf_counter() - phase_start})
+    return {"launches": launches}
+
+
+def reference_image(latent: int):
+    """A module with the reference image autoencoder's names and forward
+    (``encoder.enc1..4``, ``decoder.dec1..4``; NCHW in and out)."""
+    from torch import nn
+
+    def enc(cin, cout):
+        return nn.Sequential(
+            nn.Conv2d(cin, cout, 3, padding=1), nn.BatchNorm2d(cout), nn.LeakyReLU(0.2),
+            nn.Conv2d(cout, cout, 3, padding=1), nn.BatchNorm2d(cout), nn.LeakyReLU(0.2),
+            nn.MaxPool2d(2, 2))
+
+    def dec(cin, cout):
+        return nn.Sequential(
+            nn.ConvTranspose2d(cin, cout, 2, stride=2), nn.BatchNorm2d(cout), nn.ReLU(),
+            nn.Conv2d(cout, cout, 3, padding=1), nn.BatchNorm2d(cout), nn.ReLU())
+
+    class Model(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.encoder, self.decoder = nn.Module(), nn.Module()
+            for i, (ci, co) in enumerate(((3, 32), (32, 64), (64, 128), (128, latent))):
+                setattr(self.encoder, f"enc{i + 1}", enc(ci, co))
+            for i, (ci, co) in enumerate(((latent, 128), (128, 64), (64, 32))):
+                setattr(self.decoder, f"dec{i + 1}", dec(ci, co))
+            self.decoder.dec4 = nn.Sequential(
+                nn.ConvTranspose2d(32, 32, 2, stride=2), nn.BatchNorm2d(32), nn.ReLU(),
+                nn.Conv2d(32, 3, 3, padding=1), nn.Tanh())
+
+        def forward(self, x):  # NCHW
+            for name in ("enc1", "enc2", "enc3", "enc4"):
+                x = getattr(self.encoder, name)(x)
+            for name in ("dec1", "dec2", "dec3", "dec4"):
+                x = getattr(self.decoder, name)(x)
+            return x
+
+    return Model()
+
+
+def reference_video(latent: int, hidden: int, layers: int):
+    """A module with the reference video autoencoder's names and forward
+    (``encoder.encoder.N``, ``convlstm.cells.K.conv``, ``decoder.decoder.N``;
+    its ConvLSTM a plain loop over the fused gate conv; [B, T, C, H, W])."""
+    import torch
+    from torch import nn
+
+    class Model(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.encoder = nn.Module()
+            blocks = []
+            for ci, co in ((3, 32), (32, 64), (64, 128), (128, latent)):
+                blocks += [nn.Conv2d(ci, co, 3, padding=1), nn.BatchNorm2d(co),
+                           nn.LeakyReLU(0.2), nn.MaxPool2d(2, 2)]
+            self.encoder.encoder = nn.Sequential(*blocks)
+            self.convlstm = nn.Module()
+            cells = []
+            for i in range(layers):
+                cell = nn.Module()
+                cell.conv = nn.Conv2d((latent if i == 0 else hidden) + hidden, 4 * hidden, 3,
+                                      padding=1)
+                cells.append(cell)
+            self.convlstm.cells = nn.ModuleList(cells)
+            self.decoder = nn.Module()
+            self.decoder.decoder = nn.Sequential(
+                nn.ConvTranspose2d(hidden, 128, 2, stride=2), nn.BatchNorm2d(128), nn.ReLU(),
+                nn.ConvTranspose2d(128, 64, 2, stride=2), nn.BatchNorm2d(64), nn.ReLU(),
+                nn.ConvTranspose2d(64, 32, 2, stride=2), nn.BatchNorm2d(32), nn.ReLU(),
+                nn.ConvTranspose2d(32, 3, 2, stride=2), nn.Tanh())
+
+        def forward(self, x):  # [B, T, C, H, W]
+            b, t, c, h, w = x.shape
+            z = self.encoder.encoder(x.reshape(b * t, c, h, w))
+            cur = z.reshape(b, t, *z.shape[1:])
+            for cell in self.convlstm.cells:
+                hs = torch.zeros((b, hidden, *z.shape[2:]), device=x.device)
+                cs = torch.zeros_like(hs)
+                outs = []
+                for ti in range(t):
+                    i, f, g, o = torch.split(cell.conv(torch.cat([cur[:, ti], hs], 1)),
+                                             hidden, dim=1)
+                    cs = torch.sigmoid(f) * cs + torch.sigmoid(i) * torch.tanh(g)
+                    hs = torch.sigmoid(o) * torch.tanh(cs)
+                    outs.append(hs)
+                cur = torch.stack(outs, dim=1)
+            y = self.decoder.decoder(cur.reshape(b * t, hidden, *z.shape[2:]))
+            return y.reshape(b, t, 3, h, w)
+
+    return Model()
+
+
+def phase_reference_import(card: str, video_ckpt: Path, image: dict, workdir: Path) -> dict:
+    """``python -m vad_tpu_torch.utils.torch_import --export`` (in process,
+    through ``main``) on ``fit``'s and the image phase's best checkpoints;
+    each ``.pth`` loaded with ``strict=True`` into the reference's module
+    layout (``reference_video``, ``reference_image``) on the card, whose
+    reconstructions and scores must equal the port's at the f32 bar (TF32
+    off; the port's recurrence is kernel 1); then re-imported to ``.ckpt``,
+    whose weights must equal the original's exactly."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.eval.image_eval import load_image_model
+    from vad_tpu_torch.eval.video_eval import load_video_model
+    from vad_tpu_torch.utils import torch_import
+    from vad_tpu_torch.utils.checkpoint import load_checkpoint
+
+    phase_start = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    out, launches = {}, 0
+    for kind, ckpt in (("video", video_ckpt), ("image", image["ckpt"])):
+        pth, back = workdir / f"{kind}.pth", workdir / f"{kind}_roundtrip.ckpt"
+        with contextlib.redirect_stdout(io.StringIO()):
+            torch_import.main(["--checkpoint", str(ckpt), "--out", str(pth), "--export"])
+            torch_import.main(["--checkpoint", str(pth), "--out", str(back)])
+            load = load_video_model if kind == "video" else load_image_model
+            port, _, args = load(ckpt, device="cuda")
+        sd = torch.load(str(pth), map_location="cpu", weights_only=True)["model_state_dict"]
+        if kind == "video":
+            ref = reference_video(args.get("latent_dim", 128), args.get("lstm_hidden_dim", 128),
+                                  args.get("lstm_layers", 2))
+        else:
+            ref = reference_image(args.get("latent_dim", 256))
+        missing = ref.load_state_dict(sd, strict=True)
+        ref = ref.cuda().eval()
+        shape = (2, T, IMAGE, IMAGE, 3) if kind == "video" else (4, IMAGE, IMAGE, 3)
+        u8 = torch.randint(0, 256, shape, generator=g, device="cuda", dtype=torch.uint8)
+        x = u8.float() / 127.5 - 1.0
+        with torch.no_grad(), no_tf32():
+            zero_counters()
+            got = port(x)
+            launches += read_counters()["convlstm_serving"] if kind == "video" else 0
+            nchw = x.permute(0, 1, 4, 2, 3) if kind == "video" else x.permute(0, 3, 1, 2)
+            want = ref(nchw)
+            want = want.permute(0, 1, 3, 4, 2) if kind == "video" else want.permute(0, 2, 3, 1)
+            axes = (2, 3, 4) if kind == "video" else (1, 2, 3)
+            got_s, want_s = ((torch.mean(torch.square(x - r), dim=axes)) for r in (got, want))
+        a, b = load_checkpoint(ckpt), load_checkpoint(back)
+        leaves = {}
+
+        def walk(p, q, name=""):
+            if isinstance(p, dict):
+                require(set(p) == set(q), f"round trip keeps the tree at {name}")
+                for k in p:
+                    walk(p[k], q[k], f"{name}/{k}")
+            else:
+                leaves[name] = bool(np.array_equal(np.asarray(p), np.asarray(q)))
+
+        walk({"params": a["params"], "batch_stats": a["batch_stats"]},
+             {"params": b["params"], "batch_stats": b["batch_stats"]})
+        out[kind] = {"strict_load": str(missing), "keys": len(sd),
+                     "recon": agree(got, want, F32_BAR), "scores": agree(got_s, want_s, F32_BAR),
+                     "roundtrip_leaves": len(leaves),
+                     "roundtrip_exact": all(leaves.values()), "pth_bytes": pth.stat().st_size}
+        require(out[kind]["recon"]["ok"] and out[kind]["scores"]["ok"],
+                f"{kind}: the reference layout scores as the port does: {out[kind]}")
+        require(out[kind]["roundtrip_exact"],
+                f"{kind}: the round-tripped checkpoint's weights equal the original's: "
+                f"{[k for k, v in leaves.items() if not v]}")
+    require(launches > 0, "the port's video forward went through kernel 1")
+    emit({"phase": "reference_import", "card": card, **out, "launches": launches,
+          "seconds": time.perf_counter() - phase_start})
+    return {"launches": launches}
+
+
+def phase_stream_step_fast(card: str) -> dict:
+    """``VideoAutoencoder.stream_step_fast`` (the decoder as four folded
+    quadtree products) against ``stream_step`` at full width, S=16, T=16,
+    256x256, bf16, seeded weights, state threaded over ``CHUNKS`` chunks:
+    scores and each layer's carried (h, c) at the bf16 bar, kernel 1's
+    launches, and both steps' frames/s (device-resident input, the scores
+    brought to the host)."""
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+    from vad_tpu_torch.ops.decoder_fast import fold_decoder_params
+    from vad_tpu_torch.utils.weights import state_dict_to_flax
+
+    phase_start = time.perf_counter()
+    cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
+    model = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED)
+    folded = fold_decoder_params(state_dict_to_flax(model), torch.bfloat16, "cuda")
+    model = model.to(device="cuda", dtype=torch.bfloat16).eval()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    chunks = torch.randint(0, 256, (CHUNKS, S, T, IMAGE, IMAGE, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    xs = [c.to(torch.bfloat16) / 127.5 - 1.0 for c in chunks]
+
+    def run(fast: bool):
+        states, scores = model.zero_state(S, IMAGE, IMAGE), []
+        for x in xs:
+            if fast:
+                _, _, fs, states = model.stream_step_fast(x, states, folded, False)
+            else:
+                _, _, fs, states = model.stream_step(x, states)
+            scores.append(fs.float())
+        return torch.stack(scores), states
+
+    with torch.no_grad():
+        (fast_scores, fast_states), _, fast_launches = counted(lambda: run(True))
+        ref_scores, ref_states = run(False)
+        cmp = {"scores": agree(fast_scores, ref_scores)}
+        for i, ((h, c), (rh, rc)) in enumerate(zip(fast_states, ref_states)):
+            cmp[f"layer{i}_h"], cmp[f"layer{i}_c"] = agree(h, rh), agree(c, rc)
+        states = model.zero_state(S, IMAGE, IMAGE)
+        steps = {"stream_step": lambda i: model.stream_step(xs[i % CHUNKS], states)[2].cpu(),
+                 "stream_step_fast": lambda i: model.stream_step_fast(
+                     xs[i % CHUNKS], states, folded, False)[2].cpu()}
+        fps = {}
+        for _ in range(2):  # in turns: step, fast, step, fast
+            for label, step in steps.items():
+                for i in range(2):
+                    step(i)
+                torch.cuda.synchronize()
+                n = 10
+                start = time.perf_counter()
+                for i in range(n):
+                    step(i)
+                fps.setdefault(label, []).append(n * S * T / (time.perf_counter() - start))
+    launches = fast_launches["convlstm_serving"]
+    record = {"phase": "stream_step_fast", "card": card, "streams": S, "chunk": T,
+              "image": IMAGE, "dtype": "bfloat16", "chunks": CHUNKS, "compare": cmp,
+              "launches": launches, "frames_per_s": fps,
+              "fast_over_step": [f / s for f, s in zip(fps["stream_step_fast"],
+                                                       fps["stream_step"])],
+              "seconds": time.perf_counter() - phase_start}
+    emit(record)
+    require(all(r["ok"] for r in cmp.values()),
+            f"stream_step_fast vs stream_step within {BF16_BAR}: {cmp}")
+    require(launches == CHUNKS * cfg.lstm_layers, f"stream_step_fast launched kernel 1 once a "
+                                                  f"layer a chunk: {launches}")
+    return {"launches": launches}
+
+
+def write_ipad(root: Path, category: str) -> None:
+    """An IPAD-layout video set of orbit frames (PNG): one training video of
+    ``PROFILE_TRAIN_FRAMES`` normal frames, one test video of
+    ``PROFILE_TEST_FRAMES`` whose second half holds the intruder, with its
+    frame labels."""
+    import numpy as np
+    from PIL import Image
+
+    normal, intruder = orbit_bank(PROFILE_TRAIN_FRAMES, SEED + 14)
+    test_normal, test_intruder = orbit_bank(PROFILE_TEST_FRAMES, SEED + 15)
+    half = PROFILE_TEST_FRAMES // 2
+    labels = np.arange(PROFILE_TEST_FRAMES) >= half
+    videos = {("training", "000"): normal,
+              ("testing", "000"): np.where(labels[:, None, None, None], test_intruder,
+                                           test_normal)}
+    for (split, vid), frames in videos.items():
+        folder = root / category / split / "frames" / vid
+        folder.mkdir(parents=True, exist_ok=True)
+        for t, frame in enumerate(frames):
+            Image.fromarray(frame).save(folder / f"{t:04d}.png")
+    (root / category / "test_label").mkdir(parents=True, exist_ok=True)
+    np.save(root / category / "test_label" / "000.npy", labels.astype(np.int64))
+
+
+def phase_profiling(card: str, workdir: Path) -> dict:
+    """``python -m vad_tpu_torch.train_video`` (in process, through
+    ``main``) for 2 epochs at 256x256, B=8, T=16, bf16, on an IPAD set of
+    orbit frames (``write_ipad``: 32 training and 16 test windows, as
+    ``phase_train``'s): without flags, with ``--debug-nans``, and with
+    ``--tensorboard --profile-dir --debug-nans``.  Checks: the trace of the
+    second epoch exists and names kernels 2 and 3, kernels 2 and 3 launched
+    in each run, event files under ``<run>/tb/`` where tensorboard imports;
+    records each run's seconds and epoch seconds."""
+    import importlib.util
+
+    from vad_tpu_torch import train_video
+
+    phase_start = time.perf_counter()
+    data = workdir / "ipad"
+    write_ipad(data, "orbit")
+    base = ["--category", "orbit", "--data-dir", str(data), "--epochs", "2",
+            "--image-size", str(IMAGE), "--sequence-length", str(T), "--stride", "4",
+            "--batch-size", str(B_TRAIN), "--precision", "bf16", "--num-workers", "2",
+            "--seed", str(SEED)]
+    trace_dir = workdir / "trace"
+    runs = {"plain": [], "debug_nans": ["--debug-nans"],
+            "all_flags": ["--tensorboard", "--profile-dir", str(trace_dir), "--debug-nans"]}
+    out, launches = {}, {}
+    for label, flags in runs.items():
+        results = workdir / f"results_{label}"
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            _, seconds, counts = counted(lambda: train_video.main(
+                base + ["--results-dir", str(results)] + flags))
+        run_dir = next(results.iterdir())
+        epochs = [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        out[label] = {"seconds": seconds, "launches": counts,
+                      "epoch_seconds": [e["epoch_seconds"] for e in epochs
+                                        if "epoch_seconds" in e],
+                      "run_dir": run_dir}
+        require(counts["convlstm_train_forward"] > 0 and counts["convlstm_backward"] > 0,
+                f"{label}: trained through kernels 2 and 3: {counts}")
+        if label == "all_flags":
+            launches = counts
+    traces = sorted(trace_dir.glob("*.json"))
+    require(bool(traces), f"a trace file under {trace_dir}")
+    text = traces[0].read_text()
+    names = sorted(set(re.findall(r'"name": "([^"]*(?:recurrence_kernel<true>|'
+                                  r'convlstm_step_kernel<[^"]*true>|gate_kernel|loop_kernel|'
+                                  r'dw_kernel|gate_all_kernel|finish_kernel)[^"]*)"', text)))
+    kernel2 = [n for n in names if "recurrence_kernel" in n or "convlstm_step_kernel" in n]
+    kernel3 = [n for n in names if n not in kernel2]
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    events = sorted((out["all_flags"]["run_dir"] / "tb").glob("events.out.tfevents.*"))
+    for rec in out.values():
+        rec["run_dir"] = str(rec["run_dir"])
+    plain, nans, flagged = (out[k]["epoch_seconds"][1] for k in runs)
+    emit({"phase": "profiling", "card": card, "runs": out, "trace_file": traces[0].name,
+          "trace_bytes": len(text), "kernel2_names": kernel2[:4], "kernel3_names": kernel3[:8],
+          "tensorboard_installed": has_tb, "event_files": [e.name for e in events],
+          "second_epoch_seconds": {"plain": plain, "debug_nans": nans, "all_flags": flagged},
+          "debug_nans_over_plain": nans / plain, "all_flags_over_plain": flagged / plain,
+          "run_seconds_over_plain": out["all_flags"]["seconds"] / out["plain"]["seconds"],
+          "seconds": time.perf_counter() - phase_start})
+    require(kernel2 and kernel3, f"the trace names kernels 2 and 3: {names[:12]}")
+    require(bool(events) == has_tb, f"event files exactly where tensorboard imports: {events}")
+    return {"launches": launches, "data": data}
+
+
+def write_mp4(path: Path, frames) -> None:
+    """Frames as an mp4 (OpenCV's mp4v), as ``eval/video_render`` writes."""
+    from vad_tpu_torch.data.video_dataset import cv2_module
+
+    cv2 = cv2_module()
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25.0,
+                             (frames[0].shape[1], frames[0].shape[0]))
+    try:
+        for frame in frames:
+            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+    finally:
+        writer.release()
+
+
+def phase_ui(card: str, video_ckpt: Path, image: dict, video_data: Path,
+             workdir: Path) -> dict:
+    """``vad_tpu_torch.ui.logic`` on the card (no gradio there): an
+    ``AppState`` loads both checkpoints; ``analyze_image`` on a fixture
+    test image, whose score must equal ``reconstruction_error``'s on the
+    same resized input (f32, TF32 off); ``analyze_video`` on a
+    ``VIDEO_FRAMES``-frame orbit clip written to mp4, whose scores must
+    equal ``stream_scores``' on the same file (kernel 1 launches); all four
+    train and evaluation commands name the port's modules, the video
+    evaluation finding ``video_data`` (an IPAD set) as ./data/IPAD."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from vad_tpu_torch.eval.video_render import stream_scores
+    from vad_tpu_torch.ui import logic
+
+    phase_start = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = logic.AppState("cuda")
+        loaded = (state.load_image_model(str(image["ckpt"])),
+                  state.load_video_model(str(video_ckpt)))
+    require(all("loaded successfully" in s and "PyTorch/CUDA" in s for s in loaded),
+            f"both checkpoints load: {loaded}")
+    fixture = image["test_images"][0]
+    recon, heat, report = logic.analyze_image(state, fixture)
+    _, _, score = logic.score_image(state, fixture)
+    size = int(state.model_args.get("image_size", IMAGE))
+    resized = np.asarray(Image.fromarray(fixture).resize((size, size), Image.BILINEAR),
+                         np.float32)
+    with torch.no_grad(), no_tf32():
+        want = float(state.model.reconstruction_error(
+            torch.from_numpy(resized[None] / 127.5 - 1.0).cuda())[0])
+    image_cmp = {"score": score, "reconstruction_error": want, "equal": score == want,
+                 "in_report": f"{score:.6f}" in report, "heatmap": heat is not None}
+    require(recon.shape == (size, size, 3) and image_cmp["in_report"]
+            and math.isclose(score, want, rel_tol=F32_BAR["rtol"], abs_tol=F32_BAR["atol"]),
+            f"analyze_image scores as reconstruction_error: {image_cmp}")
+
+    clip = workdir / "orbit.mp4"
+    normal, intruder = orbit_bank(BANK_FRAMES, SEED + 16)
+    write_mp4(clip, list(clip_frames((normal, intruder), VIDEO_FRAMES, 0, True)))
+    (timeline, vreport), seconds, counts = counted(lambda: logic.analyze_video(state, str(clip)))
+    got = logic.video_scores(state, str(clip))
+    ref = stream_scores(state.video_model, None, str(clip), IMAGE,
+                        chunk=int(state.video_args.get("sequence_length", T)))
+    video_cmp = {"frames": len(got), "equal": bool(np.array_equal(got, ref)),
+                 "max_abs_err": float(np.abs(got - ref).max()),
+                 "in_report": f"Total Frames Analyzed: {len(ref)}" in vreport,
+                 "timeline": timeline is not None}
+    require(len(got) == VIDEO_FRAMES and video_cmp["equal"] and video_cmp["in_report"],
+            f"analyze_video scores as stream_scores: {video_cmp}")
+    launches = counts["convlstm_serving"]
+    require(launches > 0, f"analyze_video went through kernel 1: {counts}")
+    # The evaluation commands find their data as the app does when run from
+    # a repository root: the image run's stored data dir, and ./data/IPAD for
+    # the video run (fit's checkpoint stores the default ./data, which holds
+    # no orbit set), here the profiling phase's IPAD set.
+    (workdir / "data").mkdir(exist_ok=True)
+    (workdir / "data" / "IPAD").symlink_to(video_data.resolve(), target_is_directory=True)
+    with contextlib.chdir(workdir):
+        commands = {
+            "train": logic.build_train_command("c", 1, 2, 1e-3, "mse", "d"),
+            "train_video": logic.build_video_train_command("c", 1, 2, 1e-4, "d"),
+            "evaluate": logic.build_eval_command(str(image["ckpt"])),
+            "evaluate_video": logic.build_eval_command(str(video_ckpt))}
+    named = {k: f"vad_tpu_torch.{k}" in (cmd or []) for k, cmd in commands.items()}
+    require(all(named.values()), f"all four commands name the port's modules: {commands}")
+    emit({"phase": "ui", "card": card, "image": image_cmp, "video": video_cmp,
+          "analyze_video_seconds": seconds, "launches": launches, "commands_named": named,
+          "seconds": time.perf_counter() - phase_start})
+    return {"launches": launches}
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -2121,6 +2738,8 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port ({exc}); run from the repository root",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--artifact-check"]:  # phase_export's loading process
+        return artifact_check(*sys.argv[2:5])
     name, peak_flops, peak_bw, f32_flops, card = phase_device()
     phase_build()
     checks = {"convlstm_serving": phase_convlstm(peak_flops, peak_bw, f32_flops),
@@ -2134,6 +2753,12 @@ def main() -> int:
         evaluation = phase_eval(best_ckpt, test_ds, card)
         image = phase_image(card, Path(tmp) / "image")
         serve = phase_serve(card, best_ckpt, image)
+        work = Path(tmp)
+        export = phase_export(card, best_ckpt, image, work / "export")
+        reference = phase_reference_import(card, best_ckpt, image, work / "reference")
+        fast = phase_stream_step_fast(card)
+        profiling = phase_profiling(card, work / "profiling")
+        ui = phase_ui(card, best_ckpt, image, profiling["data"], work / "ui")
     probes = phase_probes()
     checks.update(probes)
     kernels = []
@@ -2169,6 +2794,13 @@ def main() -> int:
             kernels[-1]["serve_launches"] = serve["launches"][kname]
         if kname == "convlstm_serving":
             kernels[-1]["f32"] = rec["f32"]
+            # the artifacts' loading processes, stream_step_fast, the UI's
+            # analyze_video and the port's forward beside the reference layout
+            kernels[-1].update(export_launches=export["launches"],
+                               fast_launches=fast["launches"], ui_launches=ui["launches"],
+                               reference_import_launches=reference["launches"])
+        if kname in ("convlstm_train_forward", "convlstm_backward"):  # the profiled CLI run
+            kernels[-1]["profiling_launches"] = profiling["launches"][kname]
     emit({"kernels": kernels})
     import torch
 

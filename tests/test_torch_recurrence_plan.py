@@ -200,6 +200,10 @@ def test_cpu_wrappers_count_no_launch(shape, dtype):
                 convlstm.convlstm_backward)
     before = [f.launches for f in counters]
     with torch.no_grad():
+        # The plain recurrence's first call in a process can round a few
+        # bf16 elements of h_seq one step otherwise than every later call on
+        # the same inputs; the compared calls come after it.
+        convlstm.convlstm_recurrence(gx, wh, h0, h0)
         seq, _ = convlstm.convlstm_recurrence(gx, wh, h0, h0)
     leaves = [x.clone().requires_grad_() for x in (gx, wh, h0, h0)]
     seq2, (hf, cf) = convlstm.convlstm_recurrence(*leaves)

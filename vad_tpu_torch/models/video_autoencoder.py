@@ -15,7 +15,7 @@ differentiated, kernels 2 and 3 (forward and backward) under autograd.
 Modules follow ``train()``/``eval()`` as any ``nn.Module``: a model is
 built in train mode, and BatchNorm then uses batch statistics (Flax's
 train-mode semantics, ``models/norms.py``).  The scoring methods
-(``stream_step``, ``stream_step_u8``, ``error_map``,
+(``stream_step``, ``stream_step_u8``, ``stream_step_fast``, ``error_map``,
 ``reconstruction_error``, ``prediction_error``) are the JAX model's
 ``train=False`` calls: run them in eval mode (``MultiStreamScorer`` and the
 trainer's eval step do).
@@ -35,6 +35,7 @@ from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.models.norms import make_norm
 from vad_tpu_torch.ops import convlstm as convlstm_ops
 from vad_tpu_torch.ops import encoder_fused
+from vad_tpu_torch.ops.decoder_fast import decode_quadtree, quadtree_view, raster_from_quadtree
 from vad_tpu_torch.ops.convlstm import convlstm_step  # noqa: F401  (public API)
 
 State = Tuple[torch.Tensor, torch.Tensor]
@@ -307,6 +308,28 @@ class VideoAutoencoder(nn.Module):
         frame_scores = torch.mean(sq, dim=(2, 3))  # over H, W*3 == frame mean
         err = torch.mean(sq.reshape(b, t, h, w3 // 3, 3), dim=-1) if compute_err_map else None
         return rf, err, frame_scores, new_states
+
+    def stream_step_fast(self, x: torch.Tensor, states, folded, compute_err_map: bool = True):
+        """``stream_step`` with the decoder run as folded quadtree products
+        (``ops/decoder_fast.py``; ``folded`` from ``fold_decoder_params``,
+        inference BatchNorm baked in, so norm='batch' models only).  The
+        recurrence is the same call as ``stream_step``'s (kernel 1 on the
+        card under ``no_grad``).  Frame scores are taken in quadtree row
+        order.  Not used by the serving path (nor in the JAX package).
+
+        Returns ``(recon_quadtree [B*T*H*W, C], err_map or None,
+        frame_scores [B, T], new_states)``; ``raster_from_quadtree`` turns
+        the reconstruction into frames."""
+        z, new_states = self._temporal(self.encoder(x), states)
+        recon_q = decode_quadtree(z, folded)
+        b, t, h, w, _ = x.shape
+        xq = quadtree_view(x)
+        pix = torch.mean(torch.square(xq - recon_q.to(xq.dtype)), dim=-1)
+        frame_scores = torch.mean(pix.reshape(b, t, -1), dim=-1)
+        err = None
+        if compute_err_map:
+            err = raster_from_quadtree(pix[:, None], (b, t), h, w)[..., 0]
+        return recon_q, err, frame_scores, new_states
 
     def error_map(self, x: torch.Tensor) -> torch.Tensor:
         """Per-pixel, per-frame anomaly map ``[B,T,H,W]``."""

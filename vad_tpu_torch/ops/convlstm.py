@@ -39,6 +39,14 @@ counterpart of the JAX package's ``jax.custom_vjp`` — else through
 kernel 1, the split JAX makes between the primal and ``_fwd``.  Each
 wrapper launches its kernel for CUDA tensors and runs its plain version
 only for CPU tensors.
+
+Kernel 1 is reached through the registered operator
+``torch.ops.vad_tpu_torch.convlstm_recurrence`` (its CUDA implementation
+launches the kernel, its CPU implementation is the plain version, and a
+fake implementation gives the output shapes), so ``torch.export`` records
+the whole recurrence as one graph node that the saved artifact runs
+through the kernel on the card (``utils/export.py``).  The dispatcher picks
+the implementation by the tensors' device: a kernel that fails raises.
 """
 
 from __future__ import annotations
@@ -478,6 +486,33 @@ class ConvLSTMRecurrence(torch.autograd.Function):
         return backward(*saved, dh_seq, dhf, dcf)
 
 
+@torch.library.custom_op("vad_tpu_torch::convlstm_recurrence", mutates_args=(),
+                         device_types="cpu")
+def _recurrence_op(gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor,
+                   c0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(h_seq, h_T, c_T)``: the plain version on the CPU."""
+    h_seq, (hf, cf) = convlstm_recurrence_ref(gates_x, w_h, h0, c0)
+    return h_seq, hf, cf
+
+
+@_recurrence_op.register_kernel("cuda")
+def _recurrence_op_cuda(gates_x, w_h, h0, c0):
+    """Kernel 1 on the card, in the design ``recurrence_plan`` picks at run
+    time from the call's shapes."""
+    h_seq, _, (hf, cf) = _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq=False)
+    return h_seq, hf, cf
+
+
+@_recurrence_op.register_fake
+def _recurrence_op_fake(gates_x, w_h, h0, c0):
+    """Output shapes and types: ``h_seq [B,T,H,W,C]`` in the gates' type,
+    the finals ``[B,H,W,C]`` in f32."""
+    b, t, hgt, wid, four_c = gates_x.shape
+    seq = gates_x.new_empty((b, t, hgt, wid, four_c // 4))
+    final = gates_x.new_empty((b, hgt, wid, four_c // 4), dtype=torch.float32)
+    return seq, final, torch.empty_like(final)
+
+
 def convlstm_recurrence(
     gates_x: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     remat: bool = False,
@@ -485,9 +520,10 @@ def convlstm_recurrence(
     """The recurrence; same contract as ``convlstm_recurrence_ref``.
 
     Under autograd (grad enabled, an input requiring grad) it runs
-    ``ConvLSTMRecurrence``: kernels 2 and 3 on the card.  Otherwise kernel
-    1 on the card (launches per call as ``recurrence_plan`` says, counted
-    in ``convlstm_recurrence.launches``), or the plain version for CPU
+    ``ConvLSTMRecurrence``: kernels 2 and 3 on the card.  Otherwise the
+    operator ``torch.ops.vad_tpu_torch.convlstm_recurrence``: kernel 1 on
+    the card (launches per call as ``recurrence_plan`` says, counted in
+    ``convlstm_recurrence.launches``), or the plain version for CPU
     tensors.  ``remat`` is accepted and does nothing here, as on the JAX
     package's Pallas path: the backward already recomputes the gates."""
     del remat
@@ -496,10 +532,8 @@ def convlstm_recurrence(
     if torch.is_grad_enabled() and any(x.requires_grad for x in (gates_x, w_h, h0, c0)):
         h_seq, hf, cf = ConvLSTMRecurrence.apply(gates_x, w_h, h0, c0)
         return h_seq, (hf, cf)
-    if gates_x.device.type == "cpu":
-        return convlstm_recurrence_ref(gates_x, w_h, h0, c0)
-    h_seq, _, final = _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq=False)
-    return h_seq, final
+    h_seq, hf, cf = _recurrence_op(gates_x, w_h, h0, c0)
+    return h_seq, (hf, cf)
 
 
 convlstm_recurrence.launches = 0

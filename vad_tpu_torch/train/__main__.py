@@ -4,9 +4,11 @@
 The flags of the JAX package's ``train.py``, plus ``--device`` (default
 ``cuda``).  ``--category all`` or a comma list trains every category in
 one campaign (``vad_tpu_torch/campaign.py``); ``--resume`` cannot be
-combined with one.  ``--model-parallel`` > 1, ``--tensorboard``,
-``--profile-dir`` and ``--debug-nans`` raise: their modules are not
-ported yet.
+combined with one.  ``--model-parallel`` > 1 raises: its module is not
+ported yet.  ``--tensorboard`` writes epoch scalars under
+``<run_dir>/tb/``, ``--profile-dir`` a ``torch.profiler`` trace of the
+second epoch, and ``--debug-nans`` runs autograd's anomaly mode and
+raises ``FloatingPointError`` on a non-finite loss.
 
 Usage:
     python -m vad_tpu_torch.train --category synthetic --epochs 50
@@ -58,7 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--debug-nans", action="store_true",
                         help="Raise on the first NaN produced on device")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="Write a profiler trace of one epoch here (not ported yet)")
+                        help="Write a torch.profiler trace of one epoch here")
     parser.add_argument("--tensorboard", action="store_true",
                         help="Also write epoch metrics as TensorBoard "
                              "scalars under <run_dir>/tb/ (the reference "

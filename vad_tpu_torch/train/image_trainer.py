@@ -49,9 +49,11 @@ from vad_tpu_torch.train.steps import make_eval_step, make_train_step
 from vad_tpu_torch.train.video_trainer import (
     THRESHOLD_METHOD,
     _to_tensors,
+    nan_debugging,
     padded_batch_size,
     refuse_unported,
     run_epoch_train,
+    run_profiled_epoch,
 )
 from vad_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from vad_tpu_torch.utils.precision import tf32_off
@@ -98,7 +100,7 @@ def fit(args: Any, train_ds, test_ds, device=None) -> Dict[str, Any]:
     device = resolve_device(device)
     refuse_unported(args)
     f32 = (getattr(args, "precision", "f32") or "f32") == "f32"
-    with tf32_off(f32 and device.type == "cuda"):
+    with tf32_off(f32 and device.type == "cuda"), nan_debugging(args):
         return _fit(args, train_ds, test_ds, device)
 
 
@@ -136,7 +138,8 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
         print("Precision: bf16 mixed (f32 master weights)")
     if accum_steps > 1:
         print(f"Gradient accumulation: {accum_steps} microbatches/step")
-    train_step = make_train_step(per_sample_loss, compute_dtype, accum_steps)
+    train_step = make_train_step(per_sample_loss, compute_dtype, accum_steps,
+                                 debug_nans=bool(getattr(args, "debug_nans", False)))
     eval_step = make_eval_step(per_sample_loss, ConvAutoencoder.reconstruction_error)
     scheduler = ReduceLROnPlateau(mode="min", factor=0.5, patience=5)
 
@@ -162,7 +165,7 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
         results_dir.mkdir(parents=True, exist_ok=True)
 
     args_dict = dict(vars(args))
-    metrics = MetricsLogger(results_dir)
+    metrics = MetricsLogger(results_dir, tensorboard=bool(getattr(args, "tensorboard", False)))
     print(f"\nStarting training for {args.epochs} epochs...")
     print("-" * 60)
     best_loss = min(history["val_loss"], default=float("inf"))
@@ -170,7 +173,8 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
 
     for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
-        train_loss = run_epoch_train(train_step, model, optimizer, train_loader, key="image")
+        train_loss = run_profiled_epoch(args, epoch, start_epoch, lambda: run_epoch_train(
+            train_step, model, optimizer, train_loader, key="image"))
         val_loss, normal_err, anomaly_err, v_labels, v_scores = run_epoch_validate(
             eval_step, model, test_loader)
 
@@ -209,6 +213,7 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
             save_checkpoint(results_dir / "best_model.ckpt", payload)
             print(f"  → Saved best model (loss: {val_loss:.6f})", flush=True)
 
+    metrics.close()
     if payload is not None:
         save_checkpoint(results_dir / "final_model.ckpt", {**payload, "epoch": args.epochs})
     if history["train_loss"]:

@@ -21,7 +21,7 @@ def u8_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_train_step(per_sample_loss_fn: Callable, compute_dtype: Optional[torch.dtype] = None,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1, debug_nans: bool = False) -> Callable:
     """``step(model, optimizer, images_u8, n_real) -> loss`` (a detached f32
     0-d tensor on the model's device).
 
@@ -42,6 +42,10 @@ def make_train_step(per_sample_loss_fn: Callable, compute_dtype: Optional[torch.
     full-batch masked mean), then one optimizer step.  BatchNorm normalizes
     each microbatch by its own statistics and its running statistics
     advance once per microbatch.  The batch must divide by ``accum_steps``.
+
+    ``debug_nans`` (``--debug-nans``) reads each step's loss before the
+    optimizer step and raises ``FloatingPointError`` when it is not finite,
+    so the weights keep their last finite values (a sync a step).
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -69,6 +73,9 @@ def make_train_step(per_sample_loss_fn: Callable, compute_dtype: Optional[torch.
             micro_sum = torch.sum(torch.where(mask[k * micro:(k + 1) * micro], losses, 0.0))
             (micro_sum / denom).backward()
             loss_sum += micro_sum.detach()
+        if debug_nans and not bool(torch.isfinite(loss_sum)):
+            raise FloatingPointError(
+                f"invalid value ({float(loss_sum / denom)}) in the train step's loss")
         optimizer.step()
         return loss_sum / denom
 

@@ -25,6 +25,7 @@ datasets of the same sample dicts.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from datetime import datetime
 from pathlib import Path
@@ -54,7 +55,7 @@ from vad_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from vad_tpu_torch.utils.precision import tf32_off
-from vad_tpu_torch.utils.profiling import MetricsLogger
+from vad_tpu_torch.utils.profiling import MetricsLogger, enable_nan_debugging, trace
 from vad_tpu_torch.utils.weights import load_flax_variables, state_dict_to_flax
 
 THRESHOLD_METHOD = "p99 of validation normal scores"
@@ -65,9 +66,6 @@ PATIENCE = 5
 _NOT_PORTED = (
     ("model_parallel", lambda v: int(v or 1) > 1, "--model-parallel > 1",
      "Queue 1 item 10 (scaling)"),
-    ("tensorboard", bool, "--tensorboard", "Queue 1 item 11 (profiling)"),
-    ("profile_dir", bool, "--profile-dir", "Queue 1 item 11 (profiling)"),
-    ("debug_nans", bool, "--debug-nans", "Queue 1 item 11 (profiling)"),
 )
 
 
@@ -82,6 +80,27 @@ def padded_batch_size(batch_size: int, accum_steps: int = 1) -> int:
     """Smallest multiple of ``accum_steps`` >= batch_size."""
     n = max(1, accum_steps)
     return ((batch_size + n - 1) // n) * n
+
+
+def nan_debugging(args: Any):
+    """Autograd's anomaly mode for the run under ``--debug-nans`` (restored
+    after it), else nothing."""
+    if getattr(args, "debug_nans", False):
+        return enable_nan_debugging(True)
+    return contextlib.nullcontext()
+
+
+def run_profiled_epoch(args: Any, epoch: int, start_epoch: int, run):
+    """``run()`` (one epoch's training), traced into ``--profile-dir`` on
+    the second epoch of the run, as the JAX trainers trace the first epoch
+    after compilation."""
+    profile_dir = getattr(args, "profile_dir", None)
+    if not (profile_dir and epoch == start_epoch + 1):
+        return run()
+    with trace(profile_dir):
+        out = run()
+    print(f"  (profiler trace written to {profile_dir})")
+    return out
 
 
 def run_epoch_train(train_step, model, optimizer, loader, key: str = "frames") -> float:
@@ -134,7 +153,7 @@ def fit(args: Any, train_ds, test_ds, device=None) -> Dict[str, Any]:
     device = resolve_device(device)
     refuse_unported(args)
     f32 = (getattr(args, "precision", "f32") or "f32") == "f32"
-    with tf32_off(f32 and device.type == "cuda"):
+    with tf32_off(f32 and device.type == "cuda"), nan_debugging(args):
         return _fit(args, train_ds, test_ds, device)
 
 
@@ -182,7 +201,8 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
         print("Precision: bf16 mixed (f32 master weights)")
     if accum_steps > 1:
         print(f"Gradient accumulation: {accum_steps} microbatches/step")
-    train_step = make_train_step(per_sample_loss, compute_dtype, accum_steps)
+    train_step = make_train_step(per_sample_loss, compute_dtype, accum_steps,
+                                 debug_nans=bool(getattr(args, "debug_nans", False)))
     # frame scores on the device; the sequence score is their mean (the
     # frame granularity is what serving flags against)
     eval_step = make_eval_step(per_sample_loss,
@@ -220,7 +240,7 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
         results_dir.mkdir(parents=True, exist_ok=True)
 
     args_dict = dict(vars(args))
-    metrics = MetricsLogger(results_dir)
+    metrics = MetricsLogger(results_dir, tensorboard=bool(getattr(args, "tensorboard", False)))
     history = history or {"train_loss": [], "val_loss": [], "normal_err": [],
                           "anomaly_err": [], "separation": []}
     print(f"\nStarting training for {args.epochs} epochs...")
@@ -239,7 +259,8 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     score_threshold = frame_score_threshold = frame_score_baseline = None
     for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
-        train_loss = run_epoch_train(train_step, model, optimizer, train_loader)
+        train_loss = run_profiled_epoch(args, epoch, start_epoch, lambda: run_epoch_train(
+            train_step, model, optimizer, train_loader))
 
         loss_sum, n_eval = 0.0, 0
         normal_err, anomaly_err, normal_frame_scores = [], [], []
@@ -320,6 +341,7 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
         args.epochs, torch_opt_state=optimizer.state_dict(), history=history,
         best_epoch=best_epoch, best_separation=best_separation))
 
+    metrics.close()
     if history["train_loss"]:
         plot_or_skip(plot_training_history, history, results_dir / "training_history.png")
 
