@@ -50,6 +50,13 @@ model's full width:
   against ``stream_step``, ``python -m vad_tpu_torch.train_video`` with
   ``--tensorboard --profile-dir --debug-nans`` (a trace naming kernels 2
   and 3), and the UI's logic on both checkpoints;
+- accuracy: one draw of ``tools/parity/run_parity.py``'s ``video_synthetic``
+  fixture, written by the port's generator: ``python -m
+  vad_tpu_torch.train_video`` at its budget (15 epochs, 128x128, T=8,
+  f32), ``... evaluate_video`` on the best checkpoint (sequence and frame
+  AUROC beside the JAX package's recorded yardsticks; the sequence AUROC
+  must reach 0.8389) and ``--video-dir`` over four mp4s from
+  ``create_synthetic_video_file`` (kernels 1-4);
 - the kernel probes: kernel 5 (the tie-splitting 2x2 max-pool backward)
   held exactly against its plain version at the encoder's four pool
   inputs, kernel 6's five ablation modes against theirs (``full`` equal
@@ -58,7 +65,11 @@ model's full width:
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py --artifact-check
-<artifact> <checkpoint> <dtype>`` is the export phase's loading process.  Exits non-zero, with no such line,
+<artifact> <checkpoint> <dtype>`` is the export phase's loading process.
+``python3 chip_smoke.py --accuracy [--only NAME] [--draws N] [--precision
+f32|bf16]`` runs run_parity's four fixtures at their budgets through the
+port's CLIs (``--seed`` 0..N-1), one line a draw and one a fixture beside
+the JAX package's recorded cell.  Exits non-zero, with no such line,
 when there is no CUDA device, outside a checkout of the repository, or
 when any check fails.
 """
@@ -142,10 +153,39 @@ SERVE_CHUNKS, SERVE_RELOAD_AT, SERVE_TIMED_CHUNKS, SERVE_PROFILE_ROUNDS = 8, 4, 
 IMAGE_THREADS, CLI_CHUNKS = 4, 3
 # The export phase: chunks through each loaded artifact (the last slot idle
 # on the third) and JAX's bar for an f32 artifact against the live scorer
-# (tests/test_export.py).  The profiling phase's IPAD set: frames of its
-# training and test videos (32 and 16 windows of T at stride 4).
+# (tests/test_export.py).  The profiling phase's IPAD set: training and test
+# videos and the frames of each (32 and 16 windows of T at stride 4).
 EXPORT_CHUNKS, EXPORT_F32_BAR = 4, dict(rtol=1e-5, atol=1e-7)
-PROFILE_TRAIN_FRAMES, PROFILE_TEST_FRAMES = 140, 76
+PROFILE_VIDEOS, PROFILE_VIDEO_FRAMES = (4, 2), 44
+# The accuracy check: tools/parity/run_parity.py's four fixtures at its
+# budgets (:48-86), each as the generator's method, the category it writes
+# and the trainer's flags, beside the JAX package's recorded cells
+# (results/parity_vs_reference/README.md:17-24, 85-86: mean, half-range, n)
+# of the AUROC (sequence AUROC for video) and the video frame AUROC.
+VIDEO_BUDGET = ["--image-size", "128", "--sequence-length", "8", "--stride", "4", "--epochs",
+                "15", "--batch-size", "4", "--lr", "1e-4"]
+ACCURACY_FIXTURES = {
+    "synthetic": {"kind": "image", "method": "synthetic", "category": "synthetic",
+                  "flags": ["--image-size", "256", "--epochs", "50", "--batch-size", "16",
+                            "--lr", "1e-3", "--loss", "mse"],
+                  "jax": (0.9767, 0.0225, 3), "jax_frame": None},
+    "textured": {"kind": "image", "method": "synthetic-textured", "category": "textured",
+                 "flags": ["--image-size", "256", "--epochs", "50", "--batch-size", "16",
+                           "--lr", "1e-3", "--loss", "combined", "--ssim-weight", "0.5"],
+                 "jax": (0.7083, 0.1280, 8), "jax_frame": None},
+    "video_synthetic": {"kind": "video", "method": "synthetic-video", "category": "S01",
+                        "flags": VIDEO_BUDGET, "jax": (0.8889, 0.0, 3),
+                        "jax_frame": (1.0, 0.0, 3)},
+    "textured_video": {"kind": "video", "method": "synthetic-textured-video", "category": "T01",
+                       "flags": VIDEO_BUDGET, "jax": (0.5684, 0.1013, 8),
+                       "jax_frame": (0.5793, 0.0450, 6)},
+}
+# The default run's gate: video_synthetic's sequence AUROC at least JAX's
+# recorded 0.8889 less 0.05 (the reference's six draws read 0.8889-0.9352).
+# Then --video-dir over ACCURACY_CLIPS mp4s of ACCURACY_CLIP_FRAMES frames,
+# the first half with the intruder over ACCURACY_RANGE.
+ACCURACY_GATE = 0.8389
+ACCURACY_CLIPS, ACCURACY_CLIP_FRAMES, ACCURACY_RANGE = 4, 96, (32, 64)
 
 
 def emit(obj) -> None:
@@ -1052,54 +1092,17 @@ def phase_train_step_compare() -> None:
             f"train step through the kernels vs the plain versions within {TRAIN_BARS}")
 
 
-def _gradient_bg(size: int):
-    import numpy as np
-
-    rows = np.arange(size, dtype=np.int32)
-    base = np.stack([50 + rows // 4, 50 + rows // 4, 60 + rows // 4], axis=-1)
-    return np.broadcast_to(base[:, None, :], (size, size, 3)).astype(np.uint8)
-
-
-def _disk_mask(size: int, cx: float, cy: float, radius: float):
-    import numpy as np
-
-    yy, xx = np.mgrid[0:size, 0:size]
-    return (xx - cx) ** 2 + (yy - cy) ** 2 <= radius**2
-
-
-def _ring_mask(size: int, cx: float, cy: float, radius: float, width: float):
-    import numpy as np
-
-    yy, xx = np.mgrid[0:size, 0:size]
-    d2 = (xx - cx) ** 2 + (yy - cy) ** 2
-    return (d2 <= (radius + width / 2) ** 2) & (d2 >= (radius - width / 2) ** 2)
-
-
-def orbit_frame(t: int, size: int, phase: float, speed: float, anomaly: bool, rng):
-    """One synthetic frame (a copy of the JAX package's ``_video_frame``,
-    ``vad_tpu/data/synthetic.py``): a disk orbiting the centre on a
-    gradient; with ``anomaly``, a dark intruder moving against it."""
-    img = _gradient_bg(size).copy()
-    center, orbit_r = size / 2, size * 0.27
-    ang = phase + speed * t
-    cx, cy = center + orbit_r * math.cos(ang), center + orbit_r * math.sin(ang)
-    r = size * 0.11
-    img[_disk_mask(size, cx, cy, r)] = (200, 200, 210)
-    img[_ring_mask(size, cx, cy, r, max(size // 96, 2))] = (150, 150, 160)
-    if anomaly:
-        ir = size * 0.09 + rng.normal() * size * 0.01
-        img[_disk_mask(size, size - cx, size - cy, max(ir, 2))] = (25, 25, 30)
-    return img
-
-
 class WindowSet:
     """In-memory windows with the IPAD dataset's sample dicts (uint8
-    frames), so the card's machine needs no image library or files."""
+    frames drawn by the port's orbit generator, ``_video_frame``), so no
+    files are written."""
 
     has_frame_labels = True  # every frame carries its window's label
 
     def __init__(self, labels, seed: int):
         import numpy as np
+
+        from vad_tpu_torch.data.synthetic import _video_frame
 
         self.labels = np.asarray(labels, np.int64)
         self.frames = np.empty((len(labels), T, IMAGE, IMAGE, 3), np.uint8)
@@ -1107,7 +1110,7 @@ class WindowSet:
             rng = np.random.default_rng(seed + w)
             phase, speed = rng.uniform(0, 2 * math.pi), rng.uniform(0.12, 0.2)
             for t in range(T):
-                self.frames[w, t] = orbit_frame(t, IMAGE, phase, speed, bool(label), rng)
+                self.frames[w, t] = _video_frame(t, IMAGE, phase, speed, bool(label), rng)
 
     def __len__(self) -> int:
         return len(self.labels)
@@ -1217,12 +1220,16 @@ def phase_train(results_dir: str):
 
 
 def orbit_bank(n: int, seed: int):
-    """``n`` orbit frames without and with the intruder, one orbit."""
+    """``n`` orbit frames without and with the intruder, one orbit (the
+    port's ``_video_frame``)."""
     import numpy as np
+
+    from vad_tpu_torch.data.synthetic import _video_frame
 
     rng = np.random.default_rng(seed)
     phase, speed = rng.uniform(0, 2 * math.pi), rng.uniform(0.12, 0.2)
-    return tuple(np.stack([orbit_frame(t, IMAGE, phase, speed, anomaly, rng) for t in range(n)])
+    return tuple(np.stack([_video_frame(t, IMAGE, phase, speed, anomaly, rng)
+                           for t in range(n)])
                  for anomaly in (False, True))
 
 
@@ -2551,35 +2558,12 @@ def phase_stream_step_fast(card: str) -> dict:
     return {"launches": launches}
 
 
-def write_ipad(root: Path, category: str) -> None:
-    """An IPAD-layout video set of orbit frames (PNG): one training video of
-    ``PROFILE_TRAIN_FRAMES`` normal frames, one test video of
-    ``PROFILE_TEST_FRAMES`` whose second half holds the intruder, with its
-    frame labels."""
-    import numpy as np
-    from PIL import Image
-
-    normal, intruder = orbit_bank(PROFILE_TRAIN_FRAMES, SEED + 14)
-    test_normal, test_intruder = orbit_bank(PROFILE_TEST_FRAMES, SEED + 15)
-    half = PROFILE_TEST_FRAMES // 2
-    labels = np.arange(PROFILE_TEST_FRAMES) >= half
-    videos = {("training", "000"): normal,
-              ("testing", "000"): np.where(labels[:, None, None, None], test_intruder,
-                                           test_normal)}
-    for (split, vid), frames in videos.items():
-        folder = root / category / split / "frames" / vid
-        folder.mkdir(parents=True, exist_ok=True)
-        for t, frame in enumerate(frames):
-            Image.fromarray(frame).save(folder / f"{t:04d}.png")
-    (root / category / "test_label").mkdir(parents=True, exist_ok=True)
-    np.save(root / category / "test_label" / "000.npy", labels.astype(np.int64))
-
-
 def phase_profiling(card: str, workdir: Path) -> dict:
     """``python -m vad_tpu_torch.train_video`` (in process, through
-    ``main``) for 2 epochs at 256x256, B=8, T=16, bf16, on an IPAD set of
-    orbit frames (``write_ipad``: 32 training and 16 test windows, as
-    ``phase_train``'s): without flags, with ``--debug-nans``, and with
+    ``main``) for 2 epochs at 256x256, B=8, T=16, bf16, on an IPAD set the
+    port's ``create_synthetic_video_data`` writes (``PROFILE_VIDEOS``
+    training and test videos of ``PROFILE_VIDEO_FRAMES``: 32 training and
+    16 test windows at stride 4, as ``phase_train``'s): without flags, with ``--debug-nans``, and with
     ``--tensorboard --profile-dir --debug-nans``.  Checks: the trace of the
     second epoch exists and names kernels 2 and 3, kernels 2 and 3 launched
     in each run, event files under ``<run>/tb/`` where tensorboard imports;
@@ -2587,10 +2571,11 @@ def phase_profiling(card: str, workdir: Path) -> dict:
     import importlib.util
 
     from vad_tpu_torch import train_video
+    from vad_tpu_torch.data.synthetic import create_synthetic_video_data
 
     phase_start = time.perf_counter()
     data = workdir / "ipad"
-    write_ipad(data, "orbit")
+    create_synthetic_video_data(str(data), "orbit", *PROFILE_VIDEOS, PROFILE_VIDEO_FRAMES, IMAGE)
     base = ["--category", "orbit", "--data-dir", str(data), "--epochs", "2",
             "--image-size", str(IMAGE), "--sequence-length", str(T), "--stride", "4",
             "--batch-size", str(B_TRAIN), "--precision", "bf16", "--num-workers", "2",
@@ -2640,27 +2625,14 @@ def phase_profiling(card: str, workdir: Path) -> dict:
     return {"launches": launches, "data": data}
 
 
-def write_mp4(path: Path, frames) -> None:
-    """Frames as an mp4 (OpenCV's mp4v), as ``eval/video_render`` writes."""
-    from vad_tpu_torch.data.video_dataset import cv2_module
-
-    cv2 = cv2_module()
-    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25.0,
-                             (frames[0].shape[1], frames[0].shape[0]))
-    try:
-        for frame in frames:
-            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
-    finally:
-        writer.release()
-
-
 def phase_ui(card: str, video_ckpt: Path, image: dict, video_data: Path,
              workdir: Path) -> dict:
     """``vad_tpu_torch.ui.logic`` on the card (no gradio there): an
     ``AppState`` loads both checkpoints; ``analyze_image`` on a fixture
     test image, whose score must equal ``reconstruction_error``'s on the
     same resized input (f32, TF32 off); ``analyze_video`` on a
-    ``VIDEO_FRAMES``-frame orbit clip written to mp4, whose scores must
+    ``VIDEO_FRAMES``-frame mp4 from ``create_synthetic_video_file`` (the
+    intruder over its middle 30%), whose scores must
     equal ``stream_scores``' on the same file (kernel 1 launches); all four
     train and evaluation commands name the port's modules, the video
     evaluation finding ``video_data`` (an IPAD set) as ./data/IPAD."""
@@ -2668,6 +2640,7 @@ def phase_ui(card: str, video_ckpt: Path, image: dict, video_data: Path,
     import torch
     from PIL import Image
 
+    from vad_tpu_torch.data.synthetic import create_synthetic_video_file
     from vad_tpu_torch.eval.video_render import stream_scores
     from vad_tpu_torch.ui import logic
 
@@ -2695,8 +2668,8 @@ def phase_ui(card: str, video_ckpt: Path, image: dict, video_data: Path,
             f"analyze_image scores as reconstruction_error: {image_cmp}")
 
     clip = workdir / "orbit.mp4"
-    normal, intruder = orbit_bank(BANK_FRAMES, SEED + 16)
-    write_mp4(clip, list(clip_frames((normal, intruder), VIDEO_FRAMES, 0, True)))
+    create_synthetic_video_file(str(clip), VIDEO_FRAMES, IMAGE, 25.0,
+                                (int(VIDEO_FRAMES * 0.4), int(VIDEO_FRAMES * 0.7)), SEED + 16)
     (timeline, vreport), seconds, counts = counted(lambda: logic.analyze_video(state, str(clip)))
     got = logic.video_scores(state, str(clip))
     ref = stream_scores(state.video_model, None, str(clip), IMAGE,
@@ -2729,6 +2702,205 @@ def phase_ui(card: str, video_ckpt: Path, image: dict, video_data: Path,
     return {"launches": launches}
 
 
+# ------------------------------------------------------------- accuracy
+
+
+def accuracy_data(name: str, data_dir: Path) -> Path:
+    """``python -m vad_tpu_torch.data.synthetic --method <method> --category
+    <category>`` at its default sizes (in process, once per ``data_dir``)."""
+    from vad_tpu_torch.data import synthetic
+
+    fx = ACCURACY_FIXTURES[name]
+    if not (data_dir / fx["category"]).exists():
+        with contextlib.redirect_stdout(io.StringIO()):
+            synthetic.main(["--method", fx["method"], "--data-dir", str(data_dir),
+                            "--category", fx["category"]])
+    return data_dir
+
+
+def jax_cell(cell) -> str | None:
+    return None if cell is None else f"{cell[0]:.4f} ± {cell[1]:.4f} (n={cell[2]})"
+
+
+def spread(values: list) -> dict:
+    """mean ± half-range over draws, as the JAX package's table gives them."""
+    mean, half = sum(values) / len(values), (max(values) - min(values)) / 2
+    return {"mean": mean, "half_range": half, "n": len(values),
+            "cell": f"{mean:.4f} ± {half:.4f} (n={len(values)})"}
+
+
+def accuracy_draw(name: str, draw: int, precision: str, data_dir: Path, workdir: Path,
+                  card: str) -> dict:
+    """One draw of a fixture through the port's CLIs in process: ``python -m
+    vad_tpu_torch.train_video`` (or ``... train``) at run_parity's budget
+    with ``--seed draw --precision <precision>``, then ``python -m
+    vad_tpu_torch.evaluate_video`` (or ``... evaluate``) on its
+    ``best_model.ckpt``; the AUROCs from the evaluation's ``results.txt``.
+    Emits an ``accuracy_draw`` line."""
+    from vad_tpu_torch import evaluate, evaluate_video, train_video
+    from vad_tpu_torch.train import __main__ as train_image
+
+    fx = ACCURACY_FIXTURES[name]
+    video = fx["kind"] == "video"
+    argv = ["--category", fx["category"], *fx["flags"], "--seed", str(draw), "--precision",
+            precision, "--data-dir", str(data_dir),
+            "--results-dir", str(workdir / f"{name}_{precision}_{draw}")]
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _, train_seconds, train_launches = counted(
+            lambda: (train_video.main if video else train_image.main)(argv))
+    run_dir = Path(re.search(r"Models saved to: (\S+)", log.getvalue()).group(1))
+    ckpt = run_dir / "best_model.ckpt"
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, eval_seconds, eval_launches = counted(
+            lambda: (evaluate_video.main if video else evaluate.main)(
+                ["--checkpoint", str(ckpt), "--data-dir", str(data_dir)]))
+    text = (run_dir / "evaluation" / "results.txt").read_text()
+
+    def metric(pattern: str):
+        m = re.search(pattern, text)
+        return float(m.group(1)) if m else None
+
+    record = {"phase": "accuracy_draw", "fixture": name, "draw": draw, "precision": precision,
+              "card": card}
+    if video:
+        record.update(auroc=metric(r"Sequence-level AUROC: ([0-9.]+)"),
+                      frame_auroc=metric(r"Frame-level AUROC: ([0-9.]+)"))
+    else:
+        record.update(auroc=metric(r"(?m)^AUROC: ([0-9.]+)"),
+                      pixel_auroc=metric(r"Pixel-level AUROC: ([0-9.]+)"))
+    epochs = [ln for ln in log.getvalue().splitlines() if ln.startswith("Epoch")]
+    record.update(train_seconds=train_seconds, eval_seconds=eval_seconds, epochs_run=len(epochs),
+                  train_launches=train_launches, eval_launches=eval_launches,
+                  log_tail=log.getvalue().splitlines()[-3:])
+    emit(record)
+    require(record["auroc"] is not None, f"{name} draw {draw}: an AUROC in {text[:300]!r}")
+    if video:
+        require(train_launches["convlstm_train_forward"] > 0
+                and train_launches["convlstm_backward"] > 0
+                and eval_launches["convlstm_serving"] > 0,
+                f"{name}: trained through kernels 2 and 3, evaluated through kernel 1: "
+                f"{train_launches}, {eval_launches}")
+    return {**record, "checkpoint": ckpt}
+
+
+def phase_accuracy(card: str, workdir: Path) -> dict:
+    """One draw of run_parity's ``video_synthetic`` on the card, f32: the
+    fixture from the port's generator, ``train_video`` (15 epochs, 128x128,
+    T=8, B=4, stepwise kernels 2 and 3, kernel 1 in its eval step),
+    ``evaluate_video`` in dataset mode (kernel 1), then ``--video-dir`` over
+    ``ACCURACY_CLIPS`` mp4s from ``create_synthetic_video_file`` (kernels 4
+    and 1), half with the intruder.  Its ``accuracy`` line has both AUROCs
+    beside JAX's recorded ones, the training seconds and the mean
+    ``--video-dir`` frame score inside and outside the intruder's ranges.
+    Fails when the sequence AUROC is below ``ACCURACY_GATE``."""
+    import numpy as np
+
+    from vad_tpu_torch import evaluate_video
+    from vad_tpu_torch.data.synthetic import create_synthetic_video_file
+    from vad_tpu_torch.eval import batch_score
+
+    phase_start = time.perf_counter()
+    name = "video_synthetic"
+    draw = accuracy_draw(name, 0, "f32", accuracy_data(name, workdir / "data"), workdir, card)
+    clips = workdir / "clips"
+    clips.mkdir()
+    ranges = {}
+    for k in range(ACCURACY_CLIPS):
+        span = ACCURACY_RANGE if k < ACCURACY_CLIPS // 2 else None
+        path = create_synthetic_video_file(str(clips / f"clip{k}.mp4"), ACCURACY_CLIP_FRAMES,
+                                           seed=SEED + 20 + k, anomaly_range=span)
+        ranges[path] = span
+    scored = {}
+    real = batch_score.score_videos
+
+    def keep(*args, **kwargs):  # the per-frame scores behind batch_scores.json
+        out = real(*args, **kwargs)
+        scored.update(out)
+        return out
+
+    batch_score.score_videos = keep
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, dir_seconds, dir_launches = counted(lambda: evaluate_video.main(
+                ["--checkpoint", str(draw["checkpoint"]), "--video-dir", str(clips)]))
+    finally:
+        batch_score.score_videos = real
+    summary = json.loads((draw["checkpoint"].parent / "batch_scoring" /
+                          "batch_scores.json").read_text())
+    inside, outside = [], []
+    for path, span in ranges.items():
+        s = np.asarray(scored[path]["scores"], np.float64)
+        require(scored[path]["error"] is None and len(s) == ACCURACY_CLIP_FRAMES
+                and bool(np.isfinite(s).all()), f"{path}: every frame scored, finite")
+        mask = np.zeros(len(s), bool)
+        if span is not None:
+            mask[span[0]:span[1]] = True
+        inside.append(s[mask])
+        outside.append(s[~mask])
+    inside, outside = np.concatenate(inside), np.concatenate(outside)
+    fx = ACCURACY_FIXTURES[name]
+    launches = {k: draw["train_launches"][k] + draw["eval_launches"][k] + dir_launches[k]
+                for k in dir_launches}
+    emit({"phase": "accuracy", "card": card, "fixture": name, "draw": 0, "precision": "f32",
+          "sequence_auroc": draw["auroc"], "frame_auroc": draw["frame_auroc"],
+          "jax_sequence_auroc": jax_cell(fx["jax"]), "jax_frame_auroc": jax_cell(fx["jax_frame"]),
+          "gate": ACCURACY_GATE, "train_seconds": draw["train_seconds"],
+          "eval_seconds": draw["eval_seconds"], "video_dir_seconds": dir_seconds,
+          "video_dir": {"clips": ACCURACY_CLIPS, "frames": ACCURACY_CLIP_FRAMES,
+                        "range": ACCURACY_RANGE,
+                        "mean_score_inside_ranges": float(inside.mean()),
+                        "mean_score_outside_ranges": float(outside.mean()),
+                        "inside_over_outside": float(inside.mean() / outside.mean()),
+                        "clip_means": [v["mean_score"] for v in summary["videos"].values()],
+                        "launches": dir_launches},
+          "launches": launches, "seconds": time.perf_counter() - phase_start})
+    require(dir_launches["first_block"] > 0 and dir_launches["convlstm_serving"] > 0,
+            f"--video-dir went through kernels 4 and 1: {dir_launches}")
+    require(all(launches[k] > 0 for k in launches), f"the phase launched kernels 1-4: {launches}")
+    require(draw["auroc"] >= ACCURACY_GATE,
+            f"video_synthetic sequence AUROC {draw['auroc']} >= {ACCURACY_GATE}")
+    return {"launches": launches}
+
+
+def accuracy_main(argv: list) -> int:
+    """``python3 chip_smoke.py --accuracy [--only NAME] [--draws N]
+    [--precision f32|bf16]``: run_parity's protocol with the port on the
+    card.  Each fixture (data from the port's generator, written once) is
+    trained and evaluated ``--draws`` times with ``--seed`` 0..N-1; one
+    ``accuracy_draw`` line a draw and one ``accuracy_fixture`` line a
+    fixture, mean ± half-range beside JAX's recorded cell."""
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py --accuracy")
+    parser.add_argument("--only", choices=sorted(ACCURACY_FIXTURES), action="append")
+    parser.add_argument("--draws", type=int, default=3)
+    parser.add_argument("--precision", choices=["f32", "bf16"], default="f32")
+    args = parser.parse_args(argv)
+    name, _, _, _, card = phase_device()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        for fixture in args.only or list(ACCURACY_FIXTURES):
+            data = accuracy_data(fixture, Path(tmp) / "data")
+            draws = [accuracy_draw(fixture, d, args.precision, data, Path(tmp), card)
+                     for d in range(args.draws)]
+            fx = ACCURACY_FIXTURES[fixture]
+            record = {"phase": "accuracy_fixture", "fixture": fixture, "kind": fx["kind"],
+                      "precision": args.precision, "card": card,
+                      "auroc": spread([d["auroc"] for d in draws]), "jax": jax_cell(fx["jax"]),
+                      "train_seconds": spread([d["train_seconds"] for d in draws])}
+            if fx["kind"] == "video":
+                frame = [d["frame_auroc"] for d in draws if d["frame_auroc"] is not None]
+                record.update(frame_auroc=spread(frame) if frame else None,
+                              jax_frame=jax_cell(fx["jax_frame"]))
+            emit(record)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -2740,6 +2912,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--artifact-check"]:  # phase_export's loading process
         return artifact_check(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--accuracy"]:
+        return accuracy_main(sys.argv[2:])
     name, peak_flops, peak_bw, f32_flops, card = phase_device()
     phase_build()
     checks = {"convlstm_serving": phase_convlstm(peak_flops, peak_bw, f32_flops),
@@ -2759,6 +2933,7 @@ def main() -> int:
         fast = phase_stream_step_fast(card)
         profiling = phase_profiling(card, work / "profiling")
         ui = phase_ui(card, best_ckpt, image, profiling["data"], work / "ui")
+        accuracy = phase_accuracy(card, work / "accuracy")
     probes = phase_probes()
     checks.update(probes)
     kernels = []
@@ -2801,6 +2976,8 @@ def main() -> int:
                                reference_import_launches=reference["launches"])
         if kname in ("convlstm_train_forward", "convlstm_backward"):  # the profiled CLI run
             kernels[-1]["profiling_launches"] = profiling["launches"][kname]
+        if kname in accuracy["launches"]:  # train, evaluate and --video-dir of a real model
+            kernels[-1]["accuracy_launches"] = accuracy["launches"][kname]
     emit({"kernels": kernels})
     import torch
 

@@ -101,15 +101,32 @@ def test_mvtec_dataset_matches_jax(data_root, normalize):
 
 
 def test_get_dataloaders_gives_u8_image_batches(data_root):
-    train, test = ids.get_dataloaders(str(data_root), "synthetic", batch_size=3,
-                                      image_size=SIZE, num_workers=0, device="cpu")
+    """The factories give JAX's batches: host numpy dicts of normalized f32
+    images, the train split shuffled with seed 0 (two epochs), the test
+    split in order, the tail of 2 kept."""
+    kw = dict(batch_size=3, image_size=SIZE, num_workers=0)
+    got = ids.get_dataloaders(str(data_root), "synthetic", **kw)
+    want = jax_ids.get_dataloaders(str(data_root), "synthetic", **kw)
+    train, test = got
+    assert train.shuffle and not test.shuffle
+    for loader, ref in zip(got, want):
+        for _ in range(2):
+            batches, ref_batches = list(loader), list(ref)
+            assert len(batches) == len(ref_batches)
+            for a, b in zip(batches, ref_batches):
+                assert a.keys() == b.keys()
+                for key in a:
+                    if isinstance(a[key], list):
+                        assert a[key] == b[key]
+                    else:
+                        np.testing.assert_array_equal(a[key], b[key])
     batches = list(train)
-    assert [n for _, n in batches] == [3, 3, 2] and train.shuffle and not test.shuffle
-    batch = batches[0][0]
-    assert batch["image"].dtype == torch.uint8 and tuple(batch["image"].shape) == (3, SIZE,
-                                                                                  SIZE, 3)
-    assert isinstance(batch["defect_type"], list) and batch["mask"].shape == (3, SIZE, SIZE)
-    labels = np.concatenate([b["label"][:n] for b, n in test])
+    assert [len(b["image"]) for b in batches] == [3, 3, 2]
+    assert batches[0]["image"].dtype == np.float32 and batches[0]["image"].shape == (3, SIZE,
+                                                                                    SIZE, 3)
+    assert isinstance(batches[0]["defect_type"], list) and batches[0]["mask"].shape == (3, SIZE,
+                                                                                       SIZE)
+    labels = np.concatenate([b["label"] for b in test])
     np.testing.assert_array_equal(labels, [1] * 6 + [0] * 4)  # defect/ sorts before good/
 
 

@@ -242,21 +242,24 @@ def test_video_dataset_matches_jax(mp4_layout, split, cache_frames):
 
 
 def test_get_video_dataloaders_gives_the_u8_windows(mp4_layout):
-    kw = dict(sequence_length=4, stride=2, image_size=SIZE)
-    train, test = vds.get_video_dataloaders(mp4_layout, "cat", batch_size=3, num_workers=1,
-                                            device="cpu", **kw)
-    for split, loader in (("train", train), ("test", test)):
-        ds = vds.VideoDataset(mp4_layout, "cat", split, normalize=False, **kw)
-        batches = list(loader)
-        frames = torch.cat([b["frames"][:n] for b, n in batches])
-        assert frames.dtype == torch.uint8 and frames.device.type == "cpu"
-        assert len(frames) == len(ds) == sum(n for _, n in batches)
-        want = np.stack([ds[i]["frames"] for i in range(len(ds))])
-        if loader is train:  # shuffled: the same windows in another order
-            assert sorted(f.tobytes() for f in frames.numpy()) == sorted(
-                f.tobytes() for f in want)
-        else:
-            np.testing.assert_array_equal(frames.numpy(), want)
+    """The factories give JAX's batches: host numpy dicts of normalized f32
+    windows, the train split shuffled with seed 0 (two epochs), the test
+    split in order, the partial tail kept."""
+    kw = dict(sequence_length=4, stride=2, image_size=SIZE, batch_size=3, num_workers=1)
+    got = vds.get_video_dataloaders(mp4_layout, "cat", **kw)
+    want = jax_vds.get_video_dataloaders(mp4_layout, "cat", **kw)
+    for loader, ref in zip(got, want):
+        assert (len(loader), loader.shuffle) == (len(ref), ref.shuffle)
+        for _ in range(2):
+            batches, ref_batches = list(loader), list(ref)
+            assert len(batches) == len(ref_batches) == len(loader)
+            for a, b in zip(batches, ref_batches):
+                assert a.keys() == b.keys()
+                assert a["frames"].dtype == np.float32 and type(a["frames"]) is np.ndarray
+                for k in a:
+                    np.testing.assert_array_equal(a[k], b[k])
+    sizes = [len(b["frames"]) for b in got[1]]
+    assert sum(sizes) == len(got[1].dataset) and sizes[-1] <= 3
 
 
 def test_video_file_dataset_matches_jax(clip):

@@ -20,7 +20,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from vad_tpu_torch.data.loader import DistributedLoader
+from vad_tpu_torch.data.loader import Loader
 from vad_tpu_torch.data.video_dataset import IMAGE_EXTS
 from vad_tpu_torch.data.video_dataset import _load_u8 as load_image_u8  # decode + resize, u8
 
@@ -137,13 +137,12 @@ class MVTecDataset:
 
 
 def get_dataloaders(root_dir: str, category: str, batch_size: int = 32,
-                    image_size: int = 256, num_workers: int = 4, device=None):
-    """(train, test) loaders over the uint8 splits: the train split shuffled
-    with seed 0, images on ``device`` (``None`` means CUDA)."""
-    train = MVTecDataset(root_dir, category, "train", image_size, normalize=False)
-    test = MVTecDataset(root_dir, category, "test", image_size, normalize=False)
-    return (
-        DistributedLoader(train, batch_size, shuffle=True, num_workers=num_workers, seed=0,
-                          device=device),
-        DistributedLoader(test, batch_size, num_workers=num_workers, device=device),
-    )
+                    image_size: int = 256, num_workers: int = 4):
+    """(train, test) ``Loader``s over the normalized float32 splits: host
+    numpy batches, the train split shuffled with seed 0, the test split in
+    order, the partial tail kept.  Wrap them in ``device_prefetch`` to feed
+    a card."""
+    train = MVTecDataset(root_dir, category, "train", image_size)
+    test = MVTecDataset(root_dir, category, "test", image_size)
+    return (Loader(train, batch_size, shuffle=True, num_workers=num_workers, seed=0),
+            Loader(test, batch_size, shuffle=False, num_workers=num_workers))

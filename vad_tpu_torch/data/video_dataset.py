@@ -412,20 +412,15 @@ def get_video_dataloaders(
     batch_size: int = 8,
     image_size: int = 256,
     num_workers: int = 4,
-    device=None,
 ):
-    """Train and test loaders (the train one shuffled, seed 0).  Frames
-    stay uint8 and go to ``device`` (``None`` means CUDA), where the
-    trainer normalizes them; batches are ``(batch, n_real)``."""
-    from vad_tpu_torch.data.loader import DistributedLoader
+    """(train, test) ``Loader``s over the layout's normalized float32
+    windows: host numpy batches, the train split shuffled with seed 0, the
+    test split in order, the partial tail kept.  Wrap them in
+    ``device_prefetch`` to feed a card."""
+    from vad_tpu_torch.data.loader import Loader
 
     cls = detect_video_dataset_class(root_dir, category)
-    common = dict(sequence_length=sequence_length, stride=stride, image_size=image_size,
-                  normalize=False)
-    train = cls(root_dir, category, "train", **common)
-    test = cls(root_dir, category, "test", **common)
-    return (
-        DistributedLoader(train, batch_size, shuffle=True, num_workers=num_workers, seed=0,
-                          device=device),
-        DistributedLoader(test, batch_size, num_workers=num_workers, device=device),
-    )
+    train = cls(root_dir, category, "train", sequence_length, stride, image_size)
+    test = cls(root_dir, category, "test", sequence_length, stride, image_size)
+    return (Loader(train, batch_size, shuffle=True, num_workers=num_workers, seed=0),
+            Loader(test, batch_size, shuffle=False, num_workers=num_workers))

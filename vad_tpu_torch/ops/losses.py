@@ -111,3 +111,14 @@ def make_per_sample_loss_fn(name: str, ssim_weight: float = 0.5) -> Callable:
     if name == "combined":
         return functools.partial(combined_per_sample, alpha=ssim_weight)
     raise ValueError(f"unknown loss '{name}' (expected mse|ssim|combined)")
+
+
+def make_loss_fn(name: str, ssim_weight: float = 0.5) -> Callable:
+    """Batch-mean loss by CLI name {mse, ssim, combined}."""
+    if name == "mse":
+        return mse_loss
+    if name == "ssim":
+        return ssim_loss
+    if name == "combined":
+        return functools.partial(combined_loss, alpha=ssim_weight)
+    raise ValueError(f"unknown loss '{name}' (expected mse|ssim|combined)")

@@ -48,17 +48,17 @@ from vad_tpu_torch.train.state import (
 from vad_tpu_torch.train.steps import make_eval_step, make_train_step
 from vad_tpu_torch.train.video_trainer import (
     THRESHOLD_METHOD,
-    _to_tensors,
     nan_debugging,
     padded_batch_size,
     refuse_unported,
+    resume_state,
     run_epoch_train,
     run_profiled_epoch,
 )
 from vad_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from vad_tpu_torch.utils.precision import tf32_off
 from vad_tpu_torch.utils.profiling import MetricsLogger
-from vad_tpu_torch.utils.weights import load_flax_variables, state_dict_to_flax
+from vad_tpu_torch.utils.weights import state_dict_to_flax
 
 
 def run_epoch_validate(eval_step, model, loader):
@@ -149,12 +149,7 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     resume_path = getattr(args, "resume", None)
     if resume_path:
         ckpt = load_checkpoint(resume_path)
-        load_flax_variables(model, {"params": ckpt["params"],
-                                    "batch_stats": ckpt.get("batch_stats") or {}})
-        if ckpt.get("torch_opt_state") is not None:
-            optimizer.load_state_dict(_to_tensors(ckpt["torch_opt_state"]))
-        else:  # a JAX checkpoint: its optax state is not Adam's here
-            print("  (no torch optimizer state in the checkpoint: Adam moments restart)")
+        resume_state(model, optimizer, ckpt)
         start_epoch = int(ckpt.get("epoch", 0)) + 1
         history = ckpt.get("history", history)
         print(f"Resumed from {resume_path} at epoch {start_epoch}")

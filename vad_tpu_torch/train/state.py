@@ -7,14 +7,20 @@ Adam with L2 weight decay coupled before the moments: torch's
 ``scale_by_adam()`` (betas 0.9/0.999, eps 1e-8 outside the square root on
 both sides).  The learning rate lives in ``param_groups``, so the host-side
 plateau controller changes it between epochs.
+
+``load_optax_adam_state`` fills torch's Adam from the JAX package's optax
+state, so a run resumed from a JAX checkpoint continues its moments, its
+step count and its (plateau-reduced) learning rate.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterable
+from typing import Any, Iterable, Mapping, Optional
 
 import torch
+
+from vad_tpu_torch.utils.weights import flax_to_state_dict
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float,
@@ -30,6 +36,51 @@ def current_learning_rate(optimizer: torch.optim.Optimizer) -> float:
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def _find_state(tree: Any, name: str) -> Optional[tuple]:
+    """The first optax state named ``name`` in a stored state tree."""
+    if type(tree).__name__ == name:
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for node in tree:
+            found = _find_state(node, name)
+            if found is not None:
+                return found
+    return None
+
+
+def load_optax_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module,
+                          opt_state: Any, batch_stats: Optional[Mapping] = None) -> None:
+    """Fill ``optimizer`` (Adam over ``model.parameters()``, one group)
+    from the JAX package's optax state as a checkpoint stores it:
+    ``InjectHyperparamsState(count, hyperparams, inner_state)`` with
+    ``inner_state`` = (``add_decayed_weights``, ``scale_by_adam``,
+    ``scale_by_learning_rate``) states.
+
+    ``ScaleByAdamState``'s ``mu`` and ``nu`` are trees shaped like
+    ``params``; the weight bridge's layout maps (permutations, slices and
+    flips) commute with elementwise moments, so they become ``exp_avg``
+    and ``exp_avg_sq`` parameter by parameter.  Its ``count`` becomes each
+    parameter's ``step``: optax divides by ``1 - b**count`` after its
+    increment, torch by ``1 - b**step`` after its own.  The injected
+    learning rate replaces every group's ``lr``.  ``batch_stats`` (the
+    checkpoint's) only completes the tree the bridge reads."""
+    adam = _find_state(opt_state, "ScaleByAdamState")
+    if adam is None or len(opt_state) < 3 or "learning_rate" not in opt_state[1]:
+        raise ValueError(f"not an injected-hyperparameter Adam state: "
+                         f"{type(opt_state).__name__}")
+    count, mu, nu = adam
+    moments = [flax_to_state_dict(model, {"params": tree, "batch_stats": batch_stats or {}})
+               for tree in (mu, nu)]
+    step = float(count)
+    state = {i: {"step": torch.tensor(step), "exp_avg": moments[0][name],
+                 "exp_avg_sq": moments[1][name]}
+             for i, (name, _) in enumerate(model.named_parameters())}
+    groups = optimizer.state_dict()["param_groups"]
+    for group in groups:
+        group["lr"] = float(opt_state[1]["learning_rate"])
+    optimizer.load_state_dict({"state": state, "param_groups": groups})
 
 
 class ReduceLROnPlateau:

@@ -16,7 +16,8 @@ JAX trainer's files and keys: ``best_model.ckpt``, ``final_model.ckpt``,
 bridge), so ``evaluate_video.py`` and the port's ``load_flax_variables``
 both read them.  The Adam state goes under ``torch_opt_state``, not
 ``opt_state``: the JAX trainer resuming a port checkpoint restarts its
-moments, and so does the port resuming a JAX checkpoint.
+moments.  The port resuming a JAX checkpoint continues JAX's Adam
+(``resume_state``): its moments, step count and learning rate.
 
 ``train(args)`` builds the datasets from ``--data-dir``; ``fit(args,
 train_ds, test_ds, device)`` is everything after, over any indexable
@@ -45,6 +46,7 @@ from vad_tpu_torch.ops.losses import make_per_sample_loss_fn
 from vad_tpu_torch.train.state import (
     ReduceLROnPlateau,
     current_learning_rate,
+    load_optax_adam_state,
     make_optimizer,
     set_learning_rate,
 )
@@ -127,6 +129,26 @@ def _to_tensors(tree: Any) -> Any:
     if isinstance(tree, np.ndarray):
         return torch.as_tensor(tree)
     return tree
+
+
+def resume_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 ckpt: Dict[str, Any]) -> None:
+    """Load a checkpoint's weights into ``model`` and its optimizer state
+    into ``optimizer``: the port's own Adam state (``torch_opt_state``),
+    else the JAX package's optax state (``opt_state``: moments, step count
+    and learning rate), else Adam starts afresh (a checkpoint that holds
+    neither, as the per-epoch ones)."""
+    stats = ckpt.get("batch_stats") or {}
+    load_flax_variables(model, {"params": ckpt["params"], "batch_stats": stats})
+    if ckpt.get("torch_opt_state") is not None:
+        optimizer.load_state_dict(_to_tensors(ckpt["torch_opt_state"]))
+    elif ckpt.get("opt_state") is not None:
+        load_optax_adam_state(optimizer, model, ckpt["opt_state"], stats)
+        print(f"  (Adam state from the checkpoint's optax state: step "
+              f"{int(optimizer.state_dict()['state'][0]['step'])}, "
+              f"lr {current_learning_rate(optimizer):g})")
+    else:
+        print("  (no optimizer state in the checkpoint: Adam moments restart)")
 
 
 def train(args: Any) -> Dict[str, Any]:
@@ -214,12 +236,7 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     resume_path = getattr(args, "resume", None)
     if resume_path:
         ckpt = load_checkpoint(resume_path)
-        load_flax_variables(model, {"params": ckpt["params"],
-                                    "batch_stats": ckpt.get("batch_stats") or {}})
-        if ckpt.get("torch_opt_state") is not None:
-            optimizer.load_state_dict(_to_tensors(ckpt["torch_opt_state"]))
-        else:  # a JAX checkpoint: its optax state is not Adam's here
-            print("  (no torch optimizer state in the checkpoint: Adam moments restart)")
+        resume_state(model, optimizer, ckpt)
         start_epoch = int(ckpt.get("epoch", 0)) + 1
         results_dir = Path(resume_path).parent
         # carry the selection state forward so a worse post-resume epoch

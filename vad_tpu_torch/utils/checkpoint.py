@@ -20,7 +20,7 @@ import io
 import pickle
 import re
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -140,3 +140,14 @@ def rotate_epoch_checkpoints(results_dir: str | Path, keep: int) -> int:
         p.unlink(missing_ok=True)
         removed += 1
     return removed
+
+
+def latest_checkpoint(results_dir: str | Path) -> Optional[Path]:
+    """The newest per-epoch checkpoint in a run directory (for
+    ``--resume``), or None."""
+    best: tuple = (-1, None)
+    for p in Path(results_dir).glob(f"checkpoint_epoch_*{CHECKPOINT_SUFFIX}"):
+        m = re.search(r"checkpoint_epoch_(\d+)", p.name)
+        if m and int(m.group(1)) > best[0]:
+            best = (int(m.group(1)), p)
+    return best[1]
