@@ -57,6 +57,20 @@ model's full width:
   AUROC beside the JAX package's recorded yardsticks; the sequence AUROC
   must reach 0.8389) and ``--video-dir`` over four mp4s from
   ``create_synthetic_video_file`` (kernels 1-4);
+- scaling (``vad_tpu_torch/parallel/``) on the one card: two processes
+  joined by gloo take dp and tp train steps of the default video model
+  (B=8 global, f32 and bf16) through kernels 2 and 3 on each rank, held
+  against one process on the global batch (and, where cuDNN's algorithms
+  part the two f32 steps, against a float64 step) by the judge
+  ``multiprocess_check`` applies; ``python -m
+  vad_tpu_torch.parallel.multiprocess_check --device cuda`` in its
+  tensor-parallel form (the video model's gate weights split over the
+  two processes; its image-model data-parallel form is ROADMAP Queue 3
+  (e) on the card); two ``MultiStreamScorer`` replicas on the card
+  (kernels 1 and 4 in each) against the unsplit scorer; ``python -m
+  vad_tpu_torch.train_video`` under torchrun's environment at
+  WORLD_SIZE=1 (NCCL) beside the plain run.  One card: overhead and
+  correctness, not scaling numbers;
 - the kernel probes: kernel 5 (the tie-splitting 2x2 max-pool backward)
   held exactly against its plain version at the encoder's four pool
   inputs, kernel 6's five ablation modes against theirs (``full`` equal
@@ -65,7 +79,9 @@ model's full width:
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py --artifact-check
-<artifact> <checkpoint> <dtype>`` is the export phase's loading process.
+<artifact> <checkpoint> <dtype>`` is the export phase's loading process,
+``python3 chip_smoke.py --scaling-worker RANK WORLD DIR`` a rank of the
+scaling phase.
 ``python3 chip_smoke.py --accuracy [--only NAME] [--draws N] [--precision
 f32|bf16]`` runs run_parity's four fixtures at their budgets through the
 port's CLIs (``--seed`` 0..N-1), one line a draw and one a fixture beside
@@ -82,6 +98,7 @@ import http.client
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -952,16 +969,6 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
     return out
 
 
-def pre_batch_norm_biases(model) -> list:
-    """Conv biases that feed a train-mode BatchNorm: the norm subtracts the
-    batch mean, so their exact gradient is zero and a computed one is
-    rounding noise."""
-    if model.norm != "batch":
-        return []
-    return ([f"encoder.convs.{i}.bias" for i in range(len(model.encoder.convs))]
-            + [f"decoder.deconvs.{i}.bias" for i in range(len(model.decoder.norms))])
-
-
 TRAIN_BARS = {"f32": (F32_BAR, TRAIN_F32_BAR), "bf16": (BF16_BAR, BF16_BAR)}
 
 
@@ -1031,7 +1038,7 @@ def phase_train_step_compare() -> None:
     ``TRAIN_F32_BAR``; in bf16 all at ``BF16_BAR``.
 
     Two cases the bar cannot judge by relative error: a gradient that is
-    zero by construction (``pre_batch_norm_biases``) is held to the
+    zero by construction (``zero_gradient_biases``) is held to the
     allclose part only (``F32_BAR`` in f32); and in bf16 the plain step
     itself lands up to ~30% (relative L2) from the f32 step on the first
     encoder layers, so a bf16 gradient whose plain step is at least
@@ -1043,12 +1050,13 @@ def phase_train_step_compare() -> None:
     from vad_tpu_torch.core.config import VideoAEConfig
     from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
     from vad_tpu_torch.ops.losses import mse_per_sample
+    from vad_tpu_torch.parallel.multiprocess_check import zero_gradient_biases
     from vad_tpu_torch.train.state import make_optimizer
     from vad_tpu_torch.train.steps import make_train_step
 
     cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
     base = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED)
-    zero_by_construction = set(pre_batch_norm_biases(base))
+    zero_by_construction = set(zero_gradient_biases(base))
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     batch = torch.randint(0, 256, (B_TRAIN, T, IMAGE, IMAGE, 3), generator=g, device="cuda",
                           dtype=torch.uint8)
@@ -2901,6 +2909,369 @@ def accuracy_main(argv: list) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- scaling
+
+# The scaling phase: the train steps each 2-rank case takes (the gradients
+# compared after the first), the learning rate (the video trainer's
+# default), the cases (mesh model axis, precision), the two-replica
+# scorer's chunks, and the rank processes' time limit.
+SCALING_STEPS, SCALING_LR = 2, 1e-4
+SCALING_CASES = (("dp", 1, "f32"), ("dp", 1, "bf16"), ("tp", 2, "f32"), ("tp", 2, "bf16"))
+SCALING_CHUNKS, SCALING_TIMEOUT, SCALING_EPOCHS = 3, 400.0, 8
+SCALING_WD = 1e-5  # Adam's coupled weight decay
+
+
+def scaling_batches():
+    """The global batches every rank and the control draw (u8, host)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 12)
+    return [rng.integers(0, 256, (B_TRAIN, T, IMAGE, IMAGE, 3), dtype=np.uint8)
+            for _ in range(SCALING_STEPS)]
+
+
+def scaling_run(mesh, precision: str) -> dict:
+    """``SCALING_STEPS`` train steps of the full-width video model (from
+    ``init_weights(SEED)``, Adam at ``SCALING_LR``) on ``mesh``: this rank's
+    rows of each global batch, or all of them on a one-process mesh.
+    Returns the losses, each step's full gradients and the full weights and
+    running statistics after it (CPU f32), the kernels' launches and the
+    wall ms of the last step."""
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+    from vad_tpu_torch.ops.losses import mse_per_sample
+    from vad_tpu_torch.parallel.multihost import owned_batch_positions
+    from vad_tpu_torch.parallel.sharding import _gather_full, distribute, gathered
+    from vad_tpu_torch.train.state import make_optimizer
+    from vad_tpu_torch.train.steps import make_train_step
+
+    cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
+    model = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED).to("cuda")
+    optimizer = make_optimizer(model.parameters(), SCALING_LR, weight_decay=SCALING_WD)
+    shardings = distribute(model, mesh, optimizer)
+    step = make_train_step(mse_per_sample, torch.bfloat16 if precision == "bf16" else None,
+                           mesh=mesh)
+    rows = owned_batch_positions(mesh, B_TRAIN)
+
+    def full_state():
+        with gathered(model, None, mesh):
+            return {n: v.detach().float().cpu().clone() for n, v in model.state_dict().items()}
+
+    out = {"losses": [], "grads": [], "states": [], "sliced": sorted(shardings)}
+    zero_counters()
+    with no_tf32():
+        for batch in scaling_batches():
+            u8 = torch.from_numpy(batch[rows]).to("cuda")
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loss = step(model, optimizer, u8, B_TRAIN)
+            out["losses"].append(float(loss))
+            out["step_ms"] = (time.perf_counter() - start) * 1e3
+            out["grads"].append({n: (_gather_full(p.grad, shardings[n], mesh)
+                                     if n in shardings else p.grad).float().cpu().clone()
+                                 for n, p in model.named_parameters()})
+            out["states"].append(full_state())
+    out["launches"] = read_counters()
+    return out
+
+
+def scaling_worker(rank: str, world: str, workdir: str) -> int:
+    """One rank of the phase's 2-process run (``python3 chip_smoke.py
+    --scaling-worker RANK WORLD DIR``): every case of ``SCALING_CASES`` on
+    a gloo group over a FileStore in DIR, on ``cuda:0``; writes its
+    results to DIR/rank<RANK>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from vad_tpu_torch.parallel.sharding import get_mesh, init_distributed
+
+    device = init_distributed("cuda", init_method=f"file://{workdir}/store", rank=int(rank),
+                              world_size=int(world))
+    require(device == torch.device("cuda", 0) and dist.get_backend() == "gloo",
+            f"two ranks on the one card over gloo: {device}, {dist.get_backend()}")
+    results = {}
+    for name, mp, precision in SCALING_CASES:
+        mesh = get_mesh(model_parallel=mp)
+        results[f"{name}-{precision}"] = {**scaling_run(mesh, precision), "mesh": mesh.shape}
+    torch.save(results, Path(workdir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn(commands: list, logs: list, timeout: float, env=None) -> float:
+    """Run ``commands`` at once (one process each, output to ``logs``);
+    every process is stopped at ``timeout``.  Fails unless all exit 0;
+    returns the wall seconds."""
+    start = time.perf_counter()
+    procs = [subprocess.Popen(cmd, stdout=open(log, "w"), stderr=subprocess.STDOUT, env=env)
+             for cmd, log in zip(commands, logs)]
+    try:
+        rcs = [p.wait(timeout=max(1.0, timeout - (time.perf_counter() - start)))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(rcs == [0] * len(procs), f"processes exit 0 within {timeout} s: {rcs}; "
+            + " | ".join(Path(log).read_text()[-1500:] for log in logs))
+    return time.perf_counter() - start
+
+
+def scaling_anchor() -> dict:
+    """The first step's effective gradients (the gradient plus Adam's
+    coupled weight decay) of the 1-process program in float64 on the card
+    (from ``init_weights(SEED)``, the first global batch; the plain
+    versions: the kernels take f32 and bf16), by parameter name."""
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+    from vad_tpu_torch.ops.losses import mse_per_sample
+    from vad_tpu_torch.train.steps import make_train_step
+
+    cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
+    model = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED).to("cuda")
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.0)  # leaves .grad
+    u8 = torch.from_numpy(scaling_batches()[0]).to("cuda")
+    with plain_versions():
+        make_train_step(mse_per_sample, torch.float64)(model, optimizer, u8, B_TRAIN)
+    return {n: (p.grad + SCALING_WD * p.detach()).double().cpu()
+            for n, p in model.named_parameters()}
+
+
+def judge_scaling(case: str, ranks: list, control: dict, anchor: dict, init: dict,
+                  skip: set) -> dict:
+    """A 2-rank case against the 1-process control (``phase_scaling``'s
+    docstring): the losses, the ranks' agreement and launches here, the
+    gradients, weights, updates and running statistics by
+    ``multiprocess_check.judge_training``; ``anchor`` is
+    ``scaling_anchor``'s effective gradients and ``init`` the weights
+    before the first step.  Returns the summary its line carries."""
+    import torch
+
+    from vad_tpu_torch.parallel.multiprocess_check import judge_training
+
+    f32 = case.endswith("f32")
+    r0, r1 = ranks
+    rec = {"mesh": r0["mesh"], "sliced": r0["sliced"], "losses": r0["losses"],
+           "control_losses": control["losses"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "step_ms_per_rank": [r["step_ms"] for r in ranks],
+           "control_step_ms": control["step_ms"]}
+    rec["loss"] = [agree(torch.tensor(a), torch.tensor(b), F32_BAR if f32 else BF16_BAR)
+                   for a, b in zip(r0["losses"], control["losses"])]
+    # the ranks hold the same weights and running statistics, bit for bit
+    rec["ranks_equal"] = all(torch.equal(a[n], b[n]) for a, b in zip(r0["states"], r1["states"])
+                             for n in a)
+
+    def run(r):  # the first step's effective gradient: Adam's input
+        return {"grad": {n: g.double() + SCALING_WD * init[n].double()
+                         for n, g in r["grads"][0].items()}, "states": r["states"]}
+
+    rec.update(judge_training(run(r0), run(control), anchor, init, skip, f32=f32))
+    rec["ok"] = (all(r["ok"] for r in rec["loss"]) and rec["ranks_equal"] and rec["ok"]
+                 and all(r["launches"]["convlstm_train_forward"] > 0
+                         and r["launches"]["convlstm_backward"] > 0 for r in ranks))
+    return rec
+
+
+def phase_scaling(card: str, video_data: Path, workdir: Path) -> dict:
+    """Scaling (``vad_tpu_torch/parallel/``) on the one card; overhead and
+    correctness, not scaling numbers (every rank shares the card).
+
+    - Two processes on ``cuda:0`` joined by gloo, each launching kernels 2
+      and 3: video train steps of the default model (B=8 global, 4 rows a
+      rank under dp; all 8 on both under tp, the model group spanning the
+      two processes), f32 (TF32 off) and bf16, against one process taking
+      the same steps on the global batch.  Losses at the bar of their
+      precision.  The gradients, weights, updates and running statistics
+      by ``multiprocess_check.judge_training`` (its docstring), the rule
+      that check applies to its own runs: in f32 the first step's
+      gradients against the control's or, no less exact than the
+      control, against a float64 step on the card (``scaling_anchor``),
+      the weights after it at ``F32_BAR`` but where the control's own f32
+      error reaches the exact effective gradient, and every step's update
+      of each weight against the control's update; in bf16 the updates
+      and the last state whole.  The conv biases that feed a train-mode
+      BatchNorm (exact gradient 0: Adam turns their noise into lr-sized
+      steps) are left out, with the running means they shift; both
+      ranks' weights and running statistics are equal bit for bit after
+      every step.
+    - ``python -m vad_tpu_torch.parallel.multiprocess_check --device cuda
+      --model-parallel 2``, the video model's gate weights split over the
+      two processes (its own checks: losses against the 1-process
+      control, rank 0's checkpoint reloaded by both ranks, the
+      checkpoints after the first and the last step against the
+      control's by ``judge_training``).  Its data-parallel form trains
+      the image model, whose f32 step on the card parts from float64 at
+      its ReLU kinks by more than the control does (ROADMAP Queue 3 (e),
+      ``python -m vad_tpu_torch.tools.probe_kinks``).
+    - ``MultiStreamScorer`` with two replicas on ``cuda:0`` (S=16, T=16,
+      bf16, 8 slots each, kernels 1 and 4 in each) against the unsplit
+      scorer: scores and every layer's (h, c) at the bf16 bar.
+    - ``python -m vad_tpu_torch.train_video --model-parallel 1`` under
+      torchrun's environment at WORLD_SIZE=1 (NCCL), between two runs of
+      the same command without it (``SCALING_EPOCHS``, bf16,
+      ``phase_profiling``'s orbit set): the distributed path's overhead in
+      training frames per second of epochs 2 onward (each epoch's
+      evaluation pass included)."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.eval.serving import MultiStreamScorer
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+    from vad_tpu_torch.parallel.multiprocess_check import (
+        BF16_REL_L2,
+        GRADIENT_NOISE,
+        UPDATE_REL_L2,
+        launch,
+        zero_gradient_biases,
+    )
+    from vad_tpu_torch.parallel.sharding import get_mesh
+
+    phase_start = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    here = str(Path(__file__).resolve())
+    init = init_weights(VideoAutoencoder.from_config(VideoAEConfig(image_size=IMAGE,
+                                                                   sequence_length=T),
+                                                     device="cpu"), SEED)
+    skip = set(zero_gradient_biases(init))
+    init = {n: v.detach().float() for n, v in init.named_parameters()}
+    # the 1-process control, then the two ranks (the kernels are built: the
+    # ranks load them from the build directory)
+    controls = {}
+    for name, _, precision in SCALING_CASES:
+        if precision not in controls:
+            controls[precision] = scaling_run(get_mesh(["cuda:0"]), precision)
+    anchor = scaling_anchor()
+    torch.cuda.empty_cache()
+    ranks_seconds = spawn([[sys.executable, here, "--scaling-worker", str(r), "2",
+                            str(workdir)] for r in range(2)],
+                          [workdir / f"rank{r}.log" for r in range(2)], SCALING_TIMEOUT)
+    ranks = [torch.load(workdir / f"rank{r}.pt") for r in range(2)]
+    cases = {case: judge_scaling(case, [r[case] for r in ranks],
+                                 controls[case.split("-")[1]], anchor, init, skip)
+             for case in ranks[0]}
+    launches = {k: [sum(c["launches_per_rank"][r][k] for c in cases.values()) for r in range(2)]
+                for k in ("convlstm_train_forward", "convlstm_backward")}
+    emit({"phase": "scaling_steps", "card": card, "seconds": ranks_seconds, "cases": cases,
+          "bars": {"f32": F32_BAR, "bf16": BF16_BAR, "bf16_rel_l2": BF16_REL_L2,
+                   "update_rel_l2": UPDATE_REL_L2, "gradient_noise": GRADIENT_NOISE},
+          "left_out": sorted(skip)})
+
+    checks = {}
+    for mp in (2,):  # the image model's dp form is ROADMAP Queue 3 (e) on the card
+        start = time.perf_counter()
+        log = io.StringIO()
+        try:  # the record is printed either way; the failure is required below
+            with contextlib.redirect_stdout(log):
+                launch(processes=2, steps=2, out_dir=str(workdir / f"mpc{mp}"),
+                       timeout=SCALING_TIMEOUT, model_parallel=mp, device="cuda")
+        except AssertionError:
+            pass
+        lines = [ln for ln in log.getvalue().splitlines() if ln.startswith('{"processes"')]
+        rec = json.loads(lines[-1]) if lines else {"ok": False, "log": log.getvalue()[-2000:]}
+        checks[f"model_parallel_{mp}"] = {**rec, "seconds": time.perf_counter() - start}
+        emit({"phase": "scaling_multiprocess_check", "card": card,
+              **checks[f"model_parallel_{mp}"]})
+
+    # two scorer replicas on the one card against the unsplit scorer
+    cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
+    base = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED)
+    mesh = get_mesh(["cuda:0", "cuda:0"])
+    split = MultiStreamScorer(copy.deepcopy(base), num_slots=S, chunk=T, image_size=IMAGE,
+                              dtype=torch.bfloat16, device="cuda", mesh=mesh)
+    whole = MultiStreamScorer(copy.deepcopy(base), num_slots=S, chunk=T, image_size=IMAGE,
+                              dtype=torch.bfloat16, device="cuda")
+    for s in (split, whole):
+        for slot in range(S):
+            s.attach(slot)
+    rng = np.random.default_rng(SEED + 13)
+    chunks = [rng.integers(0, 256, (S, T, IMAGE, IMAGE, 3), dtype=np.uint8)
+              for _ in range(SCALING_CHUNKS)]
+    scores, counts = [], {}
+    for label, scorer in (("split", split), ("whole", whole)):
+        out, seconds, counts[label] = counted(lambda: [scorer.score_chunk(c) for c in chunks])
+        scores.append(np.stack(out))
+    score_cmp = agree(torch.from_numpy(scores[0]), torch.from_numpy(scores[1]))
+    state_cmp = [{"h": agree(h, wh), "c": agree(c, wc)}
+                 for (h, c), (wh, wc) in zip(split.states, whole.states)]
+    per_replica = {k: counts["whole"][k] for k in ("convlstm_serving", "first_block")}
+
+    # the trainer's distributed path at WORLD_SIZE=1 over NCCL, beside the plain trainer
+    argv = [sys.executable, "-m", "vad_tpu_torch.train_video", "--category", "orbit",
+            "--data-dir", str(video_data), "--epochs", str(SCALING_EPOCHS),
+            "--image-size", str(IMAGE),
+            "--sequence-length", str(T), "--stride", "4", "--batch-size", str(B_TRAIN),
+            "--precision", "bf16", "--num-workers", "2", "--seed", str(SEED),
+            "--model-parallel", "1"]
+    env_plain = {k: v for k, v in os.environ.items()
+                 if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env_plain["PYTHONPATH"] = str(Path(here).parent)
+    trainers = {}
+    nccl = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1"}
+    for label, extra in (("plain", {}), ("nccl_world_size_1", nccl), ("plain_again", {})):
+        if extra:
+            extra = {**extra, "MASTER_PORT": str(free_port())}
+        results = workdir / f"train_{label}"
+        log = workdir / f"train_{label}.log"
+        seconds = spawn([argv + ["--results-dir", str(results)]], [log], SCALING_TIMEOUT,
+                        env={**env_plain, **extra})
+        run_dir = next(results.iterdir())
+        epochs = [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()
+                  if "epoch_seconds" in ln]
+        text = log.read_text()
+        windows = int(re.search(r"Training sequences: (\d+)", text).group(1))
+        later = [e["epoch_seconds"] for e in epochs[1:]]  # the first builds and warms up
+        trainers[label] = {"seconds": seconds, "epoch_seconds": [e["epoch_seconds"]
+                                                                 for e in epochs],
+                           "backend_line": next((ln for ln in text.splitlines()
+                                                 if ln.startswith("Process group:")), None),
+                           "epoch_frames_per_s": windows * T * len(later) / sum(later)}
+    fps = {k: v["epoch_frames_per_s"] for k, v in trainers.items()}
+    emit({"phase": "scaling", "card": card,
+          "note": "one card shared by every rank and replica: overhead and correctness, "
+                  "not scaling",
+          "steps_ok": {k: c["ok"] for k, c in cases.items()},
+          "step_ms": {k: {"ranks": c["step_ms_per_rank"], "control": c["control_step_ms"]}
+                      for k, c in cases.items()},
+          "multiprocess_check_ok": {k: c["ok"] for k, c in checks.items()},
+          "scorer_two_replicas": {"scores": score_cmp, "states": state_cmp,
+                                  "launches": counts, "unsplit_launches": per_replica},
+          "trainer": trainers, "nccl_over_plain_frames_per_s":
+              2 * fps["nccl_world_size_1"] / (fps["plain"] + fps["plain_again"]),
+          "seconds": time.perf_counter() - phase_start})
+    require(all(c["ok"] for c in cases.values()),
+            f"2-rank dp/tp steps against the 1-process control: "
+            f"{ {k: (c['failed'][:6], c['loss']) for k, c in cases.items() if not c['ok']} }")
+    require(all(c["ok"] for c in checks.values()),
+            f"multiprocess_check on the card: { {k: c.get('failed') for k, c in checks.items()} }")
+    require(score_cmp["ok"] and all(s["h"]["ok"] and s["c"]["ok"] for s in state_cmp),
+            "two scorer replicas against the unsplit scorer at the bf16 bar")
+    require(all(counts["split"][k] == 2 * counts["whole"][k] > 0
+                for k in ("convlstm_serving", "first_block")),
+            f"each replica launched kernels 1 and 4 as the unsplit scorer does: {counts}")
+    require(trainers["nccl_world_size_1"]["backend_line"] is not None
+            and "nccl" in trainers["nccl_world_size_1"]["backend_line"],
+            f"the WORLD_SIZE=1 trainer joined an NCCL group: {trainers}")
+    return {"launches": launches, "scorer_launches": counts["split"]}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -2914,6 +3285,8 @@ def main() -> int:
         return artifact_check(*sys.argv[2:5])
     if sys.argv[1:2] == ["--accuracy"]:
         return accuracy_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--scaling-worker"]:  # phase_scaling's rank processes
+        return scaling_worker(*sys.argv[2:5])
     name, peak_flops, peak_bw, f32_flops, card = phase_device()
     phase_build()
     checks = {"convlstm_serving": phase_convlstm(peak_flops, peak_bw, f32_flops),
@@ -2934,6 +3307,7 @@ def main() -> int:
         profiling = phase_profiling(card, work / "profiling")
         ui = phase_ui(card, best_ckpt, image, profiling["data"], work / "ui")
         accuracy = phase_accuracy(card, work / "accuracy")
+        scaling = phase_scaling(card, profiling["data"], work / "scaling")
     probes = phase_probes()
     checks.update(probes)
     kernels = []
@@ -2978,6 +3352,10 @@ def main() -> int:
             kernels[-1]["profiling_launches"] = profiling["launches"][kname]
         if kname in accuracy["launches"]:  # train, evaluate and --video-dir of a real model
             kernels[-1]["accuracy_launches"] = accuracy["launches"][kname]
+        if kname in scaling["launches"]:  # each of the two gloo ranks' train steps
+            kernels[-1]["scaling_launches_per_rank"] = scaling["launches"][kname]
+        if kname in ("convlstm_serving", "first_block"):  # two scorer replicas on one card
+            kernels[-1]["scaling_scorer_launches"] = scaling["scorer_launches"][kname]
     emit({"kernels": kernels})
     import torch
 

@@ -353,17 +353,22 @@ def test_parsers_have_the_jax_flags_and_device(ours, theirs):
 
 
 def test_refusals(data_root, tmp_path):
-    from vad_tpu_torch.train.video_trainer import refuse_unported
+    from vad_tpu_torch.train.video_trainer import training_mesh
 
     base = train_argv(data_root, tmp_path, "--epochs", "1")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # scaling (item 10) is ported: --model-parallel 2 needs two ranks, and one
+    # process has no 'model' axis to split (JAX's get_mesh error on one device)
+    with pytest.raises(ValueError, match="1 devices not divisible by model_parallel=2"):
         train_cli.main(base + ["--model-parallel", "2"])
     # the profiling flags (Queue 1 item 11) are ported: accepted
     for flags in (["--tensorboard"], ["--profile-dir", "p"], ["--debug-nans"]):
-        refuse_unported(train_cli.build_parser().parse_args(base + flags))
+        mesh, _ = training_mesh(train_cli.build_parser().parse_args(base + flags),
+                                torch.device("cpu"))
+        assert mesh.shape == {"data": 1, "model": 1} and not mesh.distributed
     with pytest.raises(SystemExit):
         train_cli.main(["--category", "all", "--resume", "x.ckpt"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # --data-parallel is ported: it gets as far as reading the checkpoint
+    with pytest.raises(FileNotFoundError, match="x.ckpt"):
         eval_cli.main(["--checkpoint", "x.ckpt", "--device", "cpu", "--data-parallel"])
     if not torch.cuda.is_available():  # the default device is the card, never the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):

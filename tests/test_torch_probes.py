@@ -42,7 +42,7 @@ from vad_tpu_torch.ops.encoder_fused import (
     fused_first_block_ref,
 )
 from vad_tpu_torch.ops.pool_bwd import max_pool2x2_backward, max_pool2x2_backward_ref
-from vad_tpu_torch.tools import ablate_block1, probe_pool_bwd
+from vad_tpu_torch.tools import ablate_block1, probe_kinks, probe_pool_bwd
 from vad_tpu_torch.utils.profiling import device_peaks, time_ms
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -355,7 +355,22 @@ def test_ablate_tool_on_cpu(capsys):
                and r["max_abs_err"] == 0.0 and r["us_per_frame"] > 0 for r in lines)
 
 
-@pytest.mark.parametrize("tool", [probe_pool_bwd, ablate_block1])
+def test_kinks_tool_on_cpu(capsys):
+    """The image model's f32 step on the CPU sits at rounding distance from
+    float64 with no kink flipped, while one flipped kink moves the
+    gradients a hundred times further (the cause ``ROADMAP.md`` Queue 3
+    (e) records for the card)."""
+    probe_kinks.main(["--device", "cpu"])
+    first, half, one_kink = _json_lines(capsys.readouterr().out)
+    assert (first["rows"], half["rows"]) == (16, 8)
+    for r in (first, half):
+        assert r["device"] == "cpu" and r["kinks_flipped"] == 0
+        assert r["grad_rel_l2"]["max"] < 1e-4
+        assert set(r["kinks"]) >= {"encoder.blocks.0.norm1", "decoder.norm"}
+    assert one_kink["one_kink"]["median"] > 100 * first["grad_rel_l2"]["median"]
+
+
+@pytest.mark.parametrize("tool", [probe_pool_bwd, ablate_block1, probe_kinks])
 def test_tools_default_to_cuda(tool, monkeypatch):
     """Without --device a tool asks for the card, and raises without one."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -93,10 +93,12 @@ def test_parser_errors_match_jax(flags, monkeypatch, capsys):
         theirs_err.splitlines()[-1].split(": error: ")[1]
 
 
-@pytest.mark.parametrize("flags", [["--data-parallel"], ["--spatial", "2"]])
+# --data-parallel is ported (tests/test_torch_parallel.py serves with it); the
+# spatial row split is what is left of item 10 (10b), with or without it
+@pytest.mark.parametrize("flags", [["--data-parallel", "--spatial", "2"], ["--spatial", "2"]])
 def test_unported_scaling_options_raise_naming_item_10(flags, tmp_path):
     ckpt = write_video(tmp_path / "v.ckpt", 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
         serve_cli.main(["--checkpoint", str(ckpt), "--device", "cpu", *flags])
 
 

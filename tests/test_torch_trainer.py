@@ -36,7 +36,7 @@ from vad_tpu_torch.data.video_dataset import (
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_training_weights
 from vad_tpu_torch.ops.losses import mse_per_sample
 from vad_tpu_torch.train.steps import make_eval_step
-from vad_tpu_torch.train.video_trainer import fit, refuse_unported
+from vad_tpu_torch.train.video_trainer import fit, training_mesh
 from vad_tpu_torch.train_video import build_parser
 from vad_tpu_torch.utils.checkpoint import load_checkpoint
 from vad_tpu_torch.utils.weights import load_flax_variables, state_dict_to_flax
@@ -157,12 +157,18 @@ def test_generic_layout_and_unported_options_raise(tmp_path):
     # the generic layout is ported now: any layout that is not IPAD
     (tmp_path / "cat" / "train" / "good").mkdir(parents=True)
     assert detect_video_dataset_class(str(tmp_path), "cat") is VideoDataset
-    with pytest.raises(NotImplementedError, match="item 10"):
-        refuse_unported(build_parser().parse_args(["--category", "x", "--model-parallel", "2"]))
+    # scaling (item 10) is ported: --model-parallel 2 needs two ranks; one
+    # process has no 'model' axis to split (JAX's get_mesh error on one device)
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="1 devices not divisible by model_parallel=2"):
+        training_mesh(build_parser().parse_args(["--category", "x", "--model-parallel", "2"]),
+                      cpu)
     # the profiling flags (Queue 1 item 11) are ported: accepted
-    for flags in (["--tensorboard"], ["--profile-dir", "p"], ["--debug-nans"]):
-        refuse_unported(build_parser().parse_args(["--category", "x", *flags]))
-    refuse_unported(build_parser().parse_args(["--category", "x", "--model-parallel", "1"]))
+    for flags in (["--tensorboard"], ["--profile-dir", "p"], ["--debug-nans"],
+                  ["--model-parallel", "1"]):
+        mesh, device = training_mesh(build_parser().parse_args(["--category", "x", *flags]),
+                                     cpu)
+        assert mesh.shape == {"data": 1, "model": 1} and device == cpu
 
 
 def test_eval_step_scores_in_eval_mode_and_restores_the_mode():

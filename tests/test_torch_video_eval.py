@@ -434,9 +434,9 @@ def test_load_video_model_reads_both_packages_checkpoints(small, tmp_path):
 
 def test_refusals():
     base = ["--checkpoint", "x.ckpt", "--device", "cpu"]
-    for flags, item in ((["--data-parallel"], "item 10"),):
-        with pytest.raises(NotImplementedError, match=item):
-            video_eval.evaluate(cli.build_parser().parse_args(base + flags))
+    # --data-parallel is ported (item 10): it gets as far as reading the checkpoint
+    with pytest.raises(FileNotFoundError, match="x.ckpt"):
+        video_eval.evaluate(cli.build_parser().parse_args(base + ["--data-parallel"]))
     args = cli.build_parser().parse_args(base + ["--latent-proj-dim", "64", "--latent-grid", "8",
                                                  "--latent-stats", "s.npz"])
     assert (args.latent_proj_dim, args.latent_grid, args.latent_stats) == (64, 8, "s.npz")

@@ -6,14 +6,13 @@
 - ``device_prefetch``: moves a loader's batches to a device from a
   producer thread, ``size`` batches ahead.
 - ``DistributedLoader``: the trainers' input path, the JAX package's
-  ``DistributedLoader`` for one process without a mesh: ``(batch,
-  n_real)`` with the tail padded by cycling.
+  ``DistributedLoader``: ``(batch, n_real)`` with the tail padded by
+  cycling, each rank loading only the rows of every global batch that it
+  owns on the mesh (``parallel.multihost.owned_batch_positions``).
 
 Decode runs on a thread pool (PIL and numpy release the GIL) two batches
 ahead of the consumer; arrays go to the device through pinned memory with
 a non-blocking copy, so the transfer overlaps the step that is running.
-Sharding over several processes or cards waits for the scaling item of
-the port.
 """
 
 from __future__ import annotations
@@ -154,55 +153,79 @@ def device_prefetch(iterable: Iterable[Dict], size: int = 2, device=None) -> Ite
 
 class DistributedLoader:
     """Batched iterator over an indexable dataset, yielding ``(batch,
-    n_real)``.
+    n_real)``: this rank's rows of each global batch.
 
-    Each batch's index list is padded to ``pad_to`` (default
-    ``batch_size``) by CYCLING its real indices (``np.resize``), so a
-    padded tail batch's train-mode BatchNorm statistics equal the
-    unpadded batch's whenever ``pad_to % n_real == 0``; ``n_real`` counts
-    the real samples for the loss mask.  The shuffle is a permutation
-    seeded with ``seed + epoch``.
+    Each global batch's index list is padded to ``pad_to`` (default: the
+    smallest multiple of the mesh's data axis >= ``batch_size``) by
+    CYCLING its real indices (``np.resize``), so a padded tail batch's
+    train-mode BatchNorm statistics equal the unpadded batch's whenever
+    ``pad_to % n_real == 0``; ``n_real`` counts the real samples of the
+    GLOBAL batch, for the loss mask.  The shuffle is a permutation seeded
+    with ``seed + epoch``, the same on every rank, and each rank decodes
+    only the rows it owns (``owned_batch_positions``: its data row's
+    block, its slice of each microbatch with ``accum_steps`` > 1, the
+    whole batch with no mesh).
 
     Args:
         dataset: object with ``__len__`` and ``__getitem__`` -> dict.
-        batch_size: real samples consumed per step.
-        pad_to: static batch shape (>= batch_size).
+        batch_size: real samples consumed per global step.
+        mesh: ``parallel.sharding.Mesh`` (None: one process, all rows).
+        pad_to: static global batch shape (>= batch_size).
         shuffle/seed: epoch-seeded permutation.
         num_workers: decode threads (0 = synchronous).
-        device: where ``frames`` or ``image`` goes (``None`` means CUDA).
+        device: where ``frames`` or ``image`` goes (``None`` means the
+            mesh's device on a multi-process mesh, else CUDA).
+        process_count/process_index: a spoofed topology (tests), as JAX's.
+        accum_steps: microbatches of the train step the rows feed.
     """
 
     def __init__(
         self,
         dataset,
         batch_size: int,
+        mesh=None,
         pad_to: int | None = None,
         shuffle: bool = False,
         num_workers: int = 4,
         seed: int = 0,
         device=None,
+        process_count: int | None = None,
+        process_index: int | None = None,
+        accum_steps: int = 1,
     ) -> None:
+        from vad_tpu_torch.parallel.sharding import padded_batch_size
+
         self.dataset = dataset
         self.batch_size = batch_size
-        self.pad_to = batch_size if pad_to is None else pad_to
+        self.mesh = mesh
+        self.pad_to = padded_batch_size(batch_size, mesh) if pad_to is None else pad_to
         if self.pad_to < batch_size:
             raise ValueError(f"pad_to {self.pad_to} is below batch_size {batch_size}")
         self.shuffle = shuffle
         self.num_workers = max(0, num_workers)
         self.seed = seed
+        if device is None and mesh is not None and mesh.distributed:
+            device = mesh.device
         self.device = resolve_device(device)
+        self.process_count = process_count
+        self.process_index = process_index
+        self.accum_steps = max(1, accum_steps)
         self._epoch = 0
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def _epoch_plan(self) -> List[Tuple[np.ndarray, int]]:
-        """[(indices, n_real)] for every batch this epoch."""
+        """[(this rank's indices, n_real)] for every global batch this epoch."""
+        from vad_tpu_torch.parallel.multihost import owned_batch_positions
+
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(order)
+        pos = owned_batch_positions(self.mesh, self.pad_to, self.process_count,
+                                    self.process_index, self.accum_steps)
         plan = []
         for step in range(len(self)):
             lo = step * self.batch_size
@@ -210,18 +233,14 @@ class DistributedLoader:
             idx = order[lo : lo + real]
             if real < self.pad_to:
                 idx = np.resize(idx, self.pad_to)  # cycle, not repeat-last
-            plan.append((idx, real))
+            plan.append((idx[pos], real))
         return plan
 
     def _finish(self, samples: List[Dict], n_real: int):
-        batch = collate(samples)
-        for key in DEVICE_KEYS:
-            if key in batch:
-                host = torch.from_numpy(batch[key])
-                if self.device.type == "cuda":
-                    host = host.pin_memory()
-                batch[key] = host.to(self.device, non_blocking=True)
-        return batch, n_real
+        from vad_tpu_torch.parallel.multihost import put_global_batch
+
+        return put_global_batch(self.mesh, collate(samples), keys=DEVICE_KEYS,
+                                device=self.device), n_real
 
     def __iter__(self) -> Iterator:
         plan = self._epoch_plan()

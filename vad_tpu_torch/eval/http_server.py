@@ -71,6 +71,14 @@ from vad_tpu_torch.eval.metrics import serving_frame_threshold, serving_score_ba
 from vad_tpu_torch.eval.serving import MultiStreamScorer
 from vad_tpu_torch.models.autoencoder import ConvAutoencoder
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
+from vad_tpu_torch.parallel.sharding import (
+    DATA_AXIS,
+    data_parallel,
+    get_mesh,
+    local_devices,
+    padded_batch_size,
+    replicate,
+)
 from vad_tpu_torch.utils.checkpoint import CHECKPOINT_SUFFIX, load_checkpoint
 from vad_tpu_torch.utils.precision import (
     check_served_image_size,
@@ -89,9 +97,8 @@ _ARCHITECTURE_MISMATCH = (
 
 # Options of the JAX daemon whose modules the port does not have yet.
 _NOT_PORTED = (
-    ("data_parallel", bool, "--data-parallel", "Queue 1 item 10 (scaling)"),
     ("spatial_parallel", lambda v: int(v or 1) > 1, "--spatial > 1",
-     "Queue 1 item 10 (scaling)"),
+     "Queue 1 item 10b (spatial row split)"),
 )
 
 
@@ -280,6 +287,11 @@ class ImageScoringService:
     ``dtype`` (the service owns it from here on); ``variables``: optional
     JAX-layout tree to load into it, ``None`` keeps its weights.
 
+    ``mesh``: a one-process ``parallel.sharding.Mesh``: score
+    data-parallel over its 'data' axis, one model replica per device, each
+    taking ``batch / d`` images (the batch is rounded up to a multiple of
+    the axis); ``device`` is then its first device.
+
     ``latent_stats``: path to a fitted ``latent_stats.npz`` (either
     package's ``evaluate --scorer latent`` writes one) or a loaded
     ``LatentStats``.  When given, /v1/images scores through the
@@ -310,7 +322,10 @@ class ImageScoringService:
     def __init__(self, model, variables, image_size: int, batch: int = 32,
                  dtype: Optional[torch.dtype] = None,
                  drift_window: int = 4096, drift_factor: float = 5.0,
-                 latent_stats=None, device=None) -> None:
+                 latent_stats=None, device=None, mesh=None) -> None:
+        if mesh is not None:
+            device = mesh.replica_devices[0]
+            batch = padded_batch_size(batch, mesh)
         self.device = resolve_device(device)
         self.dtype = dtype = dtype or torch.bfloat16
         self.image_size = image_size
@@ -335,6 +350,8 @@ class ImageScoringService:
             self._dfn = make_distance_fn(lambda m, x: m.feature_pyramid(x),
                                          stats.layers, stats.grid)
             self._state = stats_state(stats, self.device)
+        self._replicas = replicate(self.model, mesh)
+        self._run = data_parallel(self._score_rows, mesh)
         self._lock = threading.Lock()
         self.metrics = ServiceMetrics()
         # live score-distribution monitor (eval/drift.py); calibrated
@@ -346,17 +363,19 @@ class ImageScoringService:
         # warm-up: the first step at the served shape
         self._score(np.zeros((batch, image_size, image_size, 3), np.uint8))
 
+    def _score_rows(self, model, u8: torch.Tensor, state) -> torch.Tensor:
+        x = u8.to(self.dtype) / 127.5 - 1.0
+        if self._dfn is not None:
+            maps = self._dfn(model, state, x)  # [B, G, G] f32
+            return maps.reshape(maps.shape[0], -1).mean(dim=1)
+        return model.reconstruction_error(x)
+
     @torch.no_grad()
     def _score(self, u8: np.ndarray) -> np.ndarray:
-        """One device step over a full ``[batch, H, W, 3]`` uint8 batch:
-        f32 image scores on the host."""
-        x = torch.as_tensor(u8, device=self.device).to(self.dtype) / 127.5 - 1.0
-        if self._dfn is not None:
-            maps = self._dfn(self.model, self._state, x)  # [B, G, G] f32
-            scores = maps.reshape(maps.shape[0], -1).mean(dim=1)
-        else:
-            scores = self.model.reconstruction_error(x)
-        return scores.float().cpu().numpy()
+        """One device step over a full ``[batch, H, W, 3]`` uint8 batch
+        (each replica's rows): f32 image scores on the host."""
+        u8 = torch.as_tensor(u8, device=self.device)
+        return self._run(self._replicas, u8, self._state).float().cpu().numpy()
 
     def score_images(self, frames: np.ndarray) -> np.ndarray:
         """Score ``n`` frames; requests larger than the device batch are
@@ -451,7 +470,8 @@ class ImageScoringService:
         variables = {"params": ckpt["params"], "batch_stats": ckpt.get("batch_stats") or {}}
         new = _served_state(self.model, variables, self.dtype)
         with self._lock:
-            self.model.load_state_dict(new, strict=True)
+            for replica in self._replicas:
+                replica.load_state_dict(new, strict=True)
             self._state = new_state
             self.checkpoint = str(checkpoint)
             # the checkpoint's calibrated threshold is a reconstruction-
@@ -1161,7 +1181,7 @@ class ScoringServer:
 
 def _image_service_from_ckpt(ckpt, checkpoint, batch, dtype: str,
                              drift_window=4096, drift_factor=5.0,
-                             latent_stats=None, device=None):
+                             latent_stats=None, device=None, mesh=None):
     """Build an ImageScoringService from a loaded image checkpoint."""
     icfg = ImageAEConfig.from_args(ckpt.get("args", {}))
     imodel = ConvAutoencoder.from_config(icfg, device="cpu")
@@ -1169,7 +1189,7 @@ def _image_service_from_ckpt(ckpt, checkpoint, batch, dtype: str,
     service = ImageScoringService(
         imodel, ivars, icfg.image_size, batch=batch, dtype=getattr(torch, dtype),
         drift_window=drift_window, drift_factor=drift_factor,
-        latent_stats=latent_stats, device=device,
+        latent_stats=latent_stats, device=device, mesh=mesh,
     )
     service.checkpoint = str(checkpoint)
     # the calibrated threshold is a reconstruction-score quantile; latent
@@ -1202,6 +1222,7 @@ def serve_from_checkpoint(
     reload_roots=None,
     latent_stats: Optional[str] = None,
     device=None,
+    devices=None,
 ) -> ScoringServer:
     """Build a ScoringServer from a checkpoint of either package.
 
@@ -1218,12 +1239,22 @@ def serve_from_checkpoint(
     ``drift_factor``: the online score-distribution monitor per model
     kind (window 0 disables).  ``device`` ``None`` means CUDA.
 
+    ``data_parallel``: one model replica per local device of ``device``'s
+    type (``devices``, when given, names them: a device may repeat), the
+    video slots (rounded up to a multiple of their count) and the image
+    batch split over them.  ``spatial_parallel > 1`` is not ported yet and
+    raises.
+
     The scorer is warmed with one step before the server accepts traffic:
     on the card that first call builds the kernels and picks cuDNN's
-    algorithms, and neither may land in a request.  ``data_parallel`` and
-    ``spatial_parallel > 1`` are not ported yet and raise."""
-    refuse_unported(data_parallel=data_parallel, spatial_parallel=spatial_parallel)
+    algorithms, and neither may land in a request."""
+    refuse_unported(spatial_parallel=spatial_parallel)
     device = resolve_device(device)
+    mesh = None
+    if data_parallel:
+        mesh = get_mesh(devices if devices is not None else local_devices(device))
+        data_n = mesh.shape[DATA_AXIS]
+        num_slots = ((num_slots + data_n - 1) // data_n) * data_n
     ckpt = load_checkpoint(checkpoint)
     print("warming up (the first step builds the kernels)...", flush=True)
 
@@ -1236,7 +1267,7 @@ def serve_from_checkpoint(
         service = _image_service_from_ckpt(
             ckpt, checkpoint, num_slots, dtype,
             drift_window=drift_window, drift_factor=drift_factor,
-            latent_stats=latent_stats, device=device,
+            latent_stats=latent_stats, device=device, mesh=mesh,
         )
         return ScoringServer(host=host, port=port, service=service,
                              reload_roots=reload_roots)
@@ -1253,7 +1284,7 @@ def serve_from_checkpoint(
     scorer = MultiStreamScorer(
         model, variables, num_slots=num_slots, chunk=chunk,
         image_size=cfg.image_size, dtype=getattr(torch, dtype), fused_input=fused_input,
-        device=device,
+        device=device, mesh=mesh,
     )
     # build the kernels and pay the first step before accepting traffic
     warm = np.zeros((num_slots, chunk) + scorer.image_hw + (3,), np.uint8)
@@ -1273,7 +1304,7 @@ def serve_from_checkpoint(
         services["image"] = _image_service_from_ckpt(
             ickpt, image_checkpoint, num_slots, dtype,
             drift_window=drift_window, drift_factor=drift_factor,
-            latent_stats=latent_stats, device=device,
+            latent_stats=latent_stats, device=device, mesh=mesh,
         )
     elif latent_stats is not None:
         raise ValueError(

@@ -39,6 +39,13 @@ from vad_tpu_torch.eval.plots import (
     plot_score_distribution,
 )
 from vad_tpu_torch.models.autoencoder import ConvAutoencoder
+from vad_tpu_torch.parallel.sharding import (
+    DATA_AXIS,
+    data_parallel,
+    get_mesh,
+    local_devices,
+    replicate,
+)
 from vad_tpu_torch.ops.losses import _gaussian_window
 from vad_tpu_torch.train.steps import u8_normalize
 from vad_tpu_torch.utils.checkpoint import load_checkpoint
@@ -47,17 +54,6 @@ from vad_tpu_torch.utils.weights import load_flax_variables
 
 SCORE_MODES = ("mean", "max", "p99")
 MapsFn = Callable[[ConvAutoencoder, Any, torch.Tensor], torch.Tensor]
-
-# Options of the JAX evaluator whose modules the port does not have yet.
-_NOT_PORTED = (("data_parallel", "--data-parallel", "Queue 1 item 10 (scaling)"),)
-
-
-def refuse_unported(args: Any) -> None:
-    """Raise for an option whose module the port does not have yet."""
-    for attr, flag, item in _NOT_PORTED:
-        if getattr(args, attr, None):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
-
 
 def load_image_model(checkpoint_path: str | Path, device=None
                      ) -> Tuple[ConvAutoencoder, Dict, Dict]:
@@ -111,18 +107,24 @@ def anomaly_maps(model: ConvAutoencoder, x: torch.Tensor, score_smooth: float = 
 def score_split(model: ConvAutoencoder, test_ds, batch_size: int = 16, num_workers: int = 4,
                 score_mode: str = "mean", score_smooth: float = 0.0,
                 maps_fn: Optional[MapsFn] = None, scorer_state=None,
-                keep_maps: bool = False) -> Dict[str, Any]:
+                keep_maps: bool = False, mesh=None) -> Dict[str, Any]:
     """One pass over ``test_ds`` (uint8 images) on the model's device, in
     eval mode: ``labels`` [N], ``scores`` [N] (float64), ``defects``, and
-    with ``keep_maps`` the maps [N,H,W] and the masks (> 0.5) on the host."""
+    with ``keep_maps`` the maps [N,H,W] and the masks (> 0.5) on the host.
+    ``mesh`` (``--data-parallel``, a one-process mesh): one replica per
+    device along 'data', each batch padded to a multiple of the axis and
+    its maps computed in row slices (``parallel.sharding.data_parallel``)."""
     device = model.device
-    loader = DistributedLoader(test_ds, batch_size, num_workers=num_workers, device=device)
+    loader = DistributedLoader(test_ds, batch_size, mesh=mesh, num_workers=num_workers,
+                               device=device)
     out = {"labels": [], "scores": [], "defects": [], "maps": [], "masks": []}
     model.eval()
+    replicas = replicate(model, mesh)
+    step = data_parallel(lambda m, u8, state: anomaly_maps(
+        m, u8_normalize(u8), score_smooth, maps_fn, state), mesh)
     with tf32_off(device.type == "cuda"):
         for batch, n_real in loader:
-            err = anomaly_maps(model, u8_normalize(batch["image"]), score_smooth, maps_fn,
-                               scorer_state)
+            err = step(replicas, batch["image"], scorer_state)
             out["scores"].append(reduce_maps(err, score_mode)[:n_real].cpu().numpy())
             out["labels"].append(np.asarray(batch["label"])[:n_real])
             out["defects"].extend(batch["defect_type"][:n_real])
@@ -139,10 +141,10 @@ def score_split(model: ConvAutoencoder, test_ds, batch_size: int = 16, num_worke
 
 def compute_scores(model: ConvAutoencoder, test_ds, batch_size: int = 16,
                    num_workers: int = 4, score_mode: str = "mean", score_smooth: float = 0.0,
-                   maps_fn: Optional[MapsFn] = None, scorer_state=None):
+                   mesh=None, maps_fn: Optional[MapsFn] = None, scorer_state=None):
     """(labels, scores, defect_types) over the test split."""
     r = score_split(model, test_ds, batch_size, num_workers, score_mode, score_smooth,
-                    maps_fn, scorer_state)
+                    maps_fn, scorer_state, mesh=mesh)
     return r["labels"], r["scores"], r["defects"]
 
 
@@ -155,12 +157,12 @@ def localization(maps: np.ndarray, masks: np.ndarray) -> Dict[str, float]:
 
 
 def compute_localization(model: ConvAutoencoder, test_ds, batch_size: int = 16,
-                         score_smooth: float = 0.0, maps_fn: Optional[MapsFn] = None,
+                         score_smooth: float = 0.0, mesh=None, maps_fn: Optional[MapsFn] = None,
                          scorer_state=None) -> Dict[str, float]:
     """``pixel_auroc`` and ``aupro`` of the split's anomaly maps (blurred as
     the image score's are) against the ground-truth masks."""
     r = score_split(model, test_ds, batch_size, score_smooth=score_smooth, maps_fn=maps_fn,
-                    scorer_state=scorer_state, keep_maps=True)
+                    scorer_state=scorer_state, keep_maps=True, mesh=mesh)
     return localization(r["maps"], r["masks"])
 
 
@@ -247,11 +249,15 @@ def write_results_txt(path: Path, score: float, breakdown: Dict[str, Dict],
 def evaluate(args: Any) -> float:
     """Evaluate ``args.checkpoint`` on its category's test split; writes
     ``<checkpoint dir>/evaluation/`` and returns the image AUROC (0.0 when
-    the split has one class)."""
-    refuse_unported(args)
+    the split has one class).  ``--data-parallel`` scores over every local
+    device of ``--device``'s type (``score_split``)."""
     device = resolve_device(getattr(args, "device", None))
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(f"Using device: {device.type}:{name}")
+    mesh = None
+    if getattr(args, "data_parallel", False):
+        mesh = get_mesh(local_devices(device))
+        print(f"Data-parallel evaluation over {mesh.shape[DATA_AXIS]} devices")
 
     checkpoint_path = Path(args.checkpoint)
     model, _, train_args = load_image_model(checkpoint_path, device)
@@ -288,7 +294,7 @@ def evaluate(args: Any) -> float:
 
     print("\nComputing metrics...")
     split = score_split(model, test_ds, score_mode=score_mode, score_smooth=score_smooth,
-                        maps_fn=maps_fn, scorer_state=scorer_state, keep_maps=True)
+                        maps_fn=maps_fn, scorer_state=scorer_state, keep_maps=True, mesh=mesh)
     labels, scores, defects = split["labels"], split["scores"], split["defects"]
     ap_score = float("nan")
     if len(np.unique(labels)) > 1:

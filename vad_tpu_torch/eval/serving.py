@@ -5,6 +5,14 @@ scoring step: uint8 frames in, per-frame anomaly scores out, ConvLSTM
 (h, c) tracked per stream slot.  Streams attach and detach at any time
 (their slot's state resets to zeros); slot count and chunk length are
 fixed at construction.
+
+With a ``mesh`` (one process, ``parallel.sharding.get_mesh``) the slots
+split over its 'data' axis: one model replica per device there, each with
+``num_slots / d`` slots, its own carried (h, c) and its own folded kernel-4
+weights (refolded on reload).  Streams never mix, so there are no
+collectives; every replica's launches are issued before any result is
+read.  The JAX scorer's ``spatial`` row split is not ported (ROADMAP Queue
+1 item 10b).
 """
 
 from __future__ import annotations
@@ -17,8 +25,64 @@ import torch
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
 from vad_tpu_torch.ops.encoder_fused import fold_first_block
+from vad_tpu_torch.parallel.sharding import DATA_AXIS, concat_rows, data_parallel, replicate
 from vad_tpu_torch.utils.precision import STATE_DTYPE, checked_cast_like
 from vad_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
+
+
+class _Replica:
+    """One model copy on one device serving the slots ``[lo, hi)``: its
+    carried (h, c) and its folded first-block weights."""
+
+    def __init__(self, model: VideoAutoencoder, device: torch.device, lo: int, hi: int,
+                 hw, fused_input: bool, dtype: torch.dtype, return_maps: bool) -> None:
+        self.model, self.device, self.lo, self.hi = model, device, lo, hi
+        self.fused_input, self.dtype, self.return_maps = fused_input, dtype, return_maps
+        self.states = model.zero_state(hi - lo, *hw)
+
+    def fold(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """(Re)fold the first block's weights (kept f32) from a model state
+        dict: the eager step reads them on every call, so a reload applies
+        to them too."""
+        if not self.fused_input:
+            return
+        w, b = fold_first_block(
+            *(state_dict[f"encoder.{k}"] for k in (
+                "convs.0.weight", "convs.0.bias", "norms.0.running_mean",
+                "norms.0.running_var", "norms.0.weight", "norms.0.bias")),
+        )
+        self.w_folded, self.b_folded = w.to(self.device), b.to(self.device)
+
+    @torch.no_grad()
+    def forward(self, u8: torch.Tensor):
+        """One chunk ``[s,T,H,W,3]`` of this replica's slots from the
+        carried state, which is left as it is: ``(recon [s,T,H,W,3], error
+        maps or None, frame scores, new per-layer states)``."""
+        s, t, h, w, _ = u8.shape
+        if self.fused_input:
+            recon, err, scores, new_states = self.model.stream_step_u8(
+                u8.reshape(s, t, h, w * 3), self.states, self.w_folded, self.b_folded,
+                self.return_maps, out_dtype=self.dtype,
+            )
+            return recon.reshape(u8.shape), err, scores, new_states
+        x = u8.to(self.dtype) / 127.5 - 1.0
+        return self.model.stream_step(x, self.states)
+
+    @torch.no_grad()
+    def step(self, u8: torch.Tensor, submitted: torch.Tensor):
+        """Score this replica's slots ``u8`` and advance the carried (h, c)
+        of those that ``submitted`` (the mask over every slot) marks:
+        ``(frame scores, error maps or None)``."""
+        _, err, scores, new_states = self.forward(u8)
+        # only slots that submitted frames advance their carried (h, c);
+        # the other rows of the batch are padding
+        keep = submitted[self.lo:self.hi].reshape(-1, 1, 1, 1)
+        self.states = tuple(
+            (torch.where(keep, h_new, h_old).to(STATE_DTYPE),
+             torch.where(keep, c_new, c_old).to(STATE_DTYPE))
+            for (h_new, c_new), (h_old, c_old) in zip(new_states, self.states)
+        )
+        return scores.float(), (err.float() if self.return_maps else None)
 
 
 class MultiStreamScorer:
@@ -38,7 +102,13 @@ class MultiStreamScorer:
         fused_input: run normalize + conv1 + BN + max-pool + LeakyReLU as
             the fused u8 input block.  ``None`` means on when the device is
             CUDA and the model has ``norm='batch'`` and ``stem='pool'``.
-        device: ``None`` means CUDA (raises when there is none).
+        device: ``None`` means CUDA (raises when there is none); with a
+            ``mesh``, its first device along 'data'.
+        mesh: a one-process ``parallel.sharding.Mesh``: the slots split
+            over its 'data' axis, one replica per device there (module
+            docstring); ``num_slots`` must divide by the axis.
+        spatial: JAX's row split of each frame over 'model'; not ported
+            (raises ``NotImplementedError``).
     """
 
     def __init__(
@@ -52,7 +122,19 @@ class MultiStreamScorer:
         dtype: torch.dtype = torch.float32,
         fused_input: Optional[bool] = None,
         device=None,
+        mesh=None,
+        spatial: bool = False,
     ) -> None:
+        if spatial:
+            raise NotImplementedError(
+                "spatial=True (the row split of each frame over 'model') is not ported yet "
+                "(ROADMAP Queue 1 item 10b)")
+        if mesh is not None:
+            device = mesh.replica_devices[0]
+            data_n = mesh.shape[DATA_AXIS]
+            if num_slots % data_n != 0:
+                raise ValueError(f"num_slots={num_slots} must divide evenly over the "
+                                 f"'{DATA_AXIS}' mesh axis of size {data_n}")
         self.device = resolve_device(device)
         hw = (tuple(image_size) if isinstance(image_size, (tuple, list))
               else (image_size, image_size))
@@ -71,36 +153,55 @@ class MultiStreamScorer:
         self.num_slots, self.chunk = num_slots, chunk
         self.image_size, self.image_hw = image_size, hw  # as given; (H, W)
         self.return_maps, self.dtype, self.fused_input = return_maps, dtype, fused_input
-        self._fold(model.state_dict())  # from the weights before the serving cast
-        self.model = model.to(device=self.device, dtype=dtype).eval()
-        self.states = model.zero_state(num_slots, *hw)
+        weights = model.state_dict()  # the fold reads the weights before the serving cast
+        model = model.to(device=self.device, dtype=dtype).eval()
+        copies = replicate(model, mesh)
+        per = num_slots // len(copies)
+        self._replicas = []
+        for i, copy in enumerate(copies):
+            dev = next(copy.parameters()).device
+            replica = _Replica(copy, dev, i * per, (i + 1) * per, hw, fused_input, dtype,
+                               return_maps)
+            replica.fold(weights)
+            self._replicas.append(replica)
+        self._forward_rows = data_parallel(_Replica.forward, mesh)
+        self._step_rows = data_parallel(_Replica.step, mesh)
         self._active = np.zeros(num_slots, dtype=bool)
 
-    def _fold(self, state_dict: Mapping[str, torch.Tensor]) -> None:
-        """(Re)fold the first block's weights (kept f32) from a model state
-        dict: the eager step reads them on every call, so a reload applies
-        to them too."""
-        if not self.fused_input:
-            return
-        w, b = fold_first_block(
-            *(state_dict[f"encoder.{k}"] for k in (
-                "convs.0.weight", "convs.0.bias", "norms.0.running_mean",
-                "norms.0.running_var", "norms.0.weight", "norms.0.bias")),
-        )
-        self._w_folded, self._b_folded = w.to(self.device), b.to(self.device)
+    @property
+    def model(self) -> VideoAutoencoder:
+        """The first replica's model (the only one without a mesh)."""
+        return self._replicas[0].model
+
+    @property
+    def _w_folded(self) -> torch.Tensor:
+        return self._replicas[0].w_folded
+
+    @property
+    def states(self):
+        """Every layer's carried (h, c) over all slots ``[num_slots, h, w,
+        C]`` f32 (a copy: the replicas' concatenated on the first device)."""
+        return concat_rows([r.states for r in self._replicas], self.device)
+
+    @states.setter
+    def states(self, states) -> None:
+        for r in self._replicas:
+            r.states = tuple((h[r.lo:r.hi].to(r.device), c[r.lo:r.hi].to(r.device))
+                             for h, c in states)
 
     # ------------------------------------------------------------ reload
 
     def reload_variables(self, variables: Mapping) -> None:
         """Hot-swap the model weights in place from a JAX-package variables
-        tree.  They must match the served architecture exactly (structure,
-        shapes, dtypes after the serving cast); raises ValueError (or
-        KeyError for a missing key) otherwise.  Attached slots keep their
-        carried (h, c)."""
+        tree, in every replica.  They must match the served architecture
+        exactly (structure, shapes, dtypes after the serving cast); raises
+        ValueError (or KeyError for a missing key) otherwise.  Attached
+        slots keep their carried (h, c)."""
         fresh = flax_to_state_dict(self.model, variables)
         new = checked_cast_like(fresh, self.model.state_dict(), self.dtype)
-        self.model.load_state_dict(new, strict=True)
-        self._fold(fresh)
+        for r in self._replicas:
+            r.model.load_state_dict(new, strict=True)
+            r.fold(fresh)
 
     # ------------------------------------------------------------- slots
 
@@ -121,9 +222,11 @@ class MultiStreamScorer:
         self._active[slot] = False
 
     def _reset_slot(self, slot: int) -> None:
-        for h, c in self.states:
-            h[slot] = 0
-            c[slot] = 0
+        for r in self._replicas:
+            if r.lo <= slot < r.hi:
+                for h, c in r.states:
+                    h[slot - r.lo] = 0
+                    c[slot - r.lo] = 0
 
     @property
     def active_slots(self) -> np.ndarray:
@@ -136,28 +239,11 @@ class MultiStreamScorer:
         """One chunk ``[S,T,H,W,3]`` from the carried state, which is left
         as it is: ``(recon [S,T,H,W,3], error maps or None, frame scores,
         new per-layer states)``."""
-        s, t, h, w, _ = u8.shape
-        if self.fused_input:
-            recon, err, scores, new_states = self.model.stream_step_u8(
-                u8.reshape(s, t, h, w * 3), self.states, self._w_folded, self._b_folded,
-                self.return_maps, out_dtype=self.dtype,
-            )
-            return recon.reshape(u8.shape), err, scores, new_states
-        x = u8.to(self.dtype) / 127.5 - 1.0
-        return self.model.stream_step(x, self.states)
+        return self._forward_rows(self._replicas, u8)
 
     @torch.no_grad()
     def _step(self, u8: torch.Tensor, submitted: torch.Tensor):
-        _, err, scores, new_states = self._forward(u8)
-        # only slots that submitted frames advance their carried (h, c);
-        # the other rows of the batch are padding
-        keep = submitted.reshape(-1, 1, 1, 1)
-        self.states = tuple(
-            (torch.where(keep, h_new, h_old).to(STATE_DTYPE),
-             torch.where(keep, c_new, c_old).to(STATE_DTYPE))
-            for (h_new, c_new), (h_old, c_old) in zip(new_states, self.states)
-        )
-        return scores.float(), (err.float() if self.return_maps else None)
+        return self._step_rows(self._replicas, u8, submitted)
 
     def score_chunk(self, frames_u8, submitted: Optional[np.ndarray] = None):
         """Score one chunk across all slots.

@@ -46,26 +46,19 @@ from vad_tpu_torch.eval.plots import (
     save_image_png,
 )
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
+from vad_tpu_torch.parallel.sharding import (
+    DATA_AXIS,
+    data_parallel,
+    get_mesh,
+    local_devices,
+    replicate,
+)
 from vad_tpu_torch.train.steps import u8_normalize
 from vad_tpu_torch.utils.checkpoint import load_checkpoint
 from vad_tpu_torch.utils.precision import tf32_off
 from vad_tpu_torch.utils.weights import load_flax_variables
 
 SCORE_MODES = ("mean", "max", "p99")
-
-# Options of the JAX evaluator whose modules the port does not have yet:
-# (attribute, whether the value asks for it, flag, ROADMAP item).
-_NOT_PORTED = (
-    ("data_parallel", bool, "--data-parallel", "Queue 1 item 10 (scaling)"),
-)
-
-
-def refuse_unported(args: Any) -> None:
-    """Raise for an option whose module the port does not have yet."""
-    for attr, asked, flag, item in _NOT_PORTED:
-        if asked(getattr(args, attr, None)):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
-
 
 def smooth_frame_scores(frame_scores: np.ndarray, sigma: float) -> np.ndarray:
     """Gaussian-smooth per-frame scores [B, T] along time (sigma in frames,
@@ -136,13 +129,17 @@ def _score_method(objective: str):
 
 def score_windows(model: VideoAutoencoder, dataset, batch_size: int = 4,
                   objective: str = "reconstruct", frame_maps_fn=None,
-                  scorer_state=None) -> Dict[str, Any]:
+                  scorer_state=None, mesh=None) -> Dict[str, Any]:
     """Score every window of ``dataset`` (``__len__``, ``__getitem__`` ->
     {"frames" uint8 [T,H,W,3], "label", "frame_labels"}, ``labels``,
     ``has_frame_labels``) in batches of ``batch_size`` on the model's
     device, in eval mode.  ``frame_maps_fn(model, scorer_state, frames
     [N,H,W,C]) -> [N,G,G]`` (the latent scorer, ``latent_frame_maps``)
     replaces the reconstruction error: a frame's score is its map's mean.
+
+    ``mesh`` (``--data-parallel``, a one-process mesh): one replica of the
+    model per device along 'data', each batch padded to a multiple of the
+    axis and split in rows (``parallel.sharding.data_parallel``).
 
     Returns float64 numpy arrays: ``sequence`` [N] (the mean of each
     window's frame scores), ``frame`` [N, T'] (T' = T, or T-1 aligned to
@@ -151,17 +148,22 @@ def score_windows(model: VideoAutoencoder, dataset, batch_size: int = 4,
     device = model.device
     method = _score_method(objective)
     has_frame_labels = getattr(dataset, "has_frame_labels", False)
-    loader = DistributedLoader(dataset, batch_size, num_workers=2, device=device)
+    loader = DistributedLoader(dataset, batch_size, mesh=mesh, num_workers=2, device=device)
+
+    def frame_scores(m, u8, state):
+        x = u8_normalize(u8)
+        if frame_maps_fn is not None:
+            maps = frame_maps_fn(m, state, x.flatten(0, 1))
+            return maps.mean(dim=(1, 2)).reshape(x.shape[:2])
+        return method(m, x, per_frame=True)
+
     seqs, frames, labels, frame_labels = [], [], [], []
     model.eval()
+    replicas = replicate(model, mesh)
+    step = data_parallel(frame_scores, mesh)
     with torch.no_grad(), tf32_off(device.type == "cuda"):
         for batch, n_real in loader:
-            x = u8_normalize(batch["frames"])
-            if frame_maps_fn is not None:
-                maps = frame_maps_fn(model, scorer_state, x.flatten(0, 1))
-                frame = maps.mean(dim=(1, 2)).reshape(x.shape[:2])[:n_real]
-            else:
-                frame = method(model, x, per_frame=True)[:n_real]
+            frame = step(replicas, batch["frames"], scorer_state)[:n_real]
             seqs.append(frame.mean(dim=1).cpu().numpy())
             frames.append(frame.cpu().numpy())
             labels.append(np.asarray(batch["label"])[:n_real])
@@ -195,11 +197,15 @@ def latent_frame_maps(model: VideoAutoencoder, train_ds, batch_size: int = 4,
 def evaluate(args: Any) -> float:
     """Dataset-mode evaluation of ``args.checkpoint`` on the test split;
     writes ``<checkpoint dir>/evaluation/`` and returns the sequence
-    AUROC (0.0 when the split has one class)."""
-    refuse_unported(args)
+    AUROC (0.0 when the split has one class).  ``--data-parallel`` scores
+    over every local device of ``--device``'s type (``score_windows``)."""
     device = resolve_device(getattr(args, "device", None))
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(f"Using device: {device.type}:{name}")
+    mesh = None
+    if getattr(args, "data_parallel", False):
+        mesh = get_mesh(local_devices(device))
+        print(f"Data-parallel evaluation over {mesh.shape[DATA_AXIS]} devices")
 
     model, _, saved = load_video_model(args.checkpoint, device)
     category = args.category or saved.get("category", "S01")
@@ -243,7 +249,7 @@ def evaluate(args: Any) -> float:
 
     print("\nComputing anomaly scores...")
     scored = score_windows(model, test_ds, args.batch_size, objective, frame_maps_fn,
-                           scorer_state)
+                           scorer_state, mesh=mesh)
     all_labels = scored["labels"]
     all_scores = (aggregate_sequence_scores(scored["frame"], score_mode, score_smooth)
                   if custom_agg else scored["sequence"])

@@ -5,7 +5,8 @@ The flags of the JAX package's ``evaluate.py``, plus ``--device`` (default
 into ``<checkpoint dir>/evaluation/``; a checkpoint DIRECTORY evaluates
 every category's newest best checkpoint under it and writes the
 cross-category summary (``vad_tpu_torch/campaign.py``).
-``--data-parallel`` raises: its module is not ported yet.
+``--data-parallel`` scores over every card, one model replica per card,
+each batch split in rows.
 
 Usage:
     python -m vad_tpu_torch.evaluate --checkpoint results/bottle_x/best_model.ckpt
@@ -44,8 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Gaussian sigma (pixels) to blur the error map "
                              "before scoring (0 = off)")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="Score batches data-parallel over all cards "
-                             "(not ported yet)")
+                        help="Score batches data-parallel over all visible "
+                             "cards (one model replica per card along the "
+                             "'data' mesh axis, each batch split in rows)")
     parser.add_argument("--scorer", type=str, default="recon",
                         choices=["recon", "latent"],
                         help="Anomaly map source: 'recon' = per-pixel "

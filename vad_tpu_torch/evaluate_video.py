@@ -14,7 +14,8 @@ kernels).  Three modes:
 
 ``--scorer latent`` scores dataset mode by the latent-distance scorer
 (``eval/latent_score.py``); the streaming modes refuse it, as in the JAX
-package.  ``--data-parallel`` raises: its module is not ported yet.
+package.  ``--data-parallel`` scores dataset mode over every card, one
+model replica per card, each batch split in rows.
 
 Usage:
     python -m vad_tpu_torch.evaluate_video --checkpoint results/video_S01_x/best_model.ckpt
@@ -58,7 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Gaussian-smooth per-frame scores along time (sigma in frames) "
                              "before aggregation and frame-level metrics")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="Score batches data-parallel over all cards (not ported yet)")
+                        help="Score batches data-parallel over all visible "
+                             "cards (one model replica per card along the "
+                             "'data' mesh axis, each batch split in rows)")
     parser.add_argument("--scorer", type=str, default="recon", choices=["recon", "latent"],
                         help="Frame score source: 'recon' = reconstruction error; 'latent' = "
                              "Mahalanobis distance of encoder features (dataset mode)")

@@ -65,11 +65,18 @@ class ConvLSTMLayer(nn.Module):
 
     ``w_x [4H,I,3,3]`` (OIHW, cuDNN's) and ``w_h [3,3,H,4H]`` (HWIO, the
     recurrence's) are the two halves of the JAX layer's fused kernel
-    ``[3,3,I+H,4H]``; the gate order is (i, f, g, o)."""
+    ``[3,3,I+H,4H]``; the gate order is (i, f, g, o).
+
+    Under tensor parallelism (``tp_mesh``, set by
+    ``parallel.sharding.distribute``) the three parameters hold this rank's
+    slice of the 4H channels and the layer all-gathers the full weights
+    over the model group first, so the recurrence kernels see whole
+    operands."""
 
     def __init__(self, input_dim: int, hidden_dim: int, remat: bool = False):
         super().__init__()
         self.input_dim, self.hidden_dim, self.remat = input_dim, hidden_dim, remat
+        self.tp_mesh = None
         self.w_x = nn.Parameter(torch.empty(4 * hidden_dim, input_dim, 3, 3))
         self.w_h = nn.Parameter(torch.empty(3, 3, hidden_dim, 4 * hidden_dim))
         self.bias = nn.Parameter(torch.zeros(4 * hidden_dim))
@@ -85,8 +92,14 @@ class ConvLSTMLayer(nn.Module):
         recurrence (``convlstm_recurrence_ref``); on the kernel path it
         changes nothing, as on the JAX package's Pallas path."""
         b, t, hgt, wid, _ = x_seq.shape
+        w_x, w_h, bias = self.w_x, self.w_h, self.bias
+        if self.tp_mesh is not None:
+            from vad_tpu_torch.parallel.sharding import GATE_DIMS, gather_slices
+
+            w_x, w_h, bias = gather_slices((w_x, w_h, bias), (GATE_DIMS["w_x"], GATE_DIMS["w_h"],
+                                                              GATE_DIMS["bias"]), self.tp_mesh)
         flat = _nchw(x_seq.reshape(b * t, hgt, wid, self.input_dim))
-        gates_x = _nhwc(F.conv2d(flat, self.w_x, self.bias, padding=1))
+        gates_x = _nhwc(F.conv2d(flat, w_x, bias, padding=1))
         gates_x = gates_x.reshape(b, t, hgt, wid, 4 * self.hidden_dim)
         if initial_state is None:
             h0 = torch.zeros((b, hgt, wid, self.hidden_dim), dtype=torch.float32,
@@ -94,7 +107,7 @@ class ConvLSTMLayer(nn.Module):
             c0 = torch.zeros_like(h0)
         else:
             h0, c0 = (s.float() for s in initial_state)
-        return convlstm_ops.convlstm_recurrence(gates_x, self.w_h, h0, c0, remat=self.remat)
+        return convlstm_ops.convlstm_recurrence(gates_x, w_h, h0, c0, remat=self.remat)
 
 
 class ConvLSTM(nn.Module):

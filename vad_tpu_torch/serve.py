@@ -3,8 +3,10 @@
 The flags of the JAX package's ``serve.py``, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels).  The
 REST protocol is in ``vad_tpu_torch/eval/http_server.py``; either
-package's ``ScoringClient`` drives it.  ``--data-parallel`` and
-``--spatial`` > 1 raise: their module is not ported yet.
+package's ``ScoringClient`` drives it.  ``--data-parallel`` splits the
+stream slots (and the image batch) over every card, one model replica per
+card; ``--spatial`` > 1 raises: the row split is not ported yet (ROADMAP
+Queue 1 item 10b).
 
     python -m vad_tpu_torch.serve --checkpoint results/video_S01_.../best_model.ckpt \\
         --port 8600 --slots 16 --chunk 16
@@ -44,11 +46,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the card it is on by default for a batch-norm, "
                         "pool-stem model")
     p.add_argument("--data-parallel", action="store_true",
-                   help="Shard stream slots + carried state over all visible "
-                        "devices (not ported yet: raises)")
+                   help="Split stream slots + carried state over all visible "
+                        "cards ('data'-axis mesh); each card's model replica "
+                        "serves slots/n_cards independent streams")
     p.add_argument("--spatial", type=int, default=1, metavar="N",
                    help="Also split image rows over N devices (not ported "
-                        "yet: N > 1 raises)")
+                        "yet: N > 1 raises, ROADMAP Queue 1 item 10b)")
     p.add_argument("--watch", type=str, default=None, metavar="PATH",
                    help="Auto-deploy: poll this checkpoint file or results "
                         "directory (recursive best_model.ckpt scan) and "

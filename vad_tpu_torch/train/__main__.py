@@ -4,8 +4,10 @@
 The flags of the JAX package's ``train.py``, plus ``--device`` (default
 ``cuda``).  ``--category all`` or a comma list trains every category in
 one campaign (``vad_tpu_torch/campaign.py``); ``--resume`` cannot be
-combined with one.  ``--model-parallel`` > 1 raises: its module is not
-ported yet.  ``--tensorboard`` writes epoch scalars under
+combined with one.  Under torchrun each process is one rank of a
+data-parallel run (``--model-parallel N`` duplicates each data row over N
+ranks: the image model has no gate weights to split, as in JAX).
+``--tensorboard`` writes epoch scalars under
 ``<run_dir>/tb/``, ``--profile-dir`` a ``torch.profiler`` trace of the
 second epoch, and ``--debug-nans`` runs autograd's anomaly mode and
 raises ``FloatingPointError`` on a non-finite loss.

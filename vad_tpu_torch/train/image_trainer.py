@@ -1,5 +1,8 @@
 """Image-model training loop (the JAX package's
-``vad_tpu/train/image_trainer.py``, on one card or the CPU).
+``vad_tpu/train/image_trainer.py``), on one card, the CPU, or one process
+per rank under ``torchrun`` (as the video trainer; the image model has no
+gate weights to slice, so ``--model-parallel`` is data parallelism with
+mp-fold duplicated rows, as in JAX).
 
 mse, ssim or combined loss (``--loss``), Adam(lr, wd 1e-5),
 ReduceLROnPlateau('min', factor 0.5, patience 5) on the validation loss,
@@ -23,7 +26,6 @@ and ``training_history.png``.
 from __future__ import annotations
 
 import time
-from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict
 
@@ -39,6 +41,8 @@ from vad_tpu_torch.eval.plots import plot_or_skip, plot_training_history
 from vad_tpu_torch.models.autoencoder import ConvAutoencoder
 from vad_tpu_torch.models.video_autoencoder import init_training_weights
 from vad_tpu_torch.ops.losses import make_per_sample_loss_fn
+from vad_tpu_torch.parallel.multihost import to_host
+from vad_tpu_torch.parallel.sharding import distribute, padded_batch_size
 from vad_tpu_torch.train.state import (
     ReduceLROnPlateau,
     current_learning_rate,
@@ -48,29 +52,31 @@ from vad_tpu_torch.train.state import (
 from vad_tpu_torch.train.steps import make_eval_step, make_train_step
 from vad_tpu_torch.train.video_trainer import (
     THRESHOLD_METHOD,
+    main_rank_output,
+    make_metrics,
     nan_debugging,
-    padded_batch_size,
-    refuse_unported,
+    new_results_dir,
     resume_state,
     run_epoch_train,
     run_profiled_epoch,
+    save_on_main,
+    training_mesh,
 )
-from vad_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from vad_tpu_torch.utils.checkpoint import load_checkpoint
 from vad_tpu_torch.utils.precision import tf32_off
-from vad_tpu_torch.utils.profiling import MetricsLogger
 from vad_tpu_torch.utils.weights import state_dict_to_flax
 
 
-def run_epoch_validate(eval_step, model, loader):
+def run_epoch_validate(eval_step, model, loader, mesh=None):
     """(mean loss, mean normal score, mean anomaly score, labels, scores)
-    over ``loader``'s real samples."""
+    over ``loader``'s real samples (each rank's rows gathered on a mesh)."""
     losses_sum, n_batches, all_scores, all_labels = 0.0, 0, [], []
     for batch, n_real in loader:
         losses, scores = eval_step(model, batch["image"])
-        losses_sum += float(losses[:n_real].float().mean())
+        losses_sum += float(to_host(losses.float(), mesh)[:n_real].mean())
         n_batches += 1
-        all_scores.append(scores[:n_real].float().cpu().numpy())
-        all_labels.append(np.asarray(batch["label"])[:n_real])
+        all_scores.append(to_host(scores.float(), mesh)[:n_real])
+        all_labels.append(to_host(np.asarray(batch["label"]), mesh)[:n_real])
     scores = np.concatenate(all_scores) if all_scores else np.zeros(0)
     labels = np.concatenate(all_labels) if all_labels else np.zeros(0, np.int64)
     normal, anomaly = scores[labels == 0], scores[labels == 1]
@@ -81,7 +87,6 @@ def run_epoch_validate(eval_step, model, loader):
 def train(args: Any) -> Dict[str, Any]:
     """Build the MVTec-format datasets from ``args`` and run ``fit``."""
     device = resolve_device(getattr(args, "device", None))
-    refuse_unported(args)
     print(f"\nLoading dataset: {args.category}")
     train_ds = MVTecDataset(args.data_dir, args.category, "train", args.image_size,
                             normalize=False)  # uint8 to the device
@@ -96,25 +101,27 @@ def fit(args: Any, train_ds, test_ds, device=None) -> Dict[str, Any]:
     """Train on ``train_ds`` and select on ``test_ds`` (samples: dicts with
     uint8 ``image [H,W,3]`` and ``label``); returns the model, the history
     and the run directory.  With ``--precision f32`` on the card, TF32 is
-    off for the run."""
-    device = resolve_device(device)
-    refuse_unported(args)
+    off for the run.  Under torchrun's environment this process is one
+    rank (``video_trainer``'s docstring)."""
+    mesh, device = training_mesh(args, resolve_device(device))
     f32 = (getattr(args, "precision", "f32") or "f32") == "f32"
-    with tf32_off(f32 and device.type == "cuda"), nan_debugging(args):
-        return _fit(args, train_ds, test_ds, device)
+    with tf32_off(f32 and device.type == "cuda"), nan_debugging(args), \
+            main_rank_output(mesh):
+        return _fit(args, train_ds, test_ds, device, mesh)
 
 
-def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
+def _fit(args: Any, train_ds, test_ds, device: torch.device, mesh) -> Dict[str, Any]:
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(f"Using {device.type.upper()}: {name}")
     seed = int(getattr(args, "seed", 0) or 0)
     accum_steps = max(1, int(getattr(args, "accum_steps", 1) or 1))
     train_loader = DistributedLoader(
-        train_ds, args.batch_size, pad_to=padded_batch_size(args.batch_size, accum_steps),
-        shuffle=True, num_workers=args.num_workers, seed=seed, device=device,
+        train_ds, args.batch_size, mesh=mesh,
+        pad_to=padded_batch_size(args.batch_size, mesh, accum_steps), shuffle=True,
+        num_workers=args.num_workers, seed=seed, device=device, accum_steps=accum_steps,
     )
-    test_loader = DistributedLoader(test_ds, args.batch_size, num_workers=args.num_workers,
-                                    device=device)
+    test_loader = DistributedLoader(test_ds, args.batch_size, mesh=mesh,
+                                    num_workers=args.num_workers, device=device)
 
     model = ConvAutoencoder(in_channels=3, latent_dim=args.latent_dim,
                             norm=getattr(args, "norm", "batch"),
@@ -139,7 +146,7 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     if accum_steps > 1:
         print(f"Gradient accumulation: {accum_steps} microbatches/step")
     train_step = make_train_step(per_sample_loss, compute_dtype, accum_steps,
-                                 debug_nans=bool(getattr(args, "debug_nans", False)))
+                                 debug_nans=bool(getattr(args, "debug_nans", False)), mesh=mesh)
     eval_step = make_eval_step(per_sample_loss, ConvAutoencoder.reconstruction_error)
     scheduler = ReduceLROnPlateau(mode="min", factor=0.5, patience=5)
 
@@ -155,12 +162,11 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
         print(f"Resumed from {resume_path} at epoch {start_epoch}")
         results_dir = Path(resume_path).parent
     else:
-        timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-        results_dir = Path(args.results_dir) / f"{args.category}_{timestamp}"
-        results_dir.mkdir(parents=True, exist_ok=True)
+        results_dir = new_results_dir(mesh, args.results_dir, f"{args.category}_")
+    distribute(model, mesh, optimizer)  # BatchNorm over the data group
 
     args_dict = dict(vars(args))
-    metrics = MetricsLogger(results_dir, tensorboard=bool(getattr(args, "tensorboard", False)))
+    metrics = make_metrics(mesh, results_dir, bool(getattr(args, "tensorboard", False)))
     print(f"\nStarting training for {args.epochs} epochs...")
     print("-" * 60)
     best_loss = min(history["val_loss"], default=float("inf"))
@@ -169,9 +175,9 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
         train_loss = run_profiled_epoch(args, epoch, start_epoch, lambda: run_epoch_train(
-            train_step, model, optimizer, train_loader, key="image"))
+            train_step, model, optimizer, train_loader, key="image"), main=mesh.is_main)
         val_loss, normal_err, anomaly_err, v_labels, v_scores = run_epoch_validate(
-            eval_step, model, test_loader)
+            eval_step, model, test_loader, mesh)
 
         new_lr = scheduler.step(val_loss, current_learning_rate(optimizer))
         if new_lr != current_learning_rate(optimizer):
@@ -195,23 +201,28 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
                     lr=current_learning_rate(optimizer), epoch_seconds=time.time() - t0)
 
         normal_scores = v_scores[v_labels == 0]
-        payload = {
-            "epoch": epoch, **state_dict_to_flax(model),
-            "torch_opt_state": optimizer.state_dict(), "train_loss": train_loss,
-            "val_loss": val_loss, "history": history, "args": args_dict,
-            "model_type": "image", "score_threshold": calibrate_threshold(normal_scores),
-            "score_baseline": score_baseline(normal_scores),
-            "threshold_method": THRESHOLD_METHOD,
-        }
+
+        def payload(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
+                    normal_scores=normal_scores):
+            return {
+                "epoch": epoch, **state_dict_to_flax(model),
+                "torch_opt_state": optimizer.state_dict(), "train_loss": train_loss,
+                "val_loss": val_loss, "history": history, "args": args_dict,
+                "model_type": "image", "score_threshold": calibrate_threshold(normal_scores),
+                "score_baseline": score_baseline(normal_scores),
+                "threshold_method": THRESHOLD_METHOD,
+            }
+
         if val_loss < best_loss:
             best_loss = val_loss
-            save_checkpoint(results_dir / "best_model.ckpt", payload)
+            save_on_main(results_dir / "best_model.ckpt", payload, model, optimizer, mesh)
             print(f"  → Saved best model (loss: {val_loss:.6f})", flush=True)
 
     metrics.close()
     if payload is not None:
-        save_checkpoint(results_dir / "final_model.ckpt", {**payload, "epoch": args.epochs})
-    if history["train_loss"]:
+        save_on_main(results_dir / "final_model.ckpt",
+                     lambda: {**payload(), "epoch": args.epochs}, model, optimizer, mesh)
+    if history["train_loss"] and mesh.is_main:
         plot_or_skip(plot_training_history, history, results_dir / "training_history.png")
 
     print("-" * 60)

@@ -1,10 +1,17 @@
-"""Train and eval steps (the JAX package's ``vad_tpu/train/steps.py``,
-without a mesh).
+"""Train and eval steps (the JAX package's ``vad_tpu/train/steps.py``).
 
 A train step does: u8 normalization, forward in train mode (BatchNorm on
 batch statistics), the masked mean of the per-sample losses over the
 first ``n_real`` samples, backward, and one optimizer step.  PyTorch runs
 it eagerly; on the card the ConvLSTM goes through kernels 2 and 3.
+
+On a multi-process ``mesh`` (``parallel.sharding``) each rank takes its
+own rows of the global batch (``parallel.multihost.owned_batch_positions``)
+and the step is the single-device program on the global batch: the mask
+comes from the rows' GLOBAL positions, each rank backpropagates its masked
+loss sum over the global ``n_real``, BatchNorm sums its statistics over the
+data group, and the gradients and the loss are summed over the data group
+in f32 before the optimizer step (``parallel.sharding.reduce_gradients``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,9 @@ from typing import Callable, Optional
 import torch
 from torch.func import functional_call
 
+from vad_tpu_torch.parallel.multihost import owned_batch_positions
+from vad_tpu_torch.parallel.sharding import DATA_AXIS, reduce_gradients
+
 
 def u8_normalize(x: torch.Tensor) -> torch.Tensor:
     """uint8 -> float32 in [-1, 1] (the framework's normalization contract)."""
@@ -21,7 +31,7 @@ def u8_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_train_step(per_sample_loss_fn: Callable, compute_dtype: Optional[torch.dtype] = None,
-                    accum_steps: int = 1, debug_nans: bool = False) -> Callable:
+                    accum_steps: int = 1, debug_nans: bool = False, mesh=None) -> Callable:
     """``step(model, optimizer, images_u8, n_real) -> loss`` (a detached f32
     0-d tensor on the model's device).
 
@@ -46,9 +56,16 @@ def make_train_step(per_sample_loss_fn: Callable, compute_dtype: Optional[torch.
     ``debug_nans`` (``--debug-nans``) reads each step's loss before the
     optimizer step and raises ``FloatingPointError`` when it is not finite,
     so the weights keep their last finite values (a sync a step).
+
+    ``mesh``: a multi-process mesh whose ranks each pass their own rows
+    (``images_u8``) and the global ``n_real``; the model must be
+    ``parallel.sharding.distribute``d on it.  With ``accum_steps`` > 1 the
+    rows are this rank's slice of each microbatch in turn, so microbatch k
+    is the global batch's rows ``[k*B/a, (k+1)*B/a)``, as in JAX.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    distributed = mesh is not None and mesh.distributed
 
     def forward(model, x):
         if compute_dtype is None:
@@ -63,7 +80,12 @@ def make_train_step(per_sample_loss_fn: Callable, compute_dtype: Optional[torch.
             raise ValueError(f"batch size {batch} not divisible by accum_steps {accum_steps}")
         micro = batch // accum_steps
         denom = float(max(int(n_real), 1))
-        mask = torch.arange(batch, device=images_u8.device) < int(n_real)
+        if distributed:
+            positions = owned_batch_positions(mesh, batch * mesh.shape[DATA_AXIS],
+                                              accum_steps=accum_steps)
+            mask = torch.as_tensor(positions < int(n_real), device=images_u8.device)
+        else:
+            mask = torch.arange(batch, device=images_u8.device) < int(n_real)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), dtype=torch.float32, device=images_u8.device)
@@ -73,6 +95,8 @@ def make_train_step(per_sample_loss_fn: Callable, compute_dtype: Optional[torch.
             micro_sum = torch.sum(torch.where(mask[k * micro:(k + 1) * micro], losses, 0.0))
             (micro_sum / denom).backward()
             loss_sum += micro_sum.detach()
+        if distributed:
+            loss_sum = reduce_gradients(model, loss_sum, mesh)
         if debug_nans and not bool(torch.isfinite(loss_sum)):
             raise FloatingPointError(
                 f"invalid value ({float(loss_sum / denom)}) in the train step's loss")
@@ -88,7 +112,10 @@ def make_eval_step(per_sample_loss_fn: Callable, score_method: Callable) -> Call
     Runs in eval mode (BatchNorm on running statistics) under
     ``torch.no_grad()``, so on the card the recurrence is kernel 1, and
     restores the model's mode after.  ``score_method(model, x)`` computes
-    the anomaly scores (e.g. per-frame reconstruction error)."""
+    the anomaly scores (e.g. per-frame reconstruction error).  On a mesh
+    each rank scores its own rows (a tensor-parallel model gathers its gate
+    weights, so every rank calls it in step); ``multihost.to_host`` gives
+    the global view."""
 
     @torch.no_grad()
     def step(model: torch.nn.Module, images_u8: torch.Tensor):

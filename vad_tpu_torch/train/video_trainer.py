@@ -1,5 +1,6 @@
 """Video-model training loop (the JAX package's
-``vad_tpu/train/video_trainer.py``, on one card or the CPU).
+``vad_tpu/train/video_trainer.py``), on one card, the CPU, or one process
+per rank under ``torchrun``.
 
 MSE loss by default (``--loss``, ``--objective predict``), Adam(lr, wd
 1e-5), ReduceLROnPlateau('max') on the separation ratio (mean anomaly
@@ -22,11 +23,22 @@ moments.  The port resuming a JAX checkpoint continues JAX's Adam
 ``train(args)`` builds the datasets from ``--data-dir``; ``fit(args,
 train_ds, test_ds, device)`` is everything after, over any indexable
 datasets of the same sample dicts.
+
+Scaling (``parallel/``): launched with torchrun's environment (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ...) every process is a rank of a
+``('data', 'model')`` mesh; ``--model-parallel N`` splits off the 'model'
+axis, over which the ConvLSTM gate weights and their Adam moments are
+sliced.  Each rank loads only its rows (``DistributedLoader``), the step
+is the single-device program on the global batch, the epoch's metrics
+come from ``to_host`` views (so every rank takes the same early-stopping
+and best-epoch decisions), and only rank 0 writes checkpoints (the full
+weights and moments, gathered), logs and TensorBoard.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from datetime import datetime
 from pathlib import Path
@@ -43,6 +55,17 @@ from vad_tpu_torch.eval.metrics import calibrate_threshold
 from vad_tpu_torch.eval.plots import plot_or_skip, plot_training_history
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_training_weights
 from vad_tpu_torch.ops.losses import make_per_sample_loss_fn
+from vad_tpu_torch.parallel.multihost import to_host
+from vad_tpu_torch.parallel.sharding import (
+    MODEL_AXIS,
+    barrier,
+    broadcast_object,
+    distribute,
+    gathered,
+    get_mesh,
+    init_distributed,
+    padded_batch_size,
+)
 from vad_tpu_torch.train.state import (
     ReduceLROnPlateau,
     current_learning_rate,
@@ -63,25 +86,64 @@ from vad_tpu_torch.utils.weights import load_flax_variables, state_dict_to_flax
 THRESHOLD_METHOD = "p99 of validation normal scores"
 PATIENCE = 5
 
-# Options of the JAX trainer whose modules the port does not have yet: (attribute,
-# whether the value asks for it, flag, ROADMAP item).
-_NOT_PORTED = (
-    ("model_parallel", lambda v: int(v or 1) > 1, "--model-parallel > 1",
-     "Queue 1 item 10 (scaling)"),
-)
+def training_mesh(args: Any, device: torch.device):
+    """(mesh, this rank's device): the process group torchrun's environment
+    describes, split by ``--model-parallel``; without one a one-device
+    mesh, which has no 'model' axis to split (``--model-parallel 2``
+    raises, as JAX's ``get_mesh`` does on one device)."""
+    mp = int(getattr(args, "model_parallel", 1) or 1)
+    rank_device = init_distributed(device)
+    if rank_device is None:
+        return get_mesh([device], model_parallel=mp), device
+    mesh = get_mesh(model_parallel=mp)
+    if mp > 1:
+        print(f"Mesh: {mesh.shape} (tensor parallelism over '{MODEL_AXIS}')")
+    return mesh, rank_device
 
 
-def refuse_unported(args: Any) -> None:
-    """Raise for an option whose module the port does not have yet."""
-    for attr, asked, flag, item in _NOT_PORTED:
-        if asked(getattr(args, attr, None)):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+@contextlib.contextmanager
+def main_rank_output(mesh):
+    """Standard output as it is on rank 0; other ranks print nothing."""
+    if mesh.is_main:
+        yield
+        return
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        yield
 
 
-def padded_batch_size(batch_size: int, accum_steps: int = 1) -> int:
-    """Smallest multiple of ``accum_steps`` >= batch_size."""
-    n = max(1, accum_steps)
-    return ((batch_size + n - 1) // n) * n
+class _NoMetrics:
+    """What a rank other than 0 logs: nothing."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def make_metrics(mesh, results_dir: Path, tensorboard: bool):
+    return MetricsLogger(results_dir, tensorboard=tensorboard) if mesh.is_main else _NoMetrics()
+
+
+def new_results_dir(mesh, results_root: str, prefix: str) -> Path:
+    """``<results_root>/<prefix><timestamp>``, named and made by rank 0 and
+    the same on every rank."""
+    results_dir = None
+    if mesh.is_main:
+        timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        results_dir = Path(results_root) / f"{prefix}{timestamp}"
+        results_dir.mkdir(parents=True, exist_ok=True)
+    return Path(broadcast_object(results_dir, mesh))
+
+
+def save_on_main(path: Path, make_payload, model, optimizer, mesh) -> None:
+    """Rank 0 writes ``make_payload()``, built with the full weights and
+    Adam moments (under tensor parallelism every rank takes part in
+    gathering them); then every rank waits for the file."""
+    with gathered(model, optimizer, mesh):
+        if mesh.is_main:
+            save_checkpoint(path, make_payload())
+    barrier(mesh)
 
 
 def nan_debugging(args: Any):
@@ -92,11 +154,11 @@ def nan_debugging(args: Any):
     return contextlib.nullcontext()
 
 
-def run_profiled_epoch(args: Any, epoch: int, start_epoch: int, run):
+def run_profiled_epoch(args: Any, epoch: int, start_epoch: int, run, main: bool = True):
     """``run()`` (one epoch's training), traced into ``--profile-dir`` on
     the second epoch of the run, as the JAX trainers trace the first epoch
-    after compilation."""
-    profile_dir = getattr(args, "profile_dir", None)
+    after compilation (on rank 0 only)."""
+    profile_dir = getattr(args, "profile_dir", None) if main else None
     if not (profile_dir and epoch == start_epoch + 1):
         return run()
     with trace(profile_dir):
@@ -154,7 +216,6 @@ def resume_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 def train(args: Any) -> Dict[str, Any]:
     """Build the IPAD datasets from ``args`` and run ``fit``."""
     device = resolve_device(getattr(args, "device", None))
-    refuse_unported(args)
     print(f"\nLoading video dataset: {args.category}")
     dataset_class = detect_video_dataset_class(args.data_dir, args.category)
     print(f"Using dataset loader: {dataset_class.__name__}")
@@ -171,15 +232,16 @@ def fit(args: Any, train_ds, test_ds, device=None) -> Dict[str, Any]:
     """Train on ``train_ds`` and select on ``test_ds`` (samples: dicts with
     uint8 ``frames [T,H,W,3]`` and ``label``); returns the model, the
     history, the run directory and the best separation and epoch.  With
-    ``--precision f32`` on the card, TF32 is off for the run."""
-    device = resolve_device(device)
-    refuse_unported(args)
+    ``--precision f32`` on the card, TF32 is off for the run.  Under
+    torchrun's environment this process is one rank (module docstring)."""
+    mesh, device = training_mesh(args, resolve_device(device))
     f32 = (getattr(args, "precision", "f32") or "f32") == "f32"
-    with tf32_off(f32 and device.type == "cuda"), nan_debugging(args):
-        return _fit(args, train_ds, test_ds, device)
+    with tf32_off(f32 and device.type == "cuda"), nan_debugging(args), \
+            main_rank_output(mesh):
+        return _fit(args, train_ds, test_ds, device, mesh)
 
 
-def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
+def _fit(args: Any, train_ds, test_ds, device: torch.device, mesh) -> Dict[str, Any]:
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(f"Using {device.type.upper()}: {name}")
     seed = int(getattr(args, "seed", 0) or 0)
@@ -187,11 +249,12 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     # train through the padded tail batch, cycled (see DistributedLoader);
     # the shuffle follows --seed
     train_loader = DistributedLoader(
-        train_ds, args.batch_size, pad_to=padded_batch_size(args.batch_size, accum_steps),
-        shuffle=True, num_workers=args.num_workers, seed=seed, device=device,
+        train_ds, args.batch_size, mesh=mesh,
+        pad_to=padded_batch_size(args.batch_size, mesh, accum_steps), shuffle=True,
+        num_workers=args.num_workers, seed=seed, device=device, accum_steps=accum_steps,
     )
-    test_loader = DistributedLoader(test_ds, args.batch_size, num_workers=args.num_workers,
-                                    device=device)
+    test_loader = DistributedLoader(test_ds, args.batch_size, mesh=mesh,
+                                    num_workers=args.num_workers, device=device)
 
     model = VideoAutoencoder(
         in_channels=3, latent_dim=args.latent_dim, lstm_hidden_dim=args.lstm_hidden_dim,
@@ -224,7 +287,7 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     if accum_steps > 1:
         print(f"Gradient accumulation: {accum_steps} microbatches/step")
     train_step = make_train_step(per_sample_loss, compute_dtype, accum_steps,
-                                 debug_nans=bool(getattr(args, "debug_nans", False)))
+                                 debug_nans=bool(getattr(args, "debug_nans", False)), mesh=mesh)
     # frame scores on the device; the sequence score is their mean (the
     # frame granularity is what serving flags against)
     eval_step = make_eval_step(per_sample_loss,
@@ -252,12 +315,13 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
         print(f"Resumed from {resume_path} at epoch {start_epoch} "
               f"(best separation so far: {best_separation:.2f}x)")
     else:
-        timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-        results_dir = Path(args.results_dir) / f"video_{args.category}_{timestamp}"
-        results_dir.mkdir(parents=True, exist_ok=True)
+        results_dir = new_results_dir(mesh, args.results_dir, f"video_{args.category}_")
+    # the gate weights and their moments to this rank's slices (tensor
+    # parallelism), BatchNorm over the data group
+    distribute(model, mesh, optimizer)
 
     args_dict = dict(vars(args))
-    metrics = MetricsLogger(results_dir, tensorboard=bool(getattr(args, "tensorboard", False)))
+    metrics = make_metrics(mesh, results_dir, bool(getattr(args, "tensorboard", False)))
     history = history or {"train_loss": [], "val_loss": [], "normal_err": [],
                           "anomaly_err": [], "separation": []}
     print(f"\nStarting training for {args.epochs} epochs...")
@@ -277,18 +341,18 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
         train_loss = run_profiled_epoch(args, epoch, start_epoch, lambda: run_epoch_train(
-            train_step, model, optimizer, train_loader))
+            train_step, model, optimizer, train_loader), main=mesh.is_main)
 
         loss_sum, n_eval = 0.0, 0
         normal_err, anomaly_err, normal_frame_scores = [], [], []
         for batch, n_real in test_loader:
             losses, frame_scores = eval_step(model, batch["frames"])
-            losses = losses.float().cpu().numpy()[:n_real]
-            frame_scores = frame_scores.float().cpu().numpy()[:n_real]  # [B, T']
+            losses = to_host(losses.float(), mesh)[:n_real]
+            frame_scores = to_host(frame_scores.float(), mesh)[:n_real]  # [B, T']
             scores = frame_scores.mean(axis=1)
             loss_sum += float(losses.mean())
             n_eval += 1
-            labels = batch["label"][:n_real]
+            labels = to_host(np.asarray(batch["label"]), mesh)[:n_real]
             normal_err.extend(scores[labels == 0].tolist())
             anomaly_err.extend(scores[labels == 1].tolist())
             # every frame of a NORMAL window is normal
@@ -324,16 +388,17 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
 
         if separation > best_separation:
             best_separation, best_epoch, no_improve = separation, epoch, 0
-            save_checkpoint(results_dir / "best_model.ckpt", payload(
+            save_on_main(results_dir / "best_model.ckpt", lambda: payload(
                 epoch, torch_opt_state=optimizer.state_dict(), train_loss=train_loss,
                 val_loss=val_loss, separation=separation, normal_err=nmean,
-                anomaly_err=amean))
+                anomaly_err=amean), model, optimizer, mesh)
             print(f"  -> Saved best model (separation: {separation:.2f}x)", flush=True)
         else:
             no_improve += 1
-        save_checkpoint(results_dir / f"checkpoint_epoch_{epoch}.ckpt",
-                        payload(epoch, separation=separation))
-        rotate_epoch_checkpoints(results_dir, int(getattr(args, "keep_checkpoints", 0) or 0))
+        save_on_main(results_dir / f"checkpoint_epoch_{epoch}.ckpt",
+                     lambda: payload(epoch, separation=separation), model, optimizer, mesh)
+        if mesh.is_main:
+            rotate_epoch_checkpoints(results_dir, int(getattr(args, "keep_checkpoints", 0) or 0))
 
         if no_improve >= PATIENCE and separation < 1.0:
             print(f"\n*** Early stopping: Separation below 1.0 for {PATIENCE} epochs ***")
@@ -350,16 +415,16 @@ def _fit(args: Any, train_ds, test_ds, device: torch.device) -> Dict[str, Any]:
     if best_epoch == 0:
         # no epoch improved separation: still leave a usable best checkpoint
         last = lambda k: history[k][-1] if history[k] else 0.0  # noqa: E731
-        save_checkpoint(results_dir / "best_model.ckpt", payload(
+        save_on_main(results_dir / "best_model.ckpt", lambda: payload(
             epoch, torch_opt_state=optimizer.state_dict(), train_loss=last("train_loss"),
-            val_loss=last("val_loss"), separation=last("separation")))
+            val_loss=last("val_loss"), separation=last("separation")), model, optimizer, mesh)
         print("  (no separation improvement seen; saved final weights as best_model)")
-    save_checkpoint(results_dir / "final_model.ckpt", payload(
+    save_on_main(results_dir / "final_model.ckpt", lambda: payload(
         args.epochs, torch_opt_state=optimizer.state_dict(), history=history,
-        best_epoch=best_epoch, best_separation=best_separation))
+        best_epoch=best_epoch, best_separation=best_separation), model, optimizer, mesh)
 
     metrics.close()
-    if history["train_loss"]:
+    if history["train_loss"] and mesh.is_main:
         plot_or_skip(plot_training_history, history, results_dir / "training_history.png")
 
     print("-" * 60)

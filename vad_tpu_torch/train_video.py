@@ -2,7 +2,10 @@
 
 The flags of the JAX package's ``train_video.py``, plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch versions of the
-kernels).  ``--model-parallel`` > 1 raises: its module is not ported yet.
+kernels).  Under torchrun (or its environment: ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) each process is one rank
+of a data-parallel run, and ``--model-parallel N`` splits the ConvLSTM
+gate weights over N ranks (``vad_tpu_torch/parallel/``).
 ``--tensorboard`` writes epoch scalars under ``<run_dir>/tb/``,
 ``--profile-dir`` a ``torch.profiler`` trace of the second epoch, and
 ``--debug-nans`` runs autograd's anomaly mode and raises
@@ -10,6 +13,8 @@ kernels).  ``--model-parallel`` > 1 raises: its module is not ported yet.
 
 Usage:
     python -m vad_tpu_torch.train_video --category S01 --data-dir ./data/IPAD --epochs 20
+    torchrun --nproc-per-node 4 -m vad_tpu_torch.train_video --category S01 \
+        --model-parallel 2
 """
 
 import argparse
