@@ -63,14 +63,21 @@ model's full width:
   against one process on the global batch (and, where cuDNN's algorithms
   part the two f32 steps, against a float64 step) by the judge
   ``multiprocess_check`` applies; ``python -m
-  vad_tpu_torch.parallel.multiprocess_check --device cuda`` in its
-  tensor-parallel form (the video model's gate weights split over the
-  two processes; its image-model data-parallel form is ROADMAP Queue 3
-  (e) on the card); two ``MultiStreamScorer`` replicas on the card
+  vad_tpu_torch.parallel.multiprocess_check --device cuda`` in both forms
+  (the image model data-parallel, the video model's gate weights split
+  over the two processes; each run held against a float64 step through
+  its own ReLU and max-pool kinks); two ``MultiStreamScorer`` replicas on the card
   (kernels 1 and 4 in each) against the unsplit scorer; ``python -m
   vad_tpu_torch.train_video`` under torchrun's environment at
   WORLD_SIZE=1 (NCCL) beside the plain run.  One card: overhead and
   correctness, not scaling numbers;
+- the spatial row split (``--spatial N``), every row shard on the one
+  card: kernel 1's row form (halo rows read in place, and staged through
+  copies behind events) against its plain version and the unsplit kernel
+  1 at 2 and 16 shards, bf16 and f32; ``MultiStreamScorer(spatial=True)``
+  at 256² and 512² (``model_parallel`` 2 and 4) and the ``--spatial 2``
+  daemon (/v1/streams, /v1/images) against the unsplit scorer and
+  service, with kernel 1's row launches counted and none of kernel 4;
 - the kernel probes: kernel 5 (the tie-splitting 2x2 max-pool backward)
   held exactly against its plain version at the encoder's four pool
   inputs, kernel 6's five ablation modes against theirs (``full`` equal
@@ -3103,15 +3110,14 @@ def phase_scaling(card: str, video_data: Path, workdir: Path) -> dict:
       steps) are left out, with the running means they shift; both
       ranks' weights and running statistics are equal bit for bit after
       every step.
-    - ``python -m vad_tpu_torch.parallel.multiprocess_check --device cuda
-      --model-parallel 2``, the video model's gate weights split over the
-      two processes (its own checks: losses against the 1-process
-      control, rank 0's checkpoint reloaded by both ranks, the
-      checkpoints after the first and the last step against the
-      control's by ``judge_training``).  Its data-parallel form trains
-      the image model, whose f32 step on the card parts from float64 at
-      its ReLU kinks by more than the control does (ROADMAP Queue 3 (e),
-      ``python -m vad_tpu_torch.tools.probe_kinks``).
+    - ``python -m vad_tpu_torch.parallel.multiprocess_check --device cuda``
+      in both forms: the image model data-parallel over the two processes
+      and (``--model-parallel 2``) the video model's gate weights split
+      over them (its own checks: losses against the 1-process control,
+      rank 0's checkpoint reloaded by both ranks, the checkpoints after
+      the first and the last step against the control's by
+      ``judge_training``, each run's gradients against a float64 step
+      through the kinks its own first step took).
     - ``MultiStreamScorer`` with two replicas on ``cuda:0`` (S=16, T=16,
       bf16, 8 slots each, kernels 1 and 4 in each) against the unsplit
       scorer: scores and every layer's (h, c) at the bf16 bar.
@@ -3167,7 +3173,7 @@ def phase_scaling(card: str, video_data: Path, workdir: Path) -> dict:
           "left_out": sorted(skip)})
 
     checks = {}
-    for mp in (2,):  # the image model's dp form is ROADMAP Queue 3 (e) on the card
+    for mp in (1, 2):  # the image model data-parallel, the video model's gates split
         start = time.perf_counter()
         log = io.StringIO()
         try:  # the record is printed either way; the failure is required below
@@ -3264,6 +3270,267 @@ def phase_scaling(card: str, video_data: Path, workdir: Path) -> dict:
     return {"launches": launches, "scorer_launches": counts["split"]}
 
 
+# ------------------------------------------------------- spatial row split
+
+# Kernel 1's row form at (B, T, latent rows = columns, C, shards): the
+# serving shape split in 2 and in 16 (one latent row a shard), and a 32x32
+# latent (512x512 frames) split in 2.  The scorer check: S streams, each
+# size's frames, 3 chunks of carried state; JAX's bars for its split
+# against its unsplit scorer (tests/test_serving.py:300-330).
+SPATIAL_KERNEL_SHAPES = ((16, 16, 16, 128, 2), (16, 16, 16, 128, 16), (16, 16, 32, 128, 2))
+SPATIAL_S, SPATIAL_CHUNKS, SPATIAL_SIZES, SPATIAL_TIMED = 4, 3, (256, 512), 3
+SPLIT_SCORES, SPLIT_MAPS = dict(rtol=2e-5, atol=1e-7), dict(rtol=2e-4, atol=1e-6)
+
+
+def check_rows_kernel(shape, label: str, peak_flops: float, peak_bw: float,
+                      f32_flops: float) -> dict:
+    """Kernel 1's row form at ``shape`` against its plain version and the
+    concatenated result against the unsplit kernel 1; the staged form (a
+    stream a shard: every neighbour row copied behind an event) must equal
+    the in-place form bit for bit.  Times the call and bounds it."""
+    import dataclasses
+
+    import torch
+
+    from vad_tpu_torch.ops import convlstm as cl
+
+    b, t, lat, c, n = shape
+    dtype = torch.bfloat16 if label == "bf16" else torch.float32
+    bar = BF16_BAR if label == "bf16" else F32_BAR
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    gx = (torch.randn((b, t, lat, lat, 4 * c), generator=g, device="cuda") * 0.5).to(dtype)
+    wh = (torch.randn((3, 3, c, 4 * c), generator=g, device="cuda") * 0.05).to(dtype)
+    h0 = torch.randn((b, lat, lat, c), generator=g, device="cuda") * 0.1
+    c0 = torch.randn((b, lat, lat, c), generator=g, device="cuda") * 0.1
+    rows = lat // n
+    args = ([x.contiguous() for x in gx.split(rows, 2)], wh,
+            [x.contiguous() for x in h0.split(rows, 1)], [x.contiguous() for x in c0.split(rows, 1)])
+
+    def joined(seqs, finals):
+        return (torch.cat(seqs, 2), torch.cat([f[0] for f in finals], 1),
+                torch.cat([f[1] for f in finals], 1))
+
+    with no_tf32():
+        cl.convlstm_recurrence.launches = 0
+        got = joined(*cl.convlstm_recurrence_rows(*args))
+        per_call = cl.convlstm_recurrence.launches
+        staged = joined(*cl.convlstm_recurrence_rows(*args, staged=True))
+        plain = joined(*cl.convlstm_recurrence_rows_ref(*args))
+        whole_seq, whole_final = cl.convlstm_recurrence(gx, wh, h0, c0)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: cl.convlstm_recurrence_rows(*args))
+        plain_ms = time_ms(lambda: cl.convlstm_recurrence_rows_ref(*args), iters=3, warmup=1)
+    vs_plain = [close(a, r, bar) for a, r in zip(got, plain)]
+    vs_whole = [close(a, r, bar) for a, r in zip(got, (whole_seq, *whole_final))]
+    plan = cl.recurrence_plan("convlstm_serving", b, t, lat, lat, c, dtype, shards=n)
+    hw, e = lat * lat, gx.element_size()
+    flops = 2 * b * t * hw * 9 * c * 4 * c
+    nbytes = (b * t * hw * 4 * c * e + b * t * hw * c * e  # gates_x in, h_seq out
+              + 4 * b * hw * c * 4 + 9 * c * 4 * c * e)  # h0, c0, h_T, c_T, Wh
+    t_ops = flops / (peak_flops if label == "bf16" else f32_flops)
+    rec = {"shape": list(shape[:3]) + [lat, c], "shards": n, "dtype": label,
+           "launches_per_call": per_call, "plan": dataclasses.asdict(plan),
+           "max_abs_err": max(x[0] for x in vs_plain),
+           "max_abs_err_vs_unsplit": max(x[0] for x in vs_whole),
+           "staged_equal": all(torch.equal(a, s) for a, s in zip(got, staged)),
+           "bar": bar, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, nbytes / peak_bw) * 1e3,
+           "bound_by": "operations" if t_ops > nbytes / peak_bw else "bytes",
+           "tflops": flops / ms / 1e9}
+    rec["ok"] = (all(x[1] for x in vs_plain + vs_whole) and rec["staged_equal"]
+                 and per_call == plan.launches == t * n)
+    return rec
+
+
+def video_scorer(ckpt: dict, size: int, dtype, slots: int, mesh=None, return_maps=True):
+    """A scorer of the checkpoint's variables at ``size``, every slot
+    attached, ``fused_input`` off (JAX's default; the split has no kernel
+    4), split over ``mesh``'s rows when one is given."""
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.eval.serving import MultiStreamScorer
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
+
+    sc = MultiStreamScorer(VideoAutoencoder.from_config(VideoAEConfig.from_args(ckpt["args"]),
+                                                        device="cpu"),
+                           {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]},
+                           slots, T, size, return_maps=return_maps, dtype=dtype,
+                           fused_input=False,
+                           device="cuda", mesh=mesh, spatial=mesh is not None)
+    for slot in range(slots):
+        sc.attach(slot)
+    return sc
+
+
+def check_spatial_scorer(ckpt: dict, size: int, label: str, model_parallel: int,
+                         timed: bool) -> dict:
+    """The split scorer against the unsplit one over ``SPATIAL_CHUNKS``
+    chunks of carried state: scores and maps each chunk, every layer's
+    (h, c) after; f32 (TF32 off) at JAX's split bars and the f32 bar for
+    (h, c), bf16 at the bf16 bar with rel L2.  The split path's launches
+    are counted (kernel 1's row form: T launches a shard a layer a chunk;
+    kernel 4 none)."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.parallel.sharding import get_mesh
+
+    dtype = torch.bfloat16 if label == "bf16" else torch.float32
+    split = video_scorer(ckpt, size, dtype, SPATIAL_S,
+                         get_mesh(["cuda:0"] * 4, model_parallel=model_parallel))
+    whole = video_scorer(ckpt, size, dtype, SPATIAL_S)
+    require(split.spatial and not split.fused_input, "the split scorer runs without kernel 4")
+    rng = np.random.default_rng(SEED + 30 + size)
+    chunks = [torch.from_numpy(rng.integers(0, 256, (SPATIAL_S, T, size, size, 3),
+                                            dtype=np.uint8)).cuda()
+              for _ in range(SPATIAL_CHUNKS)]
+    if label == "f32":
+        bars = {"scores": SPLIT_SCORES, "maps": SPLIT_MAPS, "state": F32_BAR}
+        judge = lambda got, ref, bar: dict(zip(("max_abs_err", "ok"), close(  # noqa: E731
+            torch.as_tensor(got), torch.as_tensor(ref), bar)))
+    else:
+        bars = {"scores": BF16_BAR, "maps": BF16_BAR, "state": BF16_BAR}
+        judge = lambda got, ref, bar: agree(got, ref, bar)  # noqa: E731
+    cmp = {"scores": [], "maps": []}
+    with no_tf32() if label == "f32" else contextlib.nullcontext():
+        zero_counters()
+        outs = [split.score_chunk(ch) for ch in chunks]
+        torch.cuda.synchronize()
+        launches = read_counters()
+        for ch, (got, got_maps) in zip(chunks, outs):
+            want, want_maps = whole.score_chunk(ch)
+            cmp["scores"].append(judge(got, want, bars["scores"]))
+            cmp["maps"].append(judge(got_maps, want_maps, bars["maps"]))
+        cmp["states"] = [{"h": judge(h.cpu(), wh.cpu(), bars["state"]),
+                          "c": judge(c.cpu(), wc.cpu(), bars["state"])}
+                         for (h, c), (wh, wc) in zip(split.states, whole.states)]
+        fps = {}
+        if timed:
+            for name, sc in (("split", split), ("unsplit", whole)):
+                sc.score_chunk(chunks[0])
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                for i in range(SPATIAL_TIMED):
+                    sc.score_chunk(chunks[i % SPATIAL_CHUNKS])
+                fps[name] = SPATIAL_TIMED * SPATIAL_S * T / (time.perf_counter() - start)
+    shards = 4  # every cell of the 4-device grid runs its rows
+    layers = len(split.model.convlstm.layers)
+    expect = SPATIAL_CHUNKS * T * shards * layers
+    ok = (all(r["ok"] for r in cmp["scores"] + cmp["maps"])
+          and all(s["h"]["ok"] and s["c"]["ok"] for s in cmp["states"])
+          and launches["convlstm_serving"] == expect and launches["first_block"] == 0)
+    return {"size": size, "dtype": label, "model_parallel": model_parallel,
+            "mesh": split.mesh.shape, "bars": bars, "compare": cmp, "launches": launches,
+            "expected_launches": expect, "frames_per_s": fps, "ok": ok}
+
+
+def phase_spatial(card: str, image: dict, workdir: Path, peak_flops: float, peak_bw: float,
+                  f32_flops: float) -> dict:
+    """The spatial row split (``parallel/spatial.py``, ``--spatial N``) on
+    the one card, every row shard on ``cuda:0``: the halo code and kernel
+    1's halo reads run for real; scaling across cards is not measured.
+
+    - Kernel 1's row form (``SPATIAL_KERNEL_SHAPES``, bf16 and f32 with
+      TF32 off) against its plain version and, joined, against the unsplit
+      kernel 1, at the bar of its type; its staged form equal bit for bit.
+    - ``MultiStreamScorer(spatial=True)`` on ``get_mesh(["cuda:0"] * 4,
+      model_parallel=2)`` against the unsplit scorer from one ``.ckpt`` of
+      the default model (S=4, T=16, 3 chunks of carried state) at 256² and
+      512², bf16 and f32; ``model_parallel=4`` at 256² (4 latent rows a
+      shard).  Kernel 1's launches counted, kernel 4's none; frames/s split
+      and unsplit (bf16).
+    - ``serve_from_checkpoint(..., spatial_parallel=2, devices=["cuda:0"] *
+      2)`` with the image checkpoint beside: /v1/streams chunks against the
+      unsplit scorer, a /v1/images batch against the unsplit service."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.eval import http_server
+    from vad_tpu_torch.eval.client import ScoringClient
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+    from vad_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from vad_tpu_torch.utils.weights import state_dict_to_flax
+
+    phase_start = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    kernel = [check_rows_kernel(shape, label, peak_flops, peak_bw, f32_flops)
+              for shape in SPATIAL_KERNEL_SHAPES for label in ("bf16", "f32")]
+    for rec in kernel:
+        emit({"phase": "spatial_kernel", "card": card, **rec})
+    require(all(r["ok"] for r in kernel),
+            f"kernel 1's row form vs its plain version, the unsplit kernel and its staged "
+            f"form: {[(r['shards'], r['dtype'], r['max_abs_err']) for r in kernel if not r['ok']]}")
+
+    cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
+    model = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED + 5)
+    ckpt_path = workdir / "video.ckpt"
+    save_checkpoint(ckpt_path, {"model_type": "video", **state_dict_to_flax(model),
+                                "args": dataclasses.asdict(cfg)})
+    ckpt = load_checkpoint(ckpt_path)
+    scorers = [check_spatial_scorer(ckpt, size, label, 2, timed=label == "bf16")
+               for size in SPATIAL_SIZES for label in ("bf16", "f32")]
+    scorers.append(check_spatial_scorer(ckpt, IMAGE, "bf16", 4, timed=False))
+    for rec in scorers:
+        emit({"phase": "spatial_scorer", "card": card, **rec})
+    require(all(r["ok"] for r in scorers),
+            "split scorers against the unsplit one, with kernel 1's row launches: "
+            f"{[(r['size'], r['dtype'], r['model_parallel'], r['launches']) for r in scorers if not r['ok']]}")
+
+    # the daemon: --spatial 2 on two grid cells of the one card
+    with contextlib.redirect_stdout(io.StringIO()):
+        srv = http_server.serve_from_checkpoint(
+            str(ckpt_path), host="127.0.0.1", port=0, num_slots=2, chunk=T,
+            spatial_parallel=2, devices=["cuda:0"] * 2, image_checkpoint=str(image["ckpt"]),
+            device="cuda")
+        direct = video_scorer(ckpt, IMAGE, torch.bfloat16, 2, return_maps=False)
+        iservice = http_server._image_service_from_ckpt(
+            load_checkpoint(image["ckpt"]), image["ckpt"], 4, "bfloat16", device="cuda")
+    srv.start_background()
+    rng = np.random.default_rng(SEED + 40)
+    chunks = rng.integers(0, 256, (SPATIAL_CHUNKS, T, IMAGE, IMAGE, 3), dtype=np.uint8)
+    images = image["test_images"][:8]
+    try:
+        scorer = srv.services["video"].scorer
+        require(scorer.spatial and not scorer.fused_input and srv.services["image"].spatial,
+                "the --spatial 2 daemon's scorer and image service run the row split")
+        client = ScoringClient("127.0.0.1", srv.port)
+        slot = client.attach()
+        zero_counters()
+        served = [client.score_chunk(slot, ch)["scores"] for ch in chunks]
+        served_images = client.score_images(images)["scores"]
+        torch.cuda.synchronize()
+        launches = read_counters()
+    finally:
+        srv.close()
+    want = [direct.score_streams({slot: list(ch)})[slot] for ch in chunks]
+    daemon = {"streams": agree(np.stack(served), np.stack(want)),
+              "images": agree(np.asarray(served_images), iservice.score_images(images)),
+              "launches": launches, "chunks": SPATIAL_CHUNKS}
+    per_tick = T * 2 * len(direct.model.convlstm.layers)
+    daemon["ok"] = (daemon["streams"]["ok"] and daemon["images"]["ok"]
+                    and launches["convlstm_serving"] == SPATIAL_CHUNKS * per_tick
+                    and launches["first_block"] == 0)
+    emit({"phase": "spatial_daemon", "card": card, **daemon})
+    require(daemon["ok"], f"the --spatial 2 daemon against the unsplit scorer and service: "
+                          f"{daemon}")
+    fps = {f"{r['size']}": r["frames_per_s"] for r in scorers if r["frames_per_s"]}
+    emit({"phase": "spatial", "card": card,
+          "note": "every row shard on one card: the split's cost, not scaling",
+          "kernel_ms": {f"{r['shards']}x{r['shape'][2]}-{r['dtype']}": r["ms"] for r in kernel},
+          "kernel_bound_ms": {f"{r['shards']}x{r['shape'][2]}-{r['dtype']}": r["bound_ms"]
+                              for r in kernel},
+          "scorer_frames_per_s": fps, "scorers_ok": all(r["ok"] for r in scorers),
+          "daemon_ok": daemon["ok"], "seconds": time.perf_counter() - phase_start})
+    row = next(r for r in kernel if r["shards"] == 2 and r["shape"][3] == 16
+               and r["dtype"] == "bf16")
+    return {"launches": sum(r["launches"]["convlstm_serving"] for r in scorers)
+            + launches["convlstm_serving"], "kernel": row,
+            "first_block_launches": sum(r["launches"]["first_block"] for r in scorers)
+            + launches["first_block"]}
+
+
 def free_port() -> int:
     import socket
 
@@ -3308,6 +3575,7 @@ def main() -> int:
         ui = phase_ui(card, best_ckpt, image, profiling["data"], work / "ui")
         accuracy = phase_accuracy(card, work / "accuracy")
         scaling = phase_scaling(card, profiling["data"], work / "scaling")
+        spatial = phase_spatial(card, image, work / "spatial", peak_flops, peak_bw, f32_flops)
     probes = phase_probes()
     checks.update(probes)
     kernels = []
@@ -3343,6 +3611,15 @@ def main() -> int:
             kernels[-1]["serve_launches"] = serve["launches"][kname]
         if kname == "convlstm_serving":
             kernels[-1]["f32"] = rec["f32"]
+            # the spatial row split: the split scorers' and the --spatial 2
+            # daemon's launches, and the row form (2 shards, bf16) timed
+            row = spatial["kernel"]
+            kernels[-1]["spatial_launches"] = spatial["launches"]
+            kernels[-1]["rows"] = {k: row[k] for k in (
+                "shards", "launches_per_call", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by")}
+        if kname == "first_block":  # kernel 4 is off under the row split, as in JAX
+            kernels[-1]["spatial_launches"] = spatial["first_block_launches"]
             # the artifacts' loading processes, stream_step_fast, the UI's
             # analyze_video and the port's forward beside the reference layout
             kernels[-1].update(export_launches=export["launches"],

@@ -88,6 +88,105 @@ def test_judge_training_catches_a_botched_update(fault):
         assert "gradient of w" in failed and "w after step 1" in failed
 
 
+def test_kink_pattern_replays_each_kink():
+    """``KinkPattern`` records the sign of each (leaky) ReLU input and each
+    2x2 max-pool winner, and a replay computes every call through the
+    pattern: where it differs from the input's own kinks, the flipped
+    element follows the pattern, forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from vad_tpu_torch.parallel.multiprocess_check import KinkPattern
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 4, 4, generator=gen, dtype=torch.float64)
+
+    def step(x):
+        return F.relu(x) + F.leaky_relu(x, 0.2) + F.max_pool2d(x, 2).repeat_interleave(
+            2, 2).repeat_interleave(2, 3)
+
+    with KinkPattern() as rec:
+        want = step(x)
+    relu, leaky, pool = rec.recorded
+    assert relu.dtype == torch.bool and torch.equal(relu, x > 0) and torch.equal(leaky, relu)
+    assert torch.equal(pool, F.max_pool2d_with_indices(x, 2)[1])
+    with KinkPattern(rec.recorded):  # its own pattern: the same step
+        assert torch.equal(step(x), want)
+    flip = (0, 1, 2, 3)
+    relu2, pool2 = relu.clone(), pool.clone()
+    relu2[flip] = ~relu2[flip]
+    pool2[0, 0, 0, 0] = 1 if pool[0, 0, 0, 0] != 1 else 0  # another pixel of window (0, 0)
+    xg = x.clone().requires_grad_(True)
+    with KinkPattern([relu2, leaky, pool2]):
+        got = step(xg)
+    got.sum().backward()
+    expect = want.clone()
+    expect[flip] += (x[flip] if relu2[flip] else -x[flip])
+    won = x[0, 0].flatten()[pool2[0, 0, 0, 0]] - x[0, 0].flatten()[pool[0, 0, 0, 0]]
+    expect[0, 0, :2, :2] += won
+    torch.testing.assert_close(got.detach(), expect, rtol=0, atol=1e-15)
+    # each pool output feeds 4 pixels of the sum; (2, 3) is flat index 11
+    assert xg.grad[flip] == (1.0 if relu2[flip] else 0.0) + (1.0 if leaky[flip] else 0.2) + (
+        4.0 if pool[0, 1, 1, 1] == 11 else 0.0)
+    with pytest.raises(ValueError, match="kinks"):
+        with KinkPattern([relu]):
+            step(x)
+
+
+@pytest.mark.parametrize("model_parallel", [1, 2], ids=["image", "video"])
+def test_anchor_through_its_own_pattern_is_the_plain_anchor(model_parallel):
+    """The float64 anchor taken through a float64 step's own kink pattern
+    is today's anchor exactly (every call agrees, so every function runs as
+    itself), and flipping one recorded ReLU kink moves it."""
+    import torch
+
+    from vad_tpu_torch.parallel.multiprocess_check import anchor_first_step, first_step
+
+    plain, init = anchor_first_step(model_parallel)
+    _, _, pattern = first_step(model_parallel, torch.float64)
+    replayed, init2 = anchor_first_step(model_parallel, pattern)
+    assert all(np.array_equal(plain[n], replayed[n]) for n in plain)
+    assert all(np.array_equal(init[n], init2[n]) for n in init)
+    flipped = [k.clone() for k in pattern]
+    relu = next(i for i, k in enumerate(flipped) if k.dtype == torch.bool and k.any())
+    flipped[relu][tuple(torch.nonzero(flipped[relu])[0])] = False
+    moved, _ = anchor_first_step(model_parallel, flipped)
+    assert any(not np.array_equal(plain[n], moved[n]) for n in plain)
+
+
+def test_judge_fails_a_rank_gradient_halved():
+    """Each run judged by the float64 step through its own kinks: a
+    1-process f32 step passes against itself, and a step whose second
+    rank's rows count half in the loss (that rank's gradient halved, the
+    global BatchNorm coupling kept) fails the gradient bar."""
+    import torch
+
+    from vad_tpu_torch.parallel.multiprocess_check import (
+        BATCH_SIZE,
+        _model_and_data,
+        anchor_first_step,
+        first_step,
+        judge_training,
+        zero_gradient_biases,
+    )
+
+    skip = set(zero_gradient_biases(_model_and_data(1)[0]))
+    weights = np.ones(BATCH_SIZE)
+    weights[BATCH_SIZE // 2:] = 0.5
+    runs, anchors = {}, {}
+    for name, loss_weights in (("control", None), ("halved", weights)):
+        grad, init, pattern = first_step(1, None, loss_weights=loss_weights)
+        runs[name] = {"grad": grad, "states": [{n: init[n] - 1e-3 * np.sign(g)
+                                                for n, g in grad.items()}]}
+        anchors[name], _ = anchor_first_step(1, pattern)
+    ok = judge_training(runs["control"], runs["control"], anchors["control"], init, skip,
+                        got_anchor=anchors["control"])
+    assert ok["ok"], ok
+    bad = judge_training(runs["halved"], runs["control"], anchors["control"], init, skip,
+                         got_anchor=anchors["halved"])
+    assert not bad["ok"] and any(f.startswith("gradient of") for f in bad["failed"]), bad
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

@@ -11,8 +11,8 @@ held against JAX's own ``make_train_step`` on the global batch (``backend=
 ``tests/test_torch_training.py``, and against the port's 1-process step;
 the BatchNorm running statistics must be equal on both ranks and match
 JAX's.  Evaluators, scorer and daemon: ``--data-parallel`` over two CPU
-replicas against the unsplit port and against JAX.  Refusals: the spatial
-row split names ROADMAP item 10b.
+replicas against the unsplit port and against JAX.  The spatial row split
+(``--spatial``) has its own file, ``tests/test_torch_spatial.py``.
 
 The spawned ranks import only torch and the port (this module's top level
 does too); the JAX side runs in the test process.  Each spawn has its own
@@ -486,19 +486,7 @@ def test_daemon_data_parallel_serves_like_the_unsplit_daemon(inputs, tmp_path):
     np.testing.assert_allclose(i1, i0, **F32)
 
 
-# --------------------------------------------------------------- refusals
-
-
-def test_spatial_split_refuses_naming_item_10b(video_model):
-    from vad_tpu_torch.eval.http_server import refuse_unported
-    from vad_tpu_torch.eval.serving import MultiStreamScorer
-
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10b"):
-        MultiStreamScorer(video_model, num_slots=2, chunk=T, image_size=SIZE, device="cpu",
-                          mesh=get_mesh(["cpu", "cpu"]), spatial=True)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        refuse_unported(spatial_parallel=2)
-    refuse_unported(spatial_parallel=1)
+# ------------------------------------------------------------------ layout
 
 
 def test_mesh_grid_and_param_shardings_follow_jax():

@@ -211,3 +211,58 @@ def test_cpu_wrappers_count_no_launch(shape, dtype):
     assert [f.launches for f in counters] == before
     torch.testing.assert_close(seq, seq2.detach())
     assert all(x.grad is not None for x in leaves)
+
+
+# ------------------------------------------------------ kernel 1's row form
+
+
+@pytest.mark.parametrize("shards", (2, 4, 16))
+@pytest.mark.parametrize("dtype", (BF16, F32), ids=("bf16", "f32"))
+@pytest.mark.parametrize("shape", (SERVING, IMAGE_512), ids=("serving", "512"))
+def test_row_form_plan_is_stepwise_per_shard(shape, dtype, shards):
+    """The row form is stepwise in both types (a resident cluster cannot
+    see a neighbour shard): T launches a shard, each shard on the grid of
+    its own H / shards rows, the unsplit stepwise grid's per-row share."""
+    b, t, h, w, c = shape
+    plan = recurrence_plan("convlstm_serving", *shape, dtype, shards=shards)
+    assert (plan.design, plan.launches, plan.cluster, plan.shards) == (
+        "stepwise", t * shards, 1, shards)
+    rows = h // shards
+    assert plan.grids == {"step": (-(-b * rows * w // 64), -(-c // 32))}
+    whole = recurrence_plan("convlstm_serving", *shape, dtype, design="stepwise")
+    assert plan.grids["step"][1] == whole.grids["step"][1]
+    assert plan.grids["step"][0] * shards >= whole.grids["step"][0]
+
+
+def test_row_form_plan_refusals():
+    with pytest.raises(ValueError, match="stepwise"):
+        recurrence_plan("convlstm_serving", *SERVING, BF16, design="resident", shards=2)
+    with pytest.raises(ValueError, match="only kernel 1"):
+        recurrence_plan("convlstm_train_forward", *SERVING, BF16, shards=2)
+    with pytest.raises(ValueError, match="equal shards"):
+        recurrence_plan("convlstm_serving", *SERVING, BF16, shards=3)
+    assert recurrence_plan("convlstm_serving", *SERVING, BF16, shards=1).design == "resident"
+
+
+@pytest.mark.parametrize("shards", (1, 2, 4))
+@pytest.mark.parametrize("dtype", (BF16, F32), ids=("bf16", "f32"))
+def test_cpu_row_wrapper_counts_no_launch(dtype, shards):
+    """``convlstm_recurrence_rows`` on CPU tensors runs its plain version,
+    launches nothing (no counter moves) and gives the unsplit rows."""
+    b, t, h, w, c = 2, 3, 8, 8, 16
+    rng = np.random.default_rng(shards)
+    gx = torch.from_numpy(rng.normal(size=(b, t, h, w, 4 * c)).astype(np.float32) * 0.5)
+    wh = torch.from_numpy(rng.normal(size=(3, 3, c, 4 * c)).astype(np.float32) * 0.05)
+    h0 = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32) * 0.1)
+    gx, wh = gx.to(dtype), wh.to(dtype)
+    counters = (convlstm.convlstm_recurrence, convlstm.convlstm_train_forward,
+                convlstm.convlstm_backward)
+    before = [f.launches for f in counters]
+    rows = h // shards
+    seqs, finals = convlstm.convlstm_recurrence_rows(
+        list(gx.split(rows, 2)), wh, list(h0.split(rows, 1)), list(h0.split(rows, 1)))
+    assert [f.launches for f in counters] == before
+    want, (hf, cf) = convlstm.convlstm_recurrence_ref(gx, wh, h0, h0)
+    torch.testing.assert_close(torch.cat(seqs, 2), want)
+    torch.testing.assert_close(torch.cat([f[0] for f in finals], 1), hf)
+    torch.testing.assert_close(torch.cat([f[1] for f in finals], 1), cf)

@@ -93,13 +93,48 @@ def test_parser_errors_match_jax(flags, monkeypatch, capsys):
         theirs_err.splitlines()[-1].split(": error: ")[1]
 
 
-# --data-parallel is ported (tests/test_torch_parallel.py serves with it); the
-# spatial row split is what is left of item 10 (10b), with or without it
-@pytest.mark.parametrize("flags", [["--data-parallel", "--spatial", "2"], ["--spatial", "2"]])
-def test_unported_scaling_options_raise_naming_item_10(flags, tmp_path):
+# --spatial N splits each frame's rows over N devices (JAX's daemon spans every
+# chip); a host of `cards` CPU devices stands in for the cards here
+@pytest.mark.parametrize("flags,cards", [(["--spatial", "2"], 2),
+                                         (["--data-parallel", "--spatial", "2"], 4)],
+                         ids=["spatial", "data_parallel_spatial"])
+def test_spatial_cli_serves_and_answers(flags, cards, tmp_path, monkeypatch, capsys):
+    """``serve_cli.main`` with ``--spatial 2`` builds a ('data', 'model')
+    grid over the host's devices, serves, and answers /v1/streams chunks
+    with the unsplit scorer's scores (JAX's split-against-unsplit bar)."""
     ckpt = write_video(tmp_path / "v.ckpt", 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
-        serve_cli.main(["--checkpoint", str(ckpt), "--device", "cpu", *flags])
+    monkeypatch.setattr(http_server, "local_devices",
+                        lambda device: [torch.device("cpu")] * cards)
+    made = []
+    build = http_server.serve_from_checkpoint
+    monkeypatch.setattr(http_server, "serve_from_checkpoint",
+                        lambda *a, **k: made.append(build(*a, **k)) or made[-1])
+    thread = threading.Thread(target=serve_cli.main, args=([
+        "--checkpoint", str(ckpt), "--host", "127.0.0.1", "--port", "0", "--slots",
+        str(SLOTS), "--chunk", str(CHUNK), "--dtype", "float32", "--device", "cpu",
+        *flags],), daemon=True)
+    thread.start()
+    deadline = time.time() + 60
+    while not (made and "Serving " in capsys.readouterr().out) and time.time() < deadline:
+        time.sleep(0.05)
+    server = made[0]
+    try:
+        scorer = server.services["video"].scorer
+        assert scorer.spatial and scorer.mesh.shape == {"data": cards // 2, "model": 2}
+        c = ScoringClient("127.0.0.1", server.port)
+        slot = c.attach()
+        ref = MultiStreamScorer(video_model(0), None, SLOTS, CHUNK, SIZE, device="cpu")
+        ref.attach(slot)
+        for i in range(2):
+            chunk = u8(i, CHUNK, SIZE, SIZE, 3)
+            got = c.score_chunk(slot, chunk)["scores"]
+            np.testing.assert_allclose(got, ref.score_streams({slot: list(chunk)})[slot],
+                                       rtol=2e-5, atol=1e-7)
+    finally:
+        server.httpd.shutdown()  # serve_forever returns and main with it
+        thread.join(timeout=30)
+        server.close()
+    assert not thread.is_alive()
 
 
 def test_serve_from_checkpoint_refusals(tmp_path):

@@ -42,6 +42,14 @@
 // C % 8 == 0, else through plain loads; bf16 runs WMMA 16x16x16, f32
 // register-blocked FMAs, so an f32 comparison is not rounded to TF32.
 //
+// Row form (entry point convlstm_serving_rows): the frame split in row
+// shards, as the spatial row split serves it (parallel/spatial.py).  Each
+// step launches the stepwise kernel once a shard; a tap above a shard's
+// first row or below its last reads the neighbour shard's boundary row of
+// h_{t-1} (GateLoad's halo operand) instead of the zero pad.  The resident
+// design keeps h in one cluster's shared memory for all T steps and cannot
+// see a neighbour, so the row form is stepwise in both types.
+//
 // Bound on an H100 SXM at the serving shape (B=16, T=16, 16x16, C=128,
 // bf16): 77.3 GFLOP per call -> 78 us at 989 TFLOP/s, against ~93 MB of
 // traffic -> 28 us at 3.35 TB/s, so the tensor cores bound it.  Kernel 2
@@ -64,12 +72,16 @@
 
 namespace {
 
+// One step t of the stepwise design.  halo_top / halo_bot (nullptr: the
+// frame's edge) are a row shard's neighbour rows of h_{t-1}, top_bstride /
+// bot_bstride elements between their batch rows (GateLoad).
 template <typename T, bool VEC, bool STORE_CELL>
 __global__ void __launch_bounds__(THREADS)
     convlstm_step_kernel(const T* __restrict__ gates_x, const T* __restrict__ w_h,
                          const T* __restrict__ h0, float* __restrict__ c_state,
                          T* __restrict__ h_seq, T* __restrict__ c_seq,
-                         float* __restrict__ h_final, Shape s, int t) {
+                         float* __restrict__ h_final, Shape s, int t, const T* halo_top,
+                         const T* halo_bot, size_t top_bstride, size_t bot_bstride) {
   using L = Tiles<T>;
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
   const float* Cs = reinterpret_cast<const float*>(smem);
@@ -80,7 +92,9 @@ __global__ void __launch_bounds__(THREADS)
   const int kchunks = (s.C + L::BK - 1) / L::BK;
   // the conv's input: h0 (in T) at t = 0, else h_seq[:, t-1]
   const GateLoad<T, VEC> load{t == 0 ? h0 : h_seq + (size_t)(t - 1) * hw * s.C,
-                              (size_t)(t == 0 ? 1 : s.T) * hw * s.C, w_h, s, m0, cb, kchunks};
+                              (size_t)(t == 0 ? 1 : s.T) * hw * s.C,
+                              w_h, s, m0, cb, kchunks, halo_top, halo_bot, top_bstride,
+                              bot_bstride};
   gemm_tile<T, false>(load, 9 * kchunks, smem);
 
   // Epilogue: gate math for the block's 64 pixels x 32 channels.
@@ -250,7 +264,7 @@ int run(const void* gates_x, const void* w_h, const void* h0, float* c, void* h_
   for (int t = 0; t < s.T; ++t) {
     convlstm_step_kernel<T, VEC, STORE_CELL><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(gates_x), static_cast<const T*>(w_h), static_cast<const T*>(h0),
-        c, static_cast<T*>(h_seq), static_cast<T*>(c_seq), h_final, s, t);
+        c, static_cast<T*>(h_seq), static_cast<T*>(c_seq), h_final, s, t, nullptr, nullptr, 0, 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -283,6 +297,112 @@ int run_dtype(const void* gates_x, const void* w_h, const void* w_t, const void*
   return run_t<float, STORE_CELL>(gates_x, w_h, h0, cf, h_seq, c_seq, hf, s, st);
 }
 
+// ------------------------------------------------------ the row form
+//
+// Kernel 1 over a frame split in n row shards of Hs rows each (shard i
+// holds rows [i Hs, (i+1) Hs)), each on its own device and stream, in the
+// stepwise design: per step, one launch a shard, whose taps above its
+// first row and below its last read the neighbours' boundary rows of
+// h_{t-1} (h0's at t = 0, then h_seq[:, t-1]'s).  A neighbour on the same
+// device and stream is read in place (the stream orders the steps); any
+// other neighbour's row is copied into the shard's staging buffer
+// ([B, W, C], stage_top / stage_bot non-null) on the shard's stream, after
+// an event recorded on the neighbour's stream behind its step: no step
+// waits on the host.
+namespace rows {
+
+struct Shard {
+  const void* gates_x;  // [B, T, Hs, W, 4C]
+  const void* w_h;      // [3, 3, C, 4C], on the shard's device
+  const void* h0;       // [B, Hs, W, C], the weights' type
+  float* c;             // [B, Hs, W, C] f32, c0 in, c_T out
+  void* h_seq;          // [B, T, Hs, W, C]
+  float* h_final;       // [B, Hs, W, C] f32
+  void* stage_top;      // [B, W, C] or nullptr (the neighbour is read in place)
+  void* stage_bot;
+  int device;
+  cudaStream_t stream;
+  cudaEvent_t done;     // recorded behind this shard's step, when a neighbour stages
+};
+
+// Row `row` of h_{t-1} of shard `sh` (t = 0: h0) and its batch stride.
+inline const char* h_prev_row(const Shard& sh, const Shape& s, int t, int row, size_t esize,
+                              size_t* bstride) {
+  const size_t frame = (size_t)s.H * s.W * s.C, at = (size_t)row * s.W * s.C;
+  if (t == 0) {
+    *bstride = frame;
+    return static_cast<const char*>(sh.h0) + at * esize;
+  }
+  *bstride = (size_t)s.T * frame;
+  return static_cast<const char*>(sh.h_seq) + ((size_t)(t - 1) * frame + at) * esize;
+}
+
+// Copy the neighbour rows shard `i` stages for step t (h_{t-1}) into its
+// buffers, on its stream, behind the neighbours' `done` events.
+inline cudaError_t stage(Shard* sh, int n, int i, const Shape& s, int t, size_t esize) {
+  for (int side = 0; side < 2; ++side) {
+    void* dst = side == 0 ? sh[i].stage_top : sh[i].stage_bot;
+    const int j = side == 0 ? i - 1 : i + 1;
+    if (dst == nullptr || j < 0 || j >= n) continue;
+    size_t bstride;
+    const char* src = h_prev_row(sh[j], s, t, side == 0 ? s.H - 1 : 0, esize, &bstride);
+    cudaError_t err = cudaStreamWaitEvent(sh[i].stream, sh[j].done, 0);
+    if (err != cudaSuccess) return err;
+    cudaMemcpy3DPeerParms p = {};
+    const size_t row_bytes = (size_t)s.W * s.C * esize;
+    p.srcPtr = make_cudaPitchedPtr(const_cast<char*>(src), bstride * esize, row_bytes, s.B);
+    p.srcDevice = sh[j].device;
+    p.dstPtr = make_cudaPitchedPtr(dst, row_bytes, row_bytes, s.B);
+    p.dstDevice = sh[i].device;
+    p.extent = make_cudaExtent(row_bytes, s.B, 1);
+    err = cudaMemcpy3DPeerAsync(&p, sh[i].stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool VEC>
+cudaError_t run(Shard* sh, int n, const Shape& s) {
+  const dim3 grid((s.B * s.H * s.W + BM - 1) / BM, (s.C + CG - 1) / CG);
+  const size_t esize = sizeof(T);
+  for (int t = 0; t < s.T; ++t) {
+    for (int i = 0; i < n; ++i) {  // h_{t-1} of every shard is in place
+      if (sh[i].done == nullptr) continue;
+      cudaError_t err = cudaSetDevice(sh[i].device);
+      if (err == cudaSuccess) err = cudaEventRecord(sh[i].done, sh[i].stream);
+      if (err != cudaSuccess) return err;
+    }
+    for (int i = 0; i < n; ++i) {
+      cudaError_t err = cudaSetDevice(sh[i].device);
+      if (err == cudaSuccess) err = stage(sh, n, i, s, t, esize);
+      if (err != cudaSuccess) return err;
+      const T* halo[2] = {nullptr, nullptr};
+      size_t bstride[2] = {0, 0};
+      for (int side = 0; side < 2; ++side) {
+        const int j = side == 0 ? i - 1 : i + 1;
+        if (j < 0 || j >= n) continue;  // the frame's edge: zeros
+        const void* staged = side == 0 ? sh[i].stage_top : sh[i].stage_bot;
+        if (staged != nullptr) {
+          halo[side] = static_cast<const T*>(staged);
+          bstride[side] = (size_t)s.W * s.C;
+        } else {  // same device and stream: read in place
+          halo[side] = reinterpret_cast<const T*>(
+              h_prev_row(sh[j], s, t, side == 0 ? s.H - 1 : 0, esize, &bstride[side]));
+        }
+      }
+      convlstm_step_kernel<T, VEC, false><<<grid, THREADS, 0, sh[i].stream>>>(
+          static_cast<const T*>(sh[i].gates_x), static_cast<const T*>(sh[i].w_h),
+          static_cast<const T*>(sh[i].h0), sh[i].c, static_cast<T*>(sh[i].h_seq), nullptr,
+          sh[i].h_final, s, t, halo[0], halo[1], bstride[0], bstride[1]);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
+}  // namespace rows
+
 }  // namespace
 
 extern "C" {
@@ -307,6 +427,49 @@ int convlstm_train_forward(const void* gates_x, const void* w_h, const void* w_t
                            int W, int C, int is_bf16, int design, void* stream) {
   return run_dtype<true>(gates_x, w_h, w_t, h0, c, h_seq, c_seq, h_final, Shape{B, T, H, W, C},
                          is_bf16, design, stream);
+}
+
+// Kernel 1's row form: n row shards of one frame batch, shard i's tensors
+// at gates_x[i] [B,T,Hs,W,4C], w_h[i] [3,3,C,4C], h0[i] [B,Hs,W,C] and
+// h_seq[i] [B,T,Hs,W,C] (bf16 when is_bf16, else f32), c[i] and h_final[i]
+// [B,Hs,W,C] f32 (c0 in, c_T out), on device[i], launched on stream[i];
+// stage_top[i] / stage_bot[i] are [B,W,C] staging buffers for a neighbour
+// on another device or stream, nullptr to read the neighbour in place
+// (same device and stream).  All contiguous.  Launches T * n step kernels
+// (stepwise design), restores the current device and returns the first
+// error, or 0.
+int convlstm_serving_rows(const void* const* gates_x, const void* const* w_h,
+                          const void* const* h0, void* const* c, void* const* h_seq,
+                          void* const* h_final, void* const* stage_top,
+                          void* const* stage_bot, const int* device, void* const* stream, int n,
+                          int B, int T, int Hs, int W, int C, int is_bf16) {
+  if (n < 1 || n > 64) return static_cast<int>(cudaErrorInvalidValue);
+  rows::Shard sh[64];
+  for (int i = 0; i < n; ++i)
+    sh[i] = rows::Shard{gates_x[i], w_h[i], h0[i], static_cast<float*>(c[i]), h_seq[i],
+                        static_cast<float*>(h_final[i]), stage_top[i], stage_bot[i], device[i],
+                        static_cast<cudaStream_t>(stream[i]), nullptr};
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  for (int j = 0; j < n && err == cudaSuccess; ++j) {  // an event where a neighbour stages
+    const bool staged_from = (j > 0 && sh[j - 1].stage_bot != nullptr) ||
+                             (j < n - 1 && sh[j + 1].stage_top != nullptr);
+    if (!staged_from) continue;
+    err = cudaSetDevice(sh[j].device);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&sh[j].done, cudaEventDisableTiming);
+  }
+  const Shape s{B, T, Hs, W, C};
+  if (err == cudaSuccess) {
+    if (is_bf16)
+      err = C % 8 == 0 ? rows::run<__nv_bfloat16, true>(sh, n, s)
+                       : rows::run<__nv_bfloat16, false>(sh, n, s);
+    else
+      err = C % 8 == 0 ? rows::run<float, true>(sh, n, s) : rows::run<float, false>(sh, n, s);
+  }
+  for (int j = 0; j < n; ++j)
+    if (sh[j].done != nullptr) cudaEventDestroy(sh[j].done);  // released once it completes
+  const cudaError_t back = cudaSetDevice(current);
+  return static_cast<int>(err != cudaSuccess ? err : back);
 }
 
 // Clusters of the resident design's launch at (B, H, W, C) that fit on the

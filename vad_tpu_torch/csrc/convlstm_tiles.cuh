@@ -227,12 +227,21 @@ __device__ __forceinline__ void load_gate_cols(T* Bs, const T* w_h, const Shape&
 // Stage kk of the forward's GEMM: A = 64 pixels of h_{t-1} at one tap and
 // channel chunk; B = the matching rows of Wh for the block's 32 channels
 // of each gate (columns gate*CG + j -> Wh column gate*C + cb + j).
+//
+// A row shard (the row form of kernel 1) sees its neighbours' boundary
+// rows of h_{t-1} through halo_top / halo_bot: a tap at y == -1 reads row b
+// of halo_top ([W, C] at b * top_bstride), a tap at y == H row b of
+// halo_bot (b * bot_bstride).  nullptr keeps the zero pad: the frame's real
+// top or bottom.
 template <typename T, bool VEC> struct GateLoad {
   const T* h_in;     // h0 (t = 0) or h_seq[:, t-1]
   size_t h_bstride;  // elements between batch rows of h_in
   const T* w_h;
   Shape s;
   int m0, cb, kchunks;
+  const T* halo_top = nullptr;
+  const T* halo_bot = nullptr;
+  size_t top_bstride = 0, bot_bstride = 0;  // elements between batch rows of the halos
 
   __device__ __forceinline__ void operator()(T* As, T* Bs, int kk) const {
     using L = Tiles<T>;
@@ -249,8 +258,11 @@ template <typename T, bool VEC> struct GateLoad {
       if (valid) {
         const int b = r / hw, p = r - b * hw;
         const int y = p / s.W + tap / 3 - 1, x = p % s.W + tap % 3 - 1;
-        valid = y >= 0 && y < s.H && x >= 0 && x < s.W;
-        src = h_in + b * h_bstride + (size_t)(y * s.W + x) * s.C + k0 + c0;
+        const T* halo = y < 0 ? halo_top : y >= s.H ? halo_bot : nullptr;
+        valid = x >= 0 && x < s.W && ((y >= 0 && y < s.H) || halo != nullptr);
+        src = halo != nullptr ? halo + b * (y < 0 ? top_bstride : bot_bstride) +
+                                    (size_t)x * s.C + k0 + c0
+                              : h_in + b * h_bstride + (size_t)(y * s.W + x) * s.C + k0 + c0;
       }
       const int kc = k0 + c0;
       copy_chunk<T, VEC>(As + row * L::LDA + c0, src, h_in, valid && kc < s.C,

@@ -78,7 +78,9 @@ from vad_tpu_torch.parallel.sharding import (
     local_devices,
     padded_batch_size,
     replicate,
+    spatial_frame_sharding,
 )
+from vad_tpu_torch.parallel.spatial import RowSplit, replicate_grid
 from vad_tpu_torch.utils.checkpoint import CHECKPOINT_SUFFIX, load_checkpoint
 from vad_tpu_torch.utils.precision import (
     check_served_image_size,
@@ -94,20 +96,6 @@ _ARCHITECTURE_MISMATCH = (
     "(pytree/shape/dtype mismatch); restart the server to "
     "change architectures"
 )
-
-# Options of the JAX daemon whose modules the port does not have yet.
-_NOT_PORTED = (
-    ("spatial_parallel", lambda v: int(v or 1) > 1, "--spatial > 1",
-     "Queue 1 item 10b (spatial row split)"),
-)
-
-
-def refuse_unported(**options) -> None:
-    """Raise for an option whose module the port does not have yet."""
-    for name, asked, flag, item in _NOT_PORTED:
-        if asked(options.get(name)):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
-
 
 def _f32_without_tf32(dtype: torch.dtype, device: torch.device) -> None:
     """An f32 service on the card scores without TF32 for its whole life:
@@ -292,6 +280,12 @@ class ImageScoringService:
     taking ``batch / d`` images (the batch is rounded up to a multiple of
     the axis); ``device`` is then its first device.
 
+    ``spatial``: also split image rows over the mesh's 'model' axis, one
+    model copy per grid cell, every halo exchange written out
+    (``parallel/spatial.py``, as ``MultiStreamScorer``'s spatial mode; the
+    JAX service leaves them to XLA's partitioner).  Needs a mesh, the
+    reconstruction scorer and H, H/16 divisible by the 'model' size.
+
     ``latent_stats``: path to a fitted ``latent_stats.npz`` (either
     package's ``evaluate --scorer latent`` writes one) or a loaded
     ``LatentStats``.  When given, /v1/images scores through the
@@ -322,14 +316,23 @@ class ImageScoringService:
     def __init__(self, model, variables, image_size: int, batch: int = 32,
                  dtype: Optional[torch.dtype] = None,
                  drift_window: int = 4096, drift_factor: float = 5.0,
-                 latent_stats=None, device=None, mesh=None) -> None:
+                 latent_stats=None, device=None, mesh=None, spatial: bool = False) -> None:
+        if spatial and mesh is None:
+            raise ValueError("spatial=True requires a mesh")
+        if latent_stats is not None and spatial:
+            # the distance map lives on the fit's G x G grid, not image rows
+            raise ValueError("the latent scorer does not support spatial "
+                             "partitioning; use --data-parallel")
         if mesh is not None:
             device = mesh.replica_devices[0]
             batch = padded_batch_size(batch, mesh)
+            if spatial:
+                self._rows = spatial_frame_sharding(mesh, image_size)
         self.device = resolve_device(device)
         self.dtype = dtype = dtype or torch.bfloat16
         self.image_size = image_size
         self.batch = batch
+        self.spatial = spatial
         self.stem = getattr(model, "stem", "pool")
         _f32_without_tf32(dtype, self.device)
         if variables is not None:
@@ -350,8 +353,12 @@ class ImageScoringService:
             self._dfn = make_distance_fn(lambda m, x: m.feature_pyramid(x),
                                          stats.layers, stats.grid)
             self._state = stats_state(stats, self.device)
-        self._replicas = replicate(self.model, mesh)
-        self._run = data_parallel(self._score_rows, mesh)
+        if spatial:
+            self._replicas = [RowSplit(copies) for copies in replicate_grid(self.model, mesh)]
+            self._run = data_parallel(self._score_split, mesh)
+        else:
+            self._replicas = replicate(self.model, mesh)
+            self._run = data_parallel(self._score_rows, mesh)
         self._lock = threading.Lock()
         self.metrics = ServiceMetrics()
         # live score-distribution monitor (eval/drift.py); calibrated
@@ -369,6 +376,12 @@ class ImageScoringService:
             maps = self._dfn(model, state, x)  # [B, G, G] f32
             return maps.reshape(maps.shape[0], -1).mean(dim=1)
         return model.reconstruction_error(x)
+
+    def _score_split(self, split: RowSplit, u8: torch.Tensor, state) -> torch.Tensor:
+        del state  # no latent scorer under the row split
+        xs = [u8[:, r].to(dev).to(self.dtype) / 127.5 - 1.0
+              for r, dev in zip(self._rows, split.devices)]
+        return split.reconstruction_error(xs)
 
     @torch.no_grad()
     def _score(self, u8: np.ndarray) -> np.ndarray:
@@ -471,7 +484,8 @@ class ImageScoringService:
         new = _served_state(self.model, variables, self.dtype)
         with self._lock:
             for replica in self._replicas:
-                replica.load_state_dict(new, strict=True)
+                for m in (replica.models if self.spatial else [replica]):
+                    m.load_state_dict(new, strict=True)
             self._state = new_state
             self.checkpoint = str(checkpoint)
             # the checkpoint's calibrated threshold is a reconstruction-
@@ -1181,7 +1195,7 @@ class ScoringServer:
 
 def _image_service_from_ckpt(ckpt, checkpoint, batch, dtype: str,
                              drift_window=4096, drift_factor=5.0,
-                             latent_stats=None, device=None, mesh=None):
+                             latent_stats=None, device=None, mesh=None, spatial=False):
     """Build an ImageScoringService from a loaded image checkpoint."""
     icfg = ImageAEConfig.from_args(ckpt.get("args", {}))
     imodel = ConvAutoencoder.from_config(icfg, device="cpu")
@@ -1189,7 +1203,7 @@ def _image_service_from_ckpt(ckpt, checkpoint, batch, dtype: str,
     service = ImageScoringService(
         imodel, ivars, icfg.image_size, batch=batch, dtype=getattr(torch, dtype),
         drift_window=drift_window, drift_factor=drift_factor,
-        latent_stats=latent_stats, device=device, mesh=mesh,
+        latent_stats=latent_stats, device=device, mesh=mesh, spatial=spatial,
     )
     service.checkpoint = str(checkpoint)
     # the calibrated threshold is a reconstruction-score quantile; latent
@@ -1242,17 +1256,21 @@ def serve_from_checkpoint(
     ``data_parallel``: one model replica per local device of ``device``'s
     type (``devices``, when given, names them: a device may repeat), the
     video slots (rounded up to a multiple of their count) and the image
-    batch split over them.  ``spatial_parallel > 1`` is not ported yet and
-    raises.
+    batch split over them.  ``spatial_parallel`` N > 1 also splits each
+    frame's rows over N of them (a ``get_mesh(devices, model_parallel=N)``
+    grid, as JAX's daemon builds over every chip: one card raises JAX's
+    "not divisible" unless ``devices`` repeats it); the scorer and the
+    image service run their spatial mode.
 
     The scorer is warmed with one step before the server accepts traffic:
     on the card that first call builds the kernels and picks cuDNN's
     algorithms, and neither may land in a request."""
-    refuse_unported(spatial_parallel=spatial_parallel)
     device = resolve_device(device)
+    spatial = int(spatial_parallel or 1) > 1
     mesh = None
-    if data_parallel:
-        mesh = get_mesh(devices if devices is not None else local_devices(device))
+    if data_parallel or spatial:
+        mesh = get_mesh(devices if devices is not None else local_devices(device),
+                        model_parallel=int(spatial_parallel or 1))
         data_n = mesh.shape[DATA_AXIS]
         num_slots = ((num_slots + data_n - 1) // data_n) * data_n
     ckpt = load_checkpoint(checkpoint)
@@ -1267,7 +1285,7 @@ def serve_from_checkpoint(
         service = _image_service_from_ckpt(
             ckpt, checkpoint, num_slots, dtype,
             drift_window=drift_window, drift_factor=drift_factor,
-            latent_stats=latent_stats, device=device, mesh=mesh,
+            latent_stats=latent_stats, device=device, mesh=mesh, spatial=spatial,
         )
         return ScoringServer(host=host, port=port, service=service,
                              reload_roots=reload_roots)
@@ -1284,7 +1302,7 @@ def serve_from_checkpoint(
     scorer = MultiStreamScorer(
         model, variables, num_slots=num_slots, chunk=chunk,
         image_size=cfg.image_size, dtype=getattr(torch, dtype), fused_input=fused_input,
-        device=device, mesh=mesh,
+        device=device, mesh=mesh, spatial=spatial,
     )
     # build the kernels and pay the first step before accepting traffic
     warm = np.zeros((num_slots, chunk) + scorer.image_hw + (3,), np.uint8)
@@ -1304,7 +1322,7 @@ def serve_from_checkpoint(
         services["image"] = _image_service_from_ckpt(
             ickpt, image_checkpoint, num_slots, dtype,
             drift_window=drift_window, drift_factor=drift_factor,
-            latent_stats=latent_stats, device=device, mesh=mesh,
+            latent_stats=latent_stats, device=device, mesh=mesh, spatial=spatial,
         )
     elif latent_stats is not None:
         raise ValueError(

@@ -11,8 +11,15 @@ split over its 'data' axis: one model replica per device there, each with
 ``num_slots / d`` slots, its own carried (h, c) and its own folded kernel-4
 weights (refolded on reload).  Streams never mix, so there are no
 collectives; every replica's launches are issued before any result is
-read.  The JAX scorer's ``spatial`` row split is not ported (ROADMAP Queue
-1 item 10b).
+read.
+
+With ``spatial=True`` each frame's rows also split over the mesh's 'model'
+axis (JAX's spatial partitioning, the scaling axis for few high-resolution
+streams): each data replica holds one model copy per model index, on
+``mesh.devices[i, j]`` (a device may repeat), each with its rows of the
+carried (h, c) in f32, and ``parallel/spatial.py`` runs the forward over
+the row shards with every halo exchange written out, kernel 1 in its row
+form.  As in JAX, the fused u8 input block (kernel 4) is off there.
 """
 
 from __future__ import annotations
@@ -25,7 +32,15 @@ import torch
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
 from vad_tpu_torch.ops.encoder_fused import fold_first_block
-from vad_tpu_torch.parallel.sharding import DATA_AXIS, concat_rows, data_parallel, replicate
+from vad_tpu_torch.parallel.sharding import (
+    DATA_AXIS,
+    concat_rows,
+    data_parallel,
+    replicate,
+    spatial_frame_sharding,
+    spatial_state_sharding,
+)
+from vad_tpu_torch.parallel.spatial import RowSplit, replicate_grid
 from vad_tpu_torch.utils.precision import STATE_DTYPE, checked_cast_like
 from vad_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
 
@@ -37,8 +52,15 @@ class _Replica:
     def __init__(self, model: VideoAutoencoder, device: torch.device, lo: int, hi: int,
                  hw, fused_input: bool, dtype: torch.dtype, return_maps: bool) -> None:
         self.model, self.device, self.lo, self.hi = model, device, lo, hi
+        self.models = [model]
         self.fused_input, self.dtype, self.return_maps = fused_input, dtype, return_maps
         self.states = model.zero_state(hi - lo, *hw)
+
+    def zero_slot(self, k: int) -> None:
+        """Zero the carried (h, c) of this replica's slot ``k``."""
+        for h, c in self.states:
+            h[k] = 0
+            c[k] = 0
 
     def fold(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """(Re)fold the first block's weights (kept f32) from a model state
@@ -85,6 +107,86 @@ class _Replica:
         return scores.float(), (err.float() if self.return_maps else None)
 
 
+class _RowReplica:
+    """One data replica under the spatial row split, serving the slots
+    ``[lo, hi)``: a model copy per model index (``models[j]`` on its own
+    device, holding frame rows ``frame_rows[j]`` and latent rows
+    ``state_rows[j]``) with its rows of the carried (h, c)."""
+
+    def __init__(self, models, lo: int, hi: int, hw, frame_rows, state_rows,
+                 dtype: torch.dtype, return_maps: bool) -> None:
+        self.models, self.lo, self.hi = list(models), lo, hi
+        self.split = RowSplit(self.models)
+        self.devices, self.device = self.split.devices, self.split.device
+        self.frame_rows, self.dtype, self.return_maps = frame_rows, dtype, return_maps
+        self.shard_states = [
+            tuple((h[:, r].contiguous(), c[:, r].contiguous())
+                  for h, c in m.zero_state(hi - lo, *hw))
+            for m, r in zip(self.models, state_rows)]
+
+    @property
+    def states(self):
+        """Every layer's (h, c) of these slots, the rows joined on the
+        first device."""
+        return tuple(
+            (torch.cat([st[k][0].to(self.device) for st in self.shard_states], dim=1),
+             torch.cat([st[k][1].to(self.device) for st in self.shard_states], dim=1))
+            for k in range(len(self.shard_states[0])))
+
+    @states.setter
+    def states(self, states) -> None:
+        rows = [0] + list(np.cumsum([st[0][0].shape[1] for st in self.shard_states]))
+        self.shard_states = [
+            tuple((h[:, rows[j]:rows[j + 1]].to(dev).contiguous(),
+                   c[:, rows[j]:rows[j + 1]].to(dev).contiguous()) for h, c in states)
+            for j, dev in enumerate(self.devices)]
+
+    def zero_slot(self, k: int) -> None:
+        for st in self.shard_states:
+            for h, c in st:
+                h[k] = 0
+                c[k] = 0
+
+    def fold(self, state_dict) -> None:
+        """No fused input block under the row split."""
+
+    def _run(self, u8: torch.Tensor):
+        xs = [(u8[:, :, r].to(dev).to(self.dtype) / 127.5 - 1.0)
+              for r, dev in zip(self.frame_rows, self.devices)]
+        return self.split.stream_step(xs, self.shard_states)
+
+    @torch.no_grad()
+    def forward(self, u8: torch.Tensor):
+        """``_Replica.forward``'s contract, the shards joined on the first
+        device; the carried state is left as it is."""
+        recon, errs, scores, new = self._run(u8)
+
+        def join(parts, dim):
+            return torch.cat([p.to(self.device) for p in parts], dim=dim)
+
+        states = tuple((join([st[k][0] for st in new], 1), join([st[k][1] for st in new], 1))
+                       for k in range(len(new[0])))
+        return join(recon, 2), join(errs, 2), scores, states
+
+    @torch.no_grad()
+    def step(self, u8: torch.Tensor, submitted: torch.Tensor):
+        """``_Replica.step``'s contract: each shard's rows of the submitting
+        slots' (h, c) advance on its own device."""
+        _, errs, scores, new = self._run(u8)
+        shard_states = []
+        for dev, old_st, new_st in zip(self.devices, self.shard_states, new):
+            keep = submitted[self.lo:self.hi].to(dev).reshape(-1, 1, 1, 1)
+            shard_states.append(tuple(
+                (torch.where(keep, h_new, h_old).to(STATE_DTYPE),
+                 torch.where(keep, c_new, c_old).to(STATE_DTYPE))
+                for (h_new, c_new), (h_old, c_old) in zip(new_st, old_st)))
+        self.shard_states = shard_states
+        err = None
+        if self.return_maps:
+            err = torch.cat([e.to(self.device) for e in errs], dim=2).float()
+        return scores.float(), err
+
+
 class MultiStreamScorer:
     """Fixed-slot batched scorer over independent video streams.
 
@@ -107,8 +209,9 @@ class MultiStreamScorer:
         mesh: a one-process ``parallel.sharding.Mesh``: the slots split
             over its 'data' axis, one replica per device there (module
             docstring); ``num_slots`` must divide by the axis.
-        spatial: JAX's row split of each frame over 'model'; not ported
-            (raises ``NotImplementedError``).
+        spatial: also split each frame's rows over the mesh's 'model' axis
+            (module docstring); needs a mesh, ``fused_input`` off (``None``
+            means off here) and H, H/16 divisible by the axis.
     """
 
     def __init__(
@@ -125,10 +228,8 @@ class MultiStreamScorer:
         mesh=None,
         spatial: bool = False,
     ) -> None:
-        if spatial:
-            raise NotImplementedError(
-                "spatial=True (the row split of each frame over 'model') is not ported yet "
-                "(ROADMAP Queue 1 item 10b)")
+        if spatial and mesh is None:
+            raise ValueError("spatial=True requires a mesh")
         if mesh is not None:
             device = mesh.replica_devices[0]
             data_n = mesh.shape[DATA_AXIS]
@@ -140,6 +241,12 @@ class MultiStreamScorer:
               else (image_size, image_size))
         if hw[0] % 16 or hw[1] % 16:
             raise ValueError(f"image size {hw} must be divisible by 16 (4 pool stages)")
+        if spatial:
+            if fused_input:
+                raise ValueError("spatial=True is incompatible with fused_input")
+            fused_input = False
+            frame_rows = spatial_frame_sharding(mesh, hw[0])
+            state_rows = spatial_state_sharding(mesh, hw[0])
         foldable = model.norm == "batch" and model.stem == "pool"
         if fused_input is None:
             fused_input = self.device.type == "cuda" and foldable
@@ -153,25 +260,31 @@ class MultiStreamScorer:
         self.num_slots, self.chunk = num_slots, chunk
         self.image_size, self.image_hw = image_size, hw  # as given; (H, W)
         self.return_maps, self.dtype, self.fused_input = return_maps, dtype, fused_input
+        self.mesh, self.spatial = mesh, spatial
         weights = model.state_dict()  # the fold reads the weights before the serving cast
         model = model.to(device=self.device, dtype=dtype).eval()
-        copies = replicate(model, mesh)
+        copies = replicate_grid(model, mesh) if spatial else replicate(model, mesh)
         per = num_slots // len(copies)
         self._replicas = []
         for i, copy in enumerate(copies):
-            dev = next(copy.parameters()).device
-            replica = _Replica(copy, dev, i * per, (i + 1) * per, hw, fused_input, dtype,
-                               return_maps)
+            lo, hi = i * per, (i + 1) * per
+            if spatial:
+                replica = _RowReplica(copy, lo, hi, hw, frame_rows, state_rows, dtype,
+                                      return_maps)
+            else:
+                replica = _Replica(copy, next(copy.parameters()).device, lo, hi, hw,
+                                   fused_input, dtype, return_maps)
             replica.fold(weights)
             self._replicas.append(replica)
-        self._forward_rows = data_parallel(_Replica.forward, mesh)
-        self._step_rows = data_parallel(_Replica.step, mesh)
+        kind = _RowReplica if spatial else _Replica
+        self._forward_rows = data_parallel(kind.forward, mesh)
+        self._step_rows = data_parallel(kind.step, mesh)
         self._active = np.zeros(num_slots, dtype=bool)
 
     @property
     def model(self) -> VideoAutoencoder:
-        """The first replica's model (the only one without a mesh)."""
-        return self._replicas[0].model
+        """The first replica's (first) model (the only one without a mesh)."""
+        return self._replicas[0].models[0]
 
     @property
     def _w_folded(self) -> torch.Tensor:
@@ -200,7 +313,8 @@ class MultiStreamScorer:
         fresh = flax_to_state_dict(self.model, variables)
         new = checked_cast_like(fresh, self.model.state_dict(), self.dtype)
         for r in self._replicas:
-            r.model.load_state_dict(new, strict=True)
+            for m in r.models:
+                m.load_state_dict(new, strict=True)
             r.fold(fresh)
 
     # ------------------------------------------------------------- slots
@@ -224,9 +338,7 @@ class MultiStreamScorer:
     def _reset_slot(self, slot: int) -> None:
         for r in self._replicas:
             if r.lo <= slot < r.hi:
-                for h, c in r.states:
-                    h[slot - r.lo] = 0
-                    c[slot - r.lo] = 0
+                r.zero_slot(slot - r.lo)
 
     @property
     def active_slots(self) -> np.ndarray:

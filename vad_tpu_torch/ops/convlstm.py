@@ -17,7 +17,10 @@ type; h is cast to the weights' type before the hidden convolution and
 Three kernels, each with its plain version beside it:
 
 - kernel 1, ``csrc/convlstm_serving.cu`` (``convlstm_recurrence`` without
-  autograd; plain version ``convlstm_recurrence_ref``);
+  autograd; plain version ``convlstm_recurrence_ref``), and its row form
+  over a frame split in row shards, each reading its neighbours' boundary
+  rows of h every step (``convlstm_recurrence_rows``; plain version
+  ``convlstm_recurrence_rows_ref``; the spatial row split's);
 - kernel 2, the same source built with ``STORE_CELL``: the training
   forward, which also stores ``c_seq`` in the gates' type
   (``convlstm_train_forward``; plain version ``convlstm_forward_ref(...,
@@ -53,7 +56,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +73,7 @@ _SIGNATURES = {
     "convlstm_serving_forward": [_P] * 7 + [_I] * 7 + [_P],
     "convlstm_train_forward": [_P] * 8 + [_I] * 7 + [_P],
     "convlstm_serving_active_clusters": [_I] * 5,
+    "convlstm_serving_rows": [_P] * 10 + [_I] * 7,
 }
 _BWD_SIGNATURES = {
     "convlstm_backward": [_P] * 14 + [_I] * 9 + [_P],
@@ -103,6 +107,7 @@ class RecurrencePlan:
     grids: Dict[str, Tuple[int, ...]] = field(default_factory=dict)
     gate_groups: int = 0  # kernel 3 resident: frame groups of the gate launch
     dw_splits: int = 0  # kernel 3: K splits of the dWh launch
+    shards: int = 1  # kernel 1's row form: row shards of the frame, one grid each
 
 
 _KERNELS = ("convlstm_serving", "convlstm_train_forward", "convlstm_backward")
@@ -152,14 +157,34 @@ def resident_fits(kernel: str, hgt: int, wid: int, ch: int, dtype: torch.dtype) 
 
 
 def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
-                    dtype: torch.dtype, design: Optional[str] = None) -> RecurrencePlan:
+                    dtype: torch.dtype, design: Optional[str] = None,
+                    shards: int = 1) -> RecurrencePlan:
     """The design, grids, cluster size, shared memory, launches per call
     and scratch of ``kernel`` (``"convlstm_serving"``, ``"convlstm_train_forward"``
     or ``"convlstm_backward"``) at ``gates_x [b, t, hgt, wid, 4*ch]`` of
     ``dtype``.  ``design=None`` takes the resident design wherever it fits,
-    else the stepwise one; naming a design that does not fit raises."""
+    else the stepwise one; naming a design that does not fit raises.
+
+    ``shards`` > 1 is kernel 1's row form (``convlstm_recurrence_rows``):
+    the ``hgt`` rows split in ``shards`` equal row shards, always stepwise
+    (a resident cluster cannot see a neighbour shard's rows), one launch a
+    shard a step (``t * shards`` a call), each on the grid of its own
+    ``hgt / shards`` rows."""
     if kernel not in _KERNELS:
         raise ValueError(f"unknown recurrence kernel {kernel!r}")
+    if shards > 1:
+        if kernel != "convlstm_serving":
+            raise ValueError(f"only kernel 1 has a row form, not {kernel}")
+        if hgt % shards:
+            raise ValueError(f"{hgt} rows do not split in {shards} equal shards")
+        if design not in (None, "stepwise"):
+            raise ValueError("the row form is stepwise: the resident design keeps h in one "
+                             "cluster's shared memory and cannot see a neighbour shard")
+        rows = hgt // shards
+        return RecurrencePlan(kernel, "stepwise", launches=t * shards, cluster=1,
+                              smem_bytes=_STEP_SMEM, scratch_bytes=0,
+                              grids={"step": (_cdiv(b * rows * wid, _STEP_TILE[0]),
+                                              _cdiv(ch, 32))}, shards=shards)
     fits = resident_fits(kernel, hgt, wid, ch, dtype)
     if design is None:
         design = "resident" if fits else "stepwise"
@@ -224,7 +249,11 @@ def convlstm_step(
     The convolution runs in the weights' type, the gate math in the
     carry's type (the JAX package's ``convlstm_step``)."""
     conv = F.conv2d(h.to(w_h_oihw.dtype).permute(0, 3, 1, 2), w_h_oihw, padding=1)
-    gates = gates_x_t + conv.permute(0, 2, 3, 1)
+    return _lstm_update(gates_x_t + conv.permute(0, 2, 3, 1), c)
+
+
+def _lstm_update(gates: torch.Tensor, c: torch.Tensor) -> State:
+    """The gate math in the carry's type: ``(h, c)`` of the next step."""
     i, f, g, o = gates.to(c.dtype).chunk(4, dim=-1)
     c_next = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_next = torch.sigmoid(o) * torch.tanh(c_next)
@@ -534,6 +563,136 @@ def convlstm_recurrence(
         return h_seq, (hf, cf)
     h_seq, hf, cf = _recurrence_op(gates_x, w_h, h0, c0)
     return h_seq, (hf, cf)
+
+
+# ---------------------------------------------------- kernel 1's row form
+
+
+def _weights_per_shard(w_h, gates_x_rows) -> List[torch.Tensor]:
+    """``w_h`` (one tensor, or one per shard) on each shard's device."""
+    if isinstance(w_h, torch.Tensor):
+        return [w_h.to(x.device) for x in gates_x_rows]
+    if len(w_h) != len(gates_x_rows):
+        raise ValueError(f"{len(w_h)} w_h for {len(gates_x_rows)} shards")
+    return [w.to(x.device) for w, x in zip(w_h, gates_x_rows)]
+
+
+def convlstm_recurrence_rows_ref(
+    gates_x_rows: Sequence[torch.Tensor], w_h,
+    h0_rows: Sequence[torch.Tensor], c0_rows: Sequence[torch.Tensor],
+) -> Tuple[List[torch.Tensor], List[State]]:
+    """Plain version of kernel 1's row form: the recurrence of a frame split
+    in row shards, shard i holding ``gates_x_rows[i] [B,T,Hs,W,4C]`` and
+    ``h0_rows[i], c0_rows[i] [B,Hs,W,C]`` on its own device; ``w_h`` is one
+    ``[3,3,C,4C]`` tensor or one per shard (each shard's model copy).
+
+    Every shard steps in lockstep: at step t it takes its neighbours'
+    boundary rows of h_{t-1} (zeros at the frame's top and bottom), copied
+    to its device, concatenates them above and below its own rows and runs
+    the hidden conv with ``padding=(0, 1)``; the gate math is
+    ``convlstm_step``'s.  Returns ``(h_seq per shard [B,T,Hs,W,C] in the
+    gates' type, (h_T, c_T) per shard in f32)``: the unsplit recurrence's
+    rows."""
+    n = len(gates_x_rows)
+    w_oihw = [w.permute(3, 2, 0, 1) for w in _weights_per_shard(w_h, gates_x_rows)]
+    hs = [h.float() for h in h0_rows]
+    cs = [c.float() for c in c0_rows]
+    seqs: List[List[torch.Tensor]] = [[] for _ in range(n)]
+    for t in range(gates_x_rows[0].shape[1]):
+        prev = [h.to(w.dtype) for h, w in zip(hs, w_oihw)]  # as convlstm_step casts it
+        for i, gx in enumerate(gates_x_rows):
+            edge = torch.zeros_like(prev[i][:, :1])
+            top = prev[i - 1][:, -1:].to(gx.device) if i > 0 else edge
+            bot = prev[i + 1][:, :1].to(gx.device) if i < n - 1 else edge
+            rows = torch.cat([top, prev[i], bot], dim=1).permute(0, 3, 1, 2)
+            conv = F.conv2d(rows, w_oihw[i], padding=(0, 1))
+            hs[i], cs[i] = _lstm_update(gx[:, t] + conv.permute(0, 2, 3, 1), cs[i])
+            seqs[i].append(hs[i].to(gx.dtype))
+    return [torch.stack(s, dim=1) for s in seqs], list(zip(hs, cs))
+
+
+def convlstm_recurrence_rows(
+    gates_x_rows: Sequence[torch.Tensor], w_h,
+    h0_rows: Sequence[torch.Tensor], c0_rows: Sequence[torch.Tensor],
+    staged: bool = False,
+) -> Tuple[List[torch.Tensor], List[State]]:
+    """Kernel 1's row form; same contract as ``convlstm_recurrence_rows_ref``
+    (inference only: nothing is recorded for autograd).
+
+    On the card (every shard a CUDA tensor) one call of
+    ``csrc/convlstm_serving.cu``'s ``convlstm_serving_rows``: the stepwise
+    design, ``T * shards`` launches (``recurrence_plan(..., shards=n)``),
+    counted in ``convlstm_recurrence.launches``; a failed launch raises.
+    Shard i runs on its device's current stream; a neighbour on the same
+    device and stream is read in place, any other through a ``[B,W,C]``
+    staging copy ordered by an event.  ``staged`` gives every shard a stream
+    of its own, so even shards on one card take the staging path (a check
+    of that path on one card).  CPU tensors run the plain version."""
+    devices = {x.device.type for x in (*gates_x_rows, *h0_rows, *c0_rows)}
+    if devices == {"cpu"}:
+        return convlstm_recurrence_rows_ref(gates_x_rows, w_h, h0_rows, c0_rows)
+    if devices != {"cuda"}:
+        raise ValueError(f"convlstm_recurrence_rows: shards on {sorted(devices)}")
+    return _rows_kernel(gates_x_rows, w_h, h0_rows, c0_rows, staged)
+
+
+@torch.no_grad()
+def _rows_kernel(gates_x_rows, w_h, h0_rows, c0_rows, staged: bool):
+    n = len(gates_x_rows)
+    if not (n == len(h0_rows) == len(c0_rows)) or n < 1:
+        raise ValueError(f"{n} gates_x, {len(h0_rows)} h0 and {len(c0_rows)} c0 shards")
+    weights = [w.contiguous() for w in _weights_per_shard(w_h, gates_x_rows)]
+    shape, dt = gates_x_rows[0].shape, gates_x_rows[0].dtype
+    for gx, w, h0, c0 in zip(gates_x_rows, weights, h0_rows, c0_rows):
+        if gx.shape != shape or gx.dtype != dt:
+            raise ValueError(f"row shards differ: {tuple(gx.shape)} {gx.dtype} against "
+                             f"{tuple(shape)} {dt}")
+        _validate("convlstm_serving_rows", gx, w, h0, c0)
+    b, t, rows, wid, four_c = shape
+    ch = four_c // 4
+    plan = recurrence_plan("convlstm_serving", b, t, rows * n, wid, ch, dt, shards=n)
+    seq_shape = (b, t, rows, wid, ch)
+    gx = [x.contiguous() for x in gates_x_rows]
+    h0_in = [h.to(dt).contiguous() for h in h0_rows]  # the conv's input at t = 0
+    c = [x.to(torch.float32, copy=True).contiguous() for x in c0_rows]  # updated in place
+    h_final = [torch.empty(h.shape, dtype=torch.float32, device=h.device) for h in h0_in]
+    h_seq = [torch.empty(seq_shape, dtype=dt, device=x.device) for x in gx]
+
+    def stage(i: int, j: int):
+        """Shard i's buffer for neighbour j's row, or None to read it in place
+        (the same device, so the same stream, unless ``staged``)."""
+        if not 0 <= j < n or (gx[j].device == gx[i].device and not staged):
+            return None
+        return torch.empty((b, wid, ch), dtype=dt, device=gx[i].device)
+
+    top = [stage(i, i - 1) for i in range(n)]
+    bot = [stage(i, i + 1) for i in range(n)]
+    streams = []
+    for x in gx:
+        current = torch.cuda.current_stream(x.device)
+        if staged:  # after the copies and buffers above: a side stream starts behind them
+            side = torch.cuda.Stream(x.device)
+            side.wait_stream(current)
+            streams.append(side)
+        else:
+            streams.append(current)
+
+    def ptrs(tensors) -> ctypes.Array:
+        return (ctypes.c_void_p * n)(*[0 if x is None else x.data_ptr() for x in tensors])
+
+    lib = _build.load(_KERNEL, _SIGNATURES)
+    status = lib.convlstm_serving_rows(
+        ptrs(gx), ptrs(weights), ptrs(h0_in), ptrs(c), ptrs(h_seq),
+        ptrs(h_final), ptrs(top), ptrs(bot),
+        (ctypes.c_int * n)(*[x.device.index for x in gx]),
+        (ctypes.c_void_p * n)(*[s.cuda_stream for s in streams]),
+        n, b, t, rows, wid, ch, int(dt == torch.bfloat16))
+    if staged:
+        for x, side in zip(gx, streams):
+            torch.cuda.current_stream(x.device).wait_stream(side)
+    _build.check(lib, _KERNEL, status)
+    convlstm_recurrence.launches += plan.launches
+    return h_seq, list(zip(h_final, c))
 
 
 convlstm_recurrence.launches = 0

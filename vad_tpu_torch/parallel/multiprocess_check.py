@@ -23,10 +23,17 @@ card) and drives the REAL training stack over the resulting mesh:
   ``chip_smoke.py``'s scaling phase applies too.
 
 Without ``--model-parallel`` the check trains the image model, as JAX's
-does.  On the CPU that form passes; on an H100 its f32 step is
-reproducible only to about 1% across batch splits, because f32 rounding
-puts a BatchNorm output on the other side of its ReLU's zero (ROADMAP
-Queue 3 (e); ``python -m vad_tpu_torch.tools.probe_kinks``).
+does.  Its step is piecewise linear: every BatchNorm output feeds a
+(leaky) ReLU or a 2x2 max-pool, and f32 rounding may put an element on
+the other side of a kink in one run and not in another (on an H100 one
+BatchNorm output at 16 rows; ``python -m vad_tpu_torch.tools.probe_kinks``),
+which moves every gradient upstream of it by about 1%.  So each f32 run
+records every step's pattern (``KinkPattern``: the sign of every ReLU and
+LeakyReLU input, every 2x2 max-pool's winner), the control takes its
+steps through the 2-rank run's kinks (``launch``), and the launcher takes
+the float64 step once with the 2-rank run's pattern and once with the
+control's (``anchor_first_step``): each run is judged by its distance from
+its own anchor.
 ``--model-parallel 2`` trains the video model with the model group
 spanning both processes (column j of the one data row is process j), so
 the gate weights are sliced across the process boundary and gathered over
@@ -48,6 +55,9 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 IMAGE_SIZE = 16
 LATENT_DIM = 32
@@ -113,8 +123,6 @@ def _model_and_data(model_parallel: int):
 def run_worker(args) -> None:
     """One rank of the distributed program, or the 1-process control
     (``--num-processes 1``: no process group)."""
-    import torch
-
     from vad_tpu_torch.data.loader import DistributedLoader
     from vad_tpu_torch.ops import convlstm
     from vad_tpu_torch.ops.losses import mse_per_sample
@@ -174,11 +182,19 @@ def run_worker(args) -> None:
                                     "torch_opt_state": optimizer.state_dict()},
                      model, optimizer, mesh)
 
+    forced = []
     with tf32_off(device.type == "cuda"):
         it = iter(loader)
         for step in range(args.steps):
             batch, n_real = next(it)
-            losses.append(float(train_step(model, optimizer, batch["image"], n_real)))
+            # the control replays the distributed run's kinks (``launch``)
+            replay = (torch.load(Path(args.replay) / f"replay_step{step}.pt")
+                      if args.replay else None)
+            with KinkPattern(replay) as kinks:
+                losses.append(float(train_step(model, optimizer, batch["image"], n_real)))
+            forced.append([kinks.forced, kinks.elements])
+            torch.save(kinks.recorded if replay is None else replay,
+                       out / f"pattern{args.process_id}_step{step}.pt")
             if step == 0:
                 save(out / "ckpt" / "step1_model.ckpt")
     launches = {"convlstm_train_forward": convlstm.convlstm_train_forward.launches,
@@ -213,6 +229,7 @@ def run_worker(args) -> None:
         "losses": losses,
         "launches": launches,
         "sliced": sorted(shardings),
+        "kinks_forced": forced,
         "global_batch_sha": int(np.asarray(global_batch, dtype=np.uint64).sum()),
     }
     (out / f"proc{args.process_id}.json").write_text(json.dumps(record))
@@ -273,11 +290,83 @@ def _load_run(sub: Path, model_parallel: int) -> dict:
     return out
 
 
-def anchor_first_step(model_parallel: int) -> tuple:
-    """(the effective gradient of the first step, by parameter name; the
-    initial weights) of the 1-process program taken in float64 on the CPU:
-    the first global batch, the same weights."""
-    import torch
+class KinkPattern(TorchFunctionMode):
+    """The kinks of a step's piecewise-linear activations, recorded or
+    replayed while the mode is active.
+
+    Recording (``replay`` None) leaves the computation as it is and keeps,
+    in call order, the sign of every ``F.relu`` and ``F.leaky_relu`` input
+    (``x > 0``) and the winner of every ``F.max_pool2d`` window (its flat
+    index in the input plane, ``max_pool2d_with_indices``'), on the CPU, in
+    ``recorded``.  Replaying computes each of them through the recorded
+    pattern instead: ``where(mask, x, 0)``, ``where(mask, x, slope * x)``
+    and a gather of the winners, so a float64 step follows the kinks of an
+    f32 run.  A call whose kinks all agree with the pattern runs the
+    function itself (the same function, the same autograd op), so a step
+    replaying its own pattern is that step bit for bit; ``forced`` counts
+    the kink elements that differ, of ``elements`` replayed."""
+
+    def __init__(self, replay=None) -> None:
+        super().__init__()
+        self.replay = None if replay is None else list(replay)
+        self.recorded = []
+        self.forced = self.elements = 0
+        self._next = 0
+
+    def __exit__(self, *exc) -> None:
+        super().__exit__(*exc)
+        if exc[0] is None and self.replay is not None and self._next != len(self.replay):
+            raise ValueError(f"the step used {self._next} of the pattern's "
+                             f"{len(self.replay)} kinks")
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in (F.relu, F.leaky_relu, F.max_pool2d):
+            return func(*args, **kwargs)
+        x = args[0]
+        pool = func is F.max_pool2d
+        with torch.no_grad():
+            own = F.max_pool2d_with_indices(*args, **kwargs)[1] if pool else x > 0
+        if self.replay is None:
+            self.recorded.append(own.cpu())
+            return func(*args, **kwargs)
+        if self._next >= len(self.replay):
+            raise ValueError(f"the step has more kinks than the pattern's {len(self.replay)}")
+        kink = self.replay[self._next].to(x.device)
+        self._next += 1
+        if own.shape != kink.shape:
+            raise ValueError(f"kink {self._next - 1}: pattern {tuple(kink.shape)}, "
+                             f"step {tuple(own.shape)}")
+        self.elements += kink.numel()
+        if torch.equal(own, kink):
+            return func(*args, **kwargs)
+        self.forced += int((own != kink).sum())
+        if pool:  # in the input's memory format, as max_pool2d's output
+            out = x.flatten(2).gather(2, kink.flatten(2)).view(kink.shape)
+            if x.dim() == 4 and not x.is_contiguous() and x.is_contiguous(
+                    memory_format=torch.channels_last):
+                out = out.contiguous(memory_format=torch.channels_last)
+            return out
+        if func is F.relu:
+            return torch.where(kink, x, torch.zeros_like(x))
+        slope = args[1] if len(args) > 1 else kwargs.get("negative_slope", 0.01)
+        return torch.where(kink, x, x * slope)
+
+
+def join_patterns(patterns: list) -> list:
+    """One global batch's pattern from its row blocks' (the ranks of one
+    model column, in data order): each kink's rows concatenated."""
+    return [torch.cat(parts) for parts in zip(*patterns)]
+
+
+def first_step(model_parallel: int, dtype=None, pattern=None, loss_weights=None) -> tuple:
+    """The 1-process program's first step on the CPU (the first global
+    batch, the initial weights), in ``dtype`` (``None``: f32), through
+    ``pattern``'s kinks when given: (its effective gradient, the gradient
+    plus Adam's coupled weight decay, by parameter name, float64 numpy;
+    the initial weights; the kink pattern the step took).
+    ``loss_weights``: a weight per row of the per-sample loss (a rank's
+    share of the gradient scaled, for tests)."""
 
     from vad_tpu_torch.data.loader import DistributedLoader
     from vad_tpu_torch.ops.losses import mse_per_sample
@@ -288,10 +377,25 @@ def anchor_first_step(model_parallel: int) -> tuple:
     loader = DistributedLoader(dataset, BATCH_SIZE, shuffle=True, seed=SEED, num_workers=0,
                                device="cpu")
     batch, n_real = next(iter(loader))
+    loss = mse_per_sample
+    if loss_weights is not None:
+        scale = torch.as_tensor(loss_weights)
+        loss = lambda pred, x: mse_per_sample(pred, x) * scale.to(pred.dtype)  # noqa: E731
     opt = torch.optim.SGD(model.parameters(), lr=0.0)  # keeps the weights, leaves .grad
-    make_train_step(mse_per_sample, torch.float64)(model, opt, batch["image"], n_real)
-    return {n: p.grad.double().numpy() + WEIGHT_DECAY * weights[n]
-            for n, p in model.named_parameters()}, weights
+    with KinkPattern(pattern) as kinks:
+        make_train_step(loss, dtype)(model, opt, batch["image"], n_real)
+    grad = {n: p.grad.double().numpy() + WEIGHT_DECAY * weights[n]
+            for n, p in model.named_parameters()}
+    return grad, weights, kinks.recorded if pattern is None else pattern
+
+
+def anchor_first_step(model_parallel: int, pattern=None) -> tuple:
+    """(the effective gradient of the first step, by parameter name; the
+    initial weights) of the 1-process program taken in float64 on the CPU:
+    the first global batch, the same weights, through ``pattern``'s kinks
+    (a run's ``KinkPattern``; ``None``: float64's own)."""
+    grad, weights, _ = first_step(model_parallel, torch.float64, pattern)
+    return grad, weights
 
 
 # judge_training's bars: the repo's f32 and bf16 parity bars; the rel L2 a
@@ -305,6 +409,11 @@ BF16_BAR = dict(rtol=0.05, atol=0.02)
 BF16_REL_L2 = 0.05
 UPDATE_REL_L2 = 0.25
 GRADIENT_NOISE = 1e-4
+# The share of its kink elements the control may take otherwise than its
+# own f32 rounding would (``launch``): a flipped kink is an element at
+# rounding noise across a ReLU's zero or a near tie of a max-pool; a wrong
+# distributed step flips far more.
+FORCED_KINKS = 1e-4
 
 
 def _rel_l2(a, b) -> float:
@@ -313,7 +422,7 @@ def _rel_l2(a, b) -> float:
 
 
 def judge_training(got: dict, control: dict, anchor: dict, init: dict, skip: set,
-                   f32: bool = True) -> dict:
+                   f32: bool = True, got_anchor: dict | None = None) -> dict:
     """A distributed run's training against the 1-process control's on the
     same global batches.
 
@@ -321,7 +430,9 @@ def judge_training(got: dict, control: dict, anchor: dict, init: dict, skip: set
     (the gradient plus Adam's coupled weight decay) by parameter name,
     "states": [the state dict after each step judged, the first step's
     first]}`` (numpy or CPU tensors); ``anchor``: the same effective
-    gradient of the control's program in float64; ``init``: the weights
+    gradient of the control's program in float64, through the control's
+    kinks; ``got_anchor``: the same through the run's own kinks
+    (``KinkPattern``; ``None``: ``anchor``); ``init``: the weights
     before the first step; ``skip``: ``zero_gradient_biases``, left out
     with the BatchNorm running means they shift.
 
@@ -334,7 +445,8 @@ def judge_training(got: dict, control: dict, anchor: dict, init: dict, skip: set
 
     - f32, the first step's effective gradient of each parameter: allclose
       to the control's at ``F32_BAR`` (atol of its largest entry), or no
-      further from the anchor (rel L2) than twice the control is, + 1e-5.
+      further from its own anchor (rel L2) than twice the control is from
+      the control's, + 1e-5.
       A backend may sum in another order or take another convolution
       algorithm at another batch size, so the run may differ from the
       control by the size of their f32 errors, but it may not be less
@@ -355,16 +467,18 @@ def judge_training(got: dict, control: dict, anchor: dict, init: dict, skip: set
     def arr(x):
         return np.asarray(x.numpy() if hasattr(x, "numpy") else x, np.float64)
 
+    got_anchor = anchor if got_anchor is None else got_anchor
     by_anchor, failed, waived, updates, at_noise = {}, [], 0, {}, {}
     for name, exact in anchor.items():
         if name in skip:
             continue
         g, ref, exact = arr(got["grad"][name]), arr(control["grad"][name]), arr(exact)
+        own = arr(got_anchor[name])
         at_noise[name] = np.abs(exact) <= (2 * np.abs(ref - exact).max()
                                            + GRADIENT_NOISE * np.abs(exact).max())
         if f32 and not np.allclose(g, ref, rtol=F32_BAR["rtol"],
                                    atol=F32_BAR["atol"] * np.abs(ref).max()):
-            rec = {"rel_l2_to_control": _rel_l2(g, ref), "rel_l2_to_f64": _rel_l2(g, exact),
+            rec = {"rel_l2_to_control": _rel_l2(g, ref), "rel_l2_to_f64": _rel_l2(g, own),
                    "control_rel_l2_to_f64": _rel_l2(ref, exact)}
             by_anchor[name] = rec
             if rec["rel_l2_to_f64"] > 2 * rec["control_rel_l2_to_f64"] + 1e-5:
@@ -408,21 +522,42 @@ def launch(processes: int = 2, steps: int = 2, out_dir: str | None = None,
     """Spawn the multi-process run and a 1-process control; check that
     every rank agrees, that the losses match the control's and that the
     checkpoints match the control's (``judge_training``).
+
+    The control takes every step through the kinks the distributed run
+    took (its ranks' ``KinkPattern`` joined in row order), so the two runs
+    differ only in how their sums are taken, which is what the check
+    tests: a kink that f32 rounding puts on one side in one run and on the
+    other in the other decides the sign of Adam's first step for every
+    weight whose exact gradient it moves across zero, and the runs part
+    from there.  At most ``FORCED_KINKS`` of the control's kink elements
+    may differ from its own.  Each run's first-step gradient is judged
+    against the float64 step through its own kinks.
     Prints the record as one JSON line, then raises ``AssertionError``
     naming what failed, or returns the record."""
     out = Path(out_dir or tempfile.mkdtemp(prefix="vad_torch_mp_"))
 
     def cmd(process_id: int, num_processes: int, sub: Path) -> list:
+        replay = ["--replay", str(sub)] if num_processes == 1 else []
         return [sys.executable, "-m", "vad_tpu_torch.parallel.multiprocess_check", "--worker",
                 "--process-id", str(process_id), "--num-processes", str(num_processes),
                 "--init-method", f"file://{sub / 'store'}", "--model-parallel",
                 str(model_parallel), "--steps", str(steps), "--device", device,
-                "--out", str(sub)]
+                "--out", str(sub), *replay]
+
+    def joined(sub: Path, n: int, step: int) -> list:
+        """A run's kink pattern of one step over the global batch: its
+        model column's ranks (0, mp, 2 mp, ...: data order)."""
+        return join_patterns([torch.load(sub / f"pattern{p}_step{step}.pt")
+                              for p in range(0, n, model_parallel if n > 1 else 1)])
 
     runs = {}
     for name, n in (("multiproc", processes), ("singleproc", 1)):
         sub = out / name
         (sub / "ckpt").mkdir(parents=True, exist_ok=True)
+        if n == 1:
+            for step in range(steps):
+                torch.save(joined(out / "multiproc", processes, step),
+                           sub / f"replay_step{step}.pt")
         logs = [sub / f"proc{p}.log" for p in range(n)]
         procs = [subprocess.Popen(cmd(p, n, sub), env=_worker_env(), stdout=open(log, "w"),
                                   stderr=subprocess.STDOUT) for p, log in enumerate(logs)]
@@ -448,12 +583,25 @@ def launch(processes: int = 2, steps: int = 2, out_dir: str | None = None,
         failed.append("losses against the control")
     if records[0]["global_batch_sha"] != control["global_batch_sha"]:
         failed.append("the global batch against the control's")
+    forced, elements = (sum(f[k] for f in control["kinks_forced"]) for k in (0, 1))
+    if forced > FORCED_KINKS * elements:
+        failed.append(f"the control forced {forced} of {elements} kinks")
+    # each run's float64 anchor follows the kinks its own first step took
     model, _ = _model_and_data(model_parallel)
-    anchor, init = anchor_first_step(model_parallel)
-    checkpoint = judge_training(_load_run(out / "multiproc", model_parallel),
-                                _load_run(out / "singleproc", model_parallel),
-                                anchor, init, set(zero_gradient_biases(model)))
+    anchors = {}
+    for name, n in (("multiproc", processes), ("singleproc", 1)):
+        anchors[name], init = anchor_first_step(model_parallel, joined(out / name, n, 0))
+    loaded = {name: _load_run(out / name, model_parallel) for name in anchors}
+    skip = set(zero_gradient_biases(model))
+    checkpoint = judge_training(loaded["multiproc"], loaded["singleproc"],
+                                anchors["singleproc"], init, skip,
+                                got_anchor=anchors["multiproc"])
     failed += [f"checkpoint: {f}" for f in checkpoint["failed"]]
+    # each run's first-step gradients against its own float64 anchor
+    to_anchor = {}
+    for name, anchor in anchors.items():
+        dist = [_rel_l2(loaded[name]["grad"][k], anchor[k]) for k in anchor if k not in skip]
+        to_anchor[name] = {"median": float(np.median(dist)), "max": float(np.max(dist))}
     result = {
         "processes": processes,
         "model_parallel": model_parallel,
@@ -463,6 +611,8 @@ def launch(processes: int = 2, steps: int = 2, out_dir: str | None = None,
         "multiproc_losses": records[0]["losses"],
         "singleproc_losses": control["losses"],
         "launches": [r["launches"] for r in records],
+        "control_kinks_forced": {"forced": forced, "elements": elements},
+        "grad_rel_l2_to_own_anchor": to_anchor,
         "checkpoint": checkpoint,
         "failed": failed,
         "ok": not failed,
@@ -485,6 +635,8 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--replay", default=None,
+                    help="(worker) take each step through the kink patterns in this directory")
     ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
     if args.worker:

@@ -24,7 +24,10 @@ the grid, and explicit collectives:
 A mesh of one process (``ranks`` None) is the evaluators', the scorer's and
 the daemon's form: one model replica per local device along 'data', the
 batch split in rows, no collectives (``data_parallel``, JAX's
-``data_parallel_jit``).
+``data_parallel_jit``).  Under the spatial row split (``parallel/spatial.py``)
+'model' splits each frame's rows: one model copy per grid cell, cell
+``(i, j)`` holding row range j of replica i's slots
+(``spatial_frame_sharding``, ``spatial_state_sharding``).
 
 The process group comes from torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``):
@@ -207,6 +210,32 @@ def pad_batch_for_devices(arrays: Dict, batch_size: int) -> tuple:
         else:
             out[k] = v
     return out, n_real
+
+
+def _spatial_ranges(mesh: Mesh, height: int, rows: int) -> List[slice]:
+    model_n = mesh.shape[MODEL_AXIS]
+    if height % (16 * model_n):
+        raise ValueError(f"H={height} and H/16 must divide by the "
+                         f"'{MODEL_AXIS}' axis of size {model_n}")
+    per = rows // model_n
+    return [slice(j * per, (j + 1) * per) for j in range(model_n)]
+
+
+def spatial_frame_sharding(mesh: Mesh, height: int) -> List[slice]:
+    """Frames ``[S, T, H, W, 3]`` under the spatial row split (JAX's layout
+    ``P('data', None, 'model')``): the rows of H each model index holds,
+    in order (slots split over 'data' as ``data_parallel`` splits them).
+    Raises JAX's error unless H and H/16 divide by the 'model' axis."""
+    return _spatial_ranges(mesh, height, height)
+
+
+def spatial_state_sharding(mesh: Mesh, height: int) -> List[slice]:
+    """The carried ConvLSTM ``(h, c)`` ``[S, H/16, W/16, C]`` under the
+    spatial row split (JAX's ``P('data', 'model')``): the latent rows each
+    model index holds, where the rows of its frames' activations live.
+    ``height`` is the frame's H; the same rule as
+    ``spatial_frame_sharding``."""
+    return _spatial_ranges(mesh, height, height // 16)
 
 
 # ------------------------------------------------------- tensor parallelism

@@ -5,8 +5,8 @@ The flags of the JAX package's ``serve.py``, plus ``--device`` (default
 REST protocol is in ``vad_tpu_torch/eval/http_server.py``; either
 package's ``ScoringClient`` drives it.  ``--data-parallel`` splits the
 stream slots (and the image batch) over every card, one model replica per
-card; ``--spatial`` > 1 raises: the row split is not ported yet (ROADMAP
-Queue 1 item 10b).
+card; ``--spatial N`` also splits each frame's rows over N of them
+(``parallel/spatial.py``).
 
     python -m vad_tpu_torch.serve --checkpoint results/video_S01_.../best_model.ckpt \\
         --port 8600 --slots 16 --chunk 16
@@ -50,8 +50,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "cards ('data'-axis mesh); each card's model replica "
                         "serves slots/n_cards independent streams")
     p.add_argument("--spatial", type=int, default=1, metavar="N",
-                   help="Also split image rows over N devices (not ported "
-                        "yet: N > 1 raises, ROADMAP Queue 1 item 10b)")
+                   help="Also split image rows over a 'model' mesh axis of "
+                        "size N (spatial partitioning for few high-resolution "
+                        "streams; requires H and H/16 divisible by N and N "
+                        "devices; kernel 1 runs its row form)")
     p.add_argument("--watch", type=str, default=None, metavar="PATH",
                    help="Auto-deploy: poll this checkpoint file or results "
                         "directory (recursive best_model.ckpt scan) and "
