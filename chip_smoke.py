@@ -78,6 +78,14 @@ model's full width:
   at 256² and 512² (``model_parallel`` 2 and 4) and the ``--spatial 2``
   daemon (/v1/streams, /v1/images) against the unsplit scorer and
   service, with kernel 1's row launches counted and none of kernel 4;
+- the bench: ``python -m vad_tpu_torch.bench`` (the JAX package's
+  ``bench.py`` on the card) once in process at full size, its output
+  captured: each scoring step form against the plain step at the bf16
+  bar, then its 11 configuration lines and the headline, in order, with
+  positive values, ``mfu`` <= 1, the card's name and power limit, the
+  headline the best scoring line, and kernels 1-4's launches counted
+  around each line equal to what the plans give (none on the plain
+  lines);
 - the kernel probes: kernel 5 (the tie-splitting 2x2 max-pool backward)
   held exactly against its plain version at the encoder's four pool
   inputs, kernel 6's five ablation modes against theirs (``full`` equal
@@ -236,18 +244,12 @@ def close(got, ref, bar) -> tuple:
     return float((got - ref).abs().max()), bool(torch.allclose(got, ref, **bar))
 
 
-@contextmanager
 def plain_versions():
-    """Route the serving path through the kernels' plain PyTorch versions."""
-    from vad_tpu_torch.ops import convlstm, encoder_fused
+    """Route the serving path through the kernels' plain PyTorch versions
+    (``vad_tpu_torch/ops/plain.py``, the bench's plain lines' route)."""
+    from vad_tpu_torch.ops.plain import plain_versions as routed
 
-    saved = convlstm.convlstm_recurrence, encoder_fused.fused_first_block
-    convlstm.convlstm_recurrence = convlstm.convlstm_recurrence_ref
-    encoder_fused.fused_first_block = encoder_fused.fused_first_block_ref
-    try:
-        yield
-    finally:
-        convlstm.convlstm_recurrence, encoder_fused.fused_first_block = saved
+    return routed()
 
 
 def no_tf32():
@@ -3531,6 +3533,176 @@ def phase_spatial(card: str, image: dict, workdir: Path, peak_flops: float, peak
             + launches["first_block"]}
 
 
+# ------------------------------------------------------------- the bench
+
+BENCH_CHUNKS = 2  # chunks of each scoring form held against the plain step
+
+
+class BenchLines(io.TextIOBase):
+    """Standard output for ``vad_tpu_torch.bench.main()``: each line it
+    prints, with the port's kernel launches since the previous line (the
+    counters are read and zeroed at every newline, so each line's count is
+    its own measurement's)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.pending, self.lines = "", []
+
+    def writable(self) -> bool:
+        return True
+
+    def write(self, text: str) -> int:
+        self.pending += text
+        while "\n" in self.pending:
+            line, self.pending = self.pending.split("\n", 1)
+            if line.strip():
+                self.lines.append((line, read_counters()))
+                zero_counters()
+        return len(text)
+
+
+def bench_expected_launches() -> dict:
+    """``{line: {kernel: launches}}`` of one ``vad_tpu_torch.bench.main()``
+    run at its shapes (2 ConvLSTM layers, 16x16 latent, C=128): a step is
+    its warm-up plus every timed step, each layer's recurrence one call,
+    each call the launches its plan gives; kernel 4 once a fused step."""
+    import torch
+
+    from vad_tpu_torch import bench
+    from vad_tpu_torch.ops.convlstm import recurrence_plan
+
+    layers, lat, ch = 2, bench.IMAGE_SIZE // 16, 128
+    none = dict.fromkeys(train_kernel_counters(), 0)
+
+    def recurrence(kernel: str, b: int, t: int, steps: int, dtype=torch.bfloat16) -> int:
+        return steps * layers * recurrence_plan(kernel, b, t, lat, lat, ch, dtype).launches
+
+    out = {}
+    for name, form, t in bench.SCORING_CONFIGS:
+        steps = 1 + bench.WINDOWS * bench.scoring_iters(t)
+        out[name] = {**none, "convlstm_serving": 0 if form == "plain" else
+                     recurrence("convlstm_serving", bench.STREAMS, t, steps),
+                     "first_block": steps if form == "fused" else 0}
+    steps = 1 + bench.WINDOWS * bench.scoring_iters(16)
+    out[bench.STRIDE2_CONFIG] = {**none, "convlstm_serving": recurrence(
+        "convlstm_serving", bench.STREAMS, 16, steps)}
+    out[bench.IMAGE_CONFIG] = dict(none)
+    steps = 1 + bench.TRAIN_WINDOWS * bench.TRAIN_ITERS
+    for name, compute_dtype, _ in bench.TRAIN_CONFIGS:
+        dtype = compute_dtype or torch.float32
+        out[name] = {**none, **{k: recurrence(k, bench.TRAIN_BATCH, 16, steps, dtype)
+                                for k in ("convlstm_train_forward", "convlstm_backward")}}
+    for name, b, frames in ((bench.E2E_CONFIG, 1, bench.E2E_FRAMES),
+                            (bench.MS_CONFIG, bench.MS_STREAMS, bench.MS_FRAMES)):
+        out[name] = {**none, "convlstm_serving": recurrence(
+            "convlstm_serving", b, 16, 1 + math.ceil(frames / 16))}
+    out[bench.HEADLINE_METRIC] = dict(none)  # the CPU baseline
+    return out
+
+
+def check_bench_forms() -> dict:
+    """Each of the bench's scoring step forms (``bench.scoring_step``) at
+    its full size against the plain step on the same weights, over
+    ``BENCH_CHUNKS`` chunks of random bytes with the state carried: the
+    scores and every layer's (h, c) at the bf16 bar."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch import bench
+
+    rng = np.random.default_rng(SEED + 60)
+    chunks = [torch.from_numpy(rng.integers(0, 256, (bench.STREAMS, T, IMAGE, IMAGE, 3),
+                                            dtype=np.uint8)).cuda() for _ in range(BENCH_CHUNKS)]
+
+    def run(step, model):
+        states, scores = model.zero_state(bench.STREAMS, IMAGE, IMAGE), []
+        for chunk in chunks:
+            got, states = step(chunk, states)
+            scores.append(got)
+        return torch.stack(scores), states
+
+    out = {}
+    for stem, forms in (("pool", ("fused", "kernel")), ("stride2", ("kernel",))):
+        model = bench.video_model("cuda", stem)
+        ref_scores, ref_states = run(bench.scoring_step(model, "plain"), model)
+        for form in forms:
+            scores, states = run(bench.scoring_step(model, form), model)
+            rec = {"scores": agree(scores, ref_scores),
+                   "states": [{"h": agree(h, rh), "c": agree(c, rc)}
+                              for (h, c), (rh, rc) in zip(states, ref_states)]}
+            rec["ok"] = rec["scores"]["ok"] and all(
+                s["h"]["ok"] and s["c"]["ok"] for s in rec["states"])
+            out[f"{stem}-{form}"] = rec
+    return out
+
+
+def phase_bench(card: str) -> dict:
+    """``python -m vad_tpu_torch.bench`` (the JAX package's ``bench.py`` on
+    the card) once, in process, at full size, its output captured:
+
+    - each scoring form against the plain step (``check_bench_forms``);
+    - ``bench.main()``: all 11 configuration lines and the headline, in
+      order, each with positive values, ``mfu`` <= 1 and the card's name
+      and power limit; the headline equal to the best scoring line;
+    - the launches of kernels 1-4 counted around each line, equal to
+      ``bench_expected_launches`` (kernel 1 on neither plain line, and on
+      the kernel lines run after them: nothing stays routed to the plain
+      versions).
+
+    Each bench line is printed again as a ``bench_line`` line with its
+    launches; the ``bench`` line has the phase's seconds."""
+    import torch
+
+    from vad_tpu_torch import bench
+    from vad_tpu_torch.ops import convlstm, encoder_fused
+    from vad_tpu_torch.ops.convlstm import recurrence_plan
+
+    phase_start = time.perf_counter()
+    forms = check_bench_forms()
+    require(all(r["ok"] for r in forms.values()),
+            f"the bench's scoring forms against the plain step: "
+            f"{ {k: r['scores']['max_abs_err'] for k, r in forms.items() if not r['ok']} }")
+    entry = convlstm.convlstm_recurrence, encoder_fused.fused_first_block
+
+    out = BenchLines()
+    zero_counters()
+    main_start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        bench.main([])
+    main_seconds = time.perf_counter() - main_start
+    require((convlstm.convlstm_recurrence, encoder_fused.fused_first_block) == entry,
+            "the kernels' entry points are restored after the bench")
+    records = [(json.loads(line), launches) for line, launches in out.lines]
+    expected = bench_expected_launches()
+    names = [rec.get("config", rec.get("metric")) for rec, _ in records]
+    require(names == list(expected), f"the bench's lines, in order: {names}")
+    scoring = {name for name, _, _ in bench.SCORING_CONFIGS}
+    for rec, launches in records:
+        name = rec.get("config") or rec["metric"]
+        numbers = [v for k, v in rec.items() if isinstance(v, (int, float))]
+        emit({"phase": "bench_line", **rec, "launches": launches})
+        require(all(v > 0 for v in numbers) and 0 < rec.get("mfu", 1) <= 1,
+                f"positive values and mfu <= 1 on {name!r}: {rec}")
+        require(rec["device"] == torch.cuda.get_device_name(0) and rec["power_limit_w"] > 0,
+                f"{name!r} names the card and its power limit")
+        require(launches == expected[name],
+                f"kernel launches on {name!r}: {launches}, expected {expected[name]}")
+    head = records[-1][0]
+    best = max(rec["value"] for rec, _ in records if rec.get("config") in scoring)
+    require(head["value"] == best
+            and head["flops_per_frame"] == bench.model_flops_per_frame(bench.IMAGE_SIZE)
+            and head["vs_baseline"] > 0 and head["baseline_cpu"],
+            f"the headline is the best scoring line ({best}): {head}")
+    designs = {f"T={t}": recurrence_plan("convlstm_serving", bench.STREAMS, t, IMAGE // 16,
+                                         IMAGE // 16, 128, torch.bfloat16).design
+               for t in (16, 64)}
+    emit({"phase": "bench", "card": card, "lines": len(records),
+          "forms_vs_plain": forms, "kernel_1_design": designs, "main_seconds": main_seconds,
+          "seconds": time.perf_counter() - phase_start})
+    return {k: {rec.get("config", rec.get("metric")): n[k] for rec, n in records if n[k]}
+            for k in train_kernel_counters()}
+
+
 def free_port() -> int:
     import socket
 
@@ -3576,6 +3748,7 @@ def main() -> int:
         accuracy = phase_accuracy(card, work / "accuracy")
         scaling = phase_scaling(card, profiling["data"], work / "scaling")
         spatial = phase_spatial(card, image, work / "spatial", peak_flops, peak_bw, f32_flops)
+        bench_launches = phase_bench(card)
     probes = phase_probes()
     checks.update(probes)
     kernels = []
@@ -3633,6 +3806,8 @@ def main() -> int:
             kernels[-1]["scaling_launches_per_rank"] = scaling["launches"][kname]
         if kname in ("convlstm_serving", "first_block"):  # two scorer replicas on one card
             kernels[-1]["scaling_scorer_launches"] = scaling["scorer_launches"][kname]
+        if kname in bench_launches:  # python -m vad_tpu_torch.bench, by line
+            kernels[-1]["bench_launches"] = bench_launches[kname]
     emit({"kernels": kernels})
     import torch
 

@@ -136,6 +136,14 @@ NEW_NAMES = {
     "vad_tpu_torch.utils.checkpoint": ("latest_checkpoint",),
     "vad_tpu_torch.ops.losses": ("make_loss_fn",),
     "vad_tpu_torch.train.state": ("load_optax_adam_state",),
+    # the benchmark entry point and its CPU baseline (bench.py and
+    # vad_tpu/utils/baseline_torch.py), and the plain route they share
+    "vad_tpu_torch.bench": ("main", "make_source_frames", "model_flops_per_frame",
+                            "image_model_flops", "scoring_step", "measure", "measure_image",
+                            "measure_train", "measure_e2e_mp4", "measure_e2e_multistream"),
+    "vad_tpu_torch.utils.baseline_torch": ("measure_reference_cpu_fps",
+                                           "_build_reference_equivalent_model"),
+    "vad_tpu_torch.ops.plain": ("plain_versions",),
 }
 
 

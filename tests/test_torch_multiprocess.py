@@ -315,3 +315,22 @@ def test_tensor_parallel_resume_of_a_jax_checkpoint(synthetic_video_root, tmp_pa
         for key in ("exp_avg", "exp_avg_sq"):
             np.testing.assert_allclose(np.asarray(s2[i][key]), np.asarray(s1[i][key]),
                                        rtol=1e-4, atol=1e-9, err_msg=f"{i} {key}")
+
+
+def test_check_runs_on_the_card_unless_the_cpu_is_asked_for(tmp_path, monkeypatch):
+    """``launch`` and the CLI default to ``cuda``, as every entry point of
+    the port: without a card they raise before a process is spawned."""
+    import inspect
+
+    from vad_tpu_torch.parallel import multiprocess_check
+
+    assert inspect.signature(launch).parameters["device"].default == "cuda"
+    spawned = []
+    monkeypatch.setattr(multiprocess_check.subprocess, "Popen",
+                        lambda *a, **kw: spawned.append(a))
+    monkeypatch.setattr(multiprocess_check.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multiprocess_check.main(["--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch(out_dir=str(tmp_path))
+    assert spawned == [] and not any(tmp_path.iterdir())

@@ -10,7 +10,8 @@ written once.  The host pipeline has two stages, each on its own thread:
   last short chunk padded by repeating its last frame (``n_valid`` counts
   the real ones).  A source is a video file read with OpenCV, or any
   iterable of RGB uint8 frames.  This thread never touches CUDA.
-- transfer (``iter_device_chunks``): each chunk is copied into a freshly
+- transfer (``iter_device_chunks``, over any host stage
+  ``device_transfers``): each chunk is copied into a freshly
   pinned host buffer and sent to the card with a non-blocking copy on the
   stage's own CUDA stream, so the copy overlaps the decode of the next
   chunk and the compute of the previous one.  The thread sets its device
@@ -130,12 +131,13 @@ def iter_video_chunks(source: FrameSource, chunk: int, image_size: int, prefetch
     return _background(chunks, prefetch)
 
 
-def iter_device_chunks(source: FrameSource, chunk: int, image_size: int, device=None,
-                       prefetch: int = 2) -> Iterator[Tuple[np.ndarray, torch.Tensor, int]]:
-    """``iter_video_chunks`` plus the transfer stage: (uint8 [chunk,H,W,3]
-    on the host, uint8 [1,chunk,H,W,3] on ``device``, n_valid).  ``device``
-    ``None`` means CUDA.  The device chunk is ready for the consumer's
-    current stream when it is yielded."""
+def device_transfers(host_chunks: Callable[[], Iterator[Tuple[np.ndarray, int]]], device=None,
+                     prefetch: int = 2) -> Iterator[Tuple[np.ndarray, torch.Tensor, int]]:
+    """The transfer stage over any host stage: ``host_chunks()``, run on
+    the transfer thread, yields (uint8 array, n_valid); this yields (the
+    array, its copy on ``device``, n_valid).  ``device`` ``None`` means
+    CUDA.  The device copy is ready for the consumer's current stream when
+    it is yielded."""
     device = resolve_device(device)
     cuda = device.type == "cuda"
     if cuda and device.index is None:  # the transfer thread sets it by index
@@ -144,12 +146,12 @@ def iter_device_chunks(source: FrameSource, chunk: int, image_size: int, device=
 
     def transfers():
         if not cuda:
-            for raw, n_valid in iter_video_chunks(source, chunk, image_size, prefetch):
-                yield raw, torch.from_numpy(raw[None].copy()), n_valid, None
+            for raw, n_valid in host_chunks():
+                yield raw, torch.from_numpy(raw.copy()), n_valid, None
             return
         torch.cuda.set_device(device)
-        for raw, n_valid in iter_video_chunks(source, chunk, image_size, prefetch):
-            host = torch.from_numpy(raw[None]).pin_memory()
+        for raw, n_valid in host_chunks():
+            host = torch.from_numpy(raw).pin_memory()
             with torch.cuda.stream(copy_stream):
                 dev = host.to(device, non_blocking=True)
                 done = torch.cuda.Event()
@@ -162,6 +164,16 @@ def iter_device_chunks(source: FrameSource, chunk: int, image_size: int, device=
             stream.wait_event(done)
             dev.record_stream(stream)
         yield raw, dev, n_valid
+
+
+def iter_device_chunks(source: FrameSource, chunk: int, image_size: int, device=None,
+                       prefetch: int = 2) -> Iterator[Tuple[np.ndarray, torch.Tensor, int]]:
+    """``iter_video_chunks`` plus the transfer stage (``device_transfers``):
+    (uint8 [chunk,H,W,3] on the host, uint8 [1,chunk,H,W,3] on ``device``,
+    n_valid).  ``device`` ``None`` means CUDA."""
+    for raw, dev, n_valid in device_transfers(
+            lambda: iter_video_chunks(source, chunk, image_size, prefetch), device, prefetch):
+        yield raw, dev[None], n_valid
 
 
 def stream_scores(

@@ -41,7 +41,10 @@ it every step; the worker asserts that the other rank holds another slice.
 
 Usage (launcher; spawns the workers and the control, compares):
     python -m vad_tpu_torch.parallel.multiprocess_check [--processes 2]
-        [--steps 2] [--model-parallel 1|2] [--device cpu|cuda]
+        [--steps 2] [--model-parallel 1|2] [--device cuda|cpu]
+
+It runs on the card (``--device cuda``, the default, as every entry point
+of the port) unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
+
+from vad_tpu_torch.core.device import resolve_device
 
 IMAGE_SIZE = 16
 LATENT_DIM = 32
@@ -518,7 +523,7 @@ def judge_training(got: dict, control: dict, anchor: dict, init: dict, skip: set
 
 
 def launch(processes: int = 2, steps: int = 2, out_dir: str | None = None,
-           timeout: float = 600.0, model_parallel: int = 1, device: str = "cpu") -> dict:
+           timeout: float = 600.0, model_parallel: int = 1, device: str = "cuda") -> dict:
     """Spawn the multi-process run and a 1-process control; check that
     every rank agrees, that the losses match the control's and that the
     checkpoints match the control's (``judge_training``).
@@ -533,7 +538,10 @@ def launch(processes: int = 2, steps: int = 2, out_dir: str | None = None,
     may differ from its own.  Each run's first-step gradient is judged
     against the float64 step through its own kinks.
     Prints the record as one JSON line, then raises ``AssertionError``
-    naming what failed, or returns the record."""
+    naming what failed, or returns the record.  ``device`` is every rank's
+    and the control's: ``"cuda"`` (the card; raises when there is none) or
+    ``"cpu"``."""
+    resolve_device(device)
     out = Path(out_dir or tempfile.mkdtemp(prefix="vad_torch_mp_"))
 
     def cmd(process_id: int, num_processes: int, sub: Path) -> list:
@@ -633,7 +641,7 @@ def main(argv=None) -> None:
     ap.add_argument("--processes", type=int, default=2)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    ap.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
     ap.add_argument("--out", default=None)
     ap.add_argument("--replay", default=None,
                     help="(worker) take each step through the kink patterns in this directory")
