@@ -7,11 +7,14 @@ Builds the port's CUDA kernels from ``vad_tpu_torch/csrc`` (reporting each
 source's nvcc seconds and each kernel's registers, shared memory and
 spills), holds each against its plain PyTorch version on the card (f32
 with TF32 off, and bf16; the recurrence kernels 1-3 in every design their
-plan can choose at each checked shape, with the plan, the launches per
-call, the clusters that fit, kernel 3's time by part and its dWh repeated
-bit for bit; kernel 4 with its design and time in both dtypes, and kernels
-4 and 6 at ragged frames), then drives four paths at the default video
-model's full width:
+plan can choose at each checked shape (in f32 stepwise_tc, the plan's
+choice, and the FMA design stepwise beside it), at the serving, training
+and ``--video`` (B=1) shapes, with the plan, its blocks per step, the
+launches per call, the clusters that fit, kernel 3's time by part and its
+dWh repeated bit for bit, each line bounded (f32 as 3xTF32 on the tensor
+cores, with the FMA bound beside it); kernel 4 with its design and time in
+both dtypes, and kernels 4 and 6 at ragged frames), then drives four paths
+at the default video model's full width:
 
 - serving: ``MultiStreamScorer`` (S=16 streams, T=16 frames per chunk,
   256x256, bf16 with f32 cell state, random weights from a seed), checked
@@ -31,7 +34,7 @@ model's full width:
   versions and ``--video-dir`` also against each clip scored alone, with
   frames/s and device time by kernel; then a 64-chunk bf16 stream whose
   carried (h, c) must stay within the bf16 bar of the plain versions;
-  ``temporal_features`` (kernel 1 stepwise, f32) against the plain
+  ``temporal_features`` (kernel 1 stepwise_tc, f32) against the plain
   versions; and ``--scorer latent`` (the latent-distance scorer fitted on
   training windows' frames) over the test windows, with its AUROC;
 - the image model (``ImageAEConfig()``, 256x256) on an MVTec-format
@@ -127,6 +130,7 @@ from pathlib import Path
 S, T, IMAGE = 16, 16, 256  # streams, frames per chunk, frame size
 CHUNKS = 3  # chunks driven through the main path
 B_TRAIN = 8  # training windows per step (T frames each)
+B_VIDEO = 1  # evaluate_video --video: one stream, T-frame chunks
 SEED = 0
 F32_BAR = dict(rtol=1e-4, atol=1e-5)  # the repo's f32 parity bar
 BF16_BAR = dict(rtol=0.05, atol=0.02)  # bf16 policy with f32 cell state
@@ -144,22 +148,26 @@ BF16_NOISY, BF16_NOISY_VS_PLAIN = 0.1, 0.15
 # Device-side names of the port's kernels (csrc/*.cu), for the profiles; a
 # kernel counts under the first name it contains, so longer names that
 # contain shorter ones come first.
-PORT_KERNELS = ("recurrence_kernel", "convlstm_step_kernel", "first_block_kernel",
-                "gate_all_kernel", "gate_kernel", "loop_kernel", "step_kernel", "finish_kernel",
-                "dw_kernel_res", "dw_reduce_kernel", "dw_kernel")
+PORT_KERNELS = ("recurrence_kernel", "convlstm_step_kernel", "convlstm_tc_step",
+                "first_block_kernel", "gate_all_kernel", "gate_tc", "gate_kernel", "loop_kernel",
+                "dh_tc_step", "step_kernel", "finish_kernel", "dw_kernel_res", "dw_reduce_kernel",
+                "dw_kernel")
 # Kernel 3's parts, by device-side name: the gate recompute, the reverse
 # loop and dWh in either design, and the stepwise design's last launch
 # (dh0 and the sum of the dWh partials).
-BWD_PARTS = {"gate_kernel": "gate", "gate_all_kernel": "gate", "loop_kernel": "loop",
-             "step_kernel": "loop", "dw_kernel_res": "dw", "dw_reduce_kernel": "dw",
-             "dw_kernel": "dw", "finish_kernel": "dh0+dw_sum"}
+BWD_PARTS = {"gate_kernel": "gate", "gate_all_kernel": "gate", "gate_tc": "gate",
+             "loop_kernel": "loop", "step_kernel": "loop", "dh_tc_step": "loop",
+             "dw_kernel_res": "dw", "dw_reduce_kernel": "dw", "dw_kernel": "dw",
+             "finish_kernel": "dh0+dw_sum"}
 PROBE_FRAMES = 128  # kernel 5's pool inputs: B*T of the training step (8 x 16)
 # Ragged recurrence shapes (B, T, H, W, C): C=48 is no multiple of any
-# tile, C=20 of 8 (the plain-load path), 5x7 and 3x9 frames; 8x8 with C=32
-# (kernels 1-2 resident in a cluster of 2 with one pixel tile, kernel 3
-# stepwise), 8x16 with C=64 (all resident, clusters of 4, two tiles) and
-# 8x32 with C=128 (four tiles, but the resident blocks would need 235,536
-# bytes of shared memory: every kernel stepwise).
+# tile, C=20 of 8 (the plain-load path), 5x7 and 3x9 frames; in bf16, 8x8
+# with C=32 (kernels 1-2 resident in a cluster of 2 with one pixel tile,
+# kernel 3 stepwise), 8x16 with C=64 (all resident, clusters of 4, two
+# tiles) and 8x32 with C=128 (four tiles, but the resident blocks would
+# need 235,536 bytes of shared memory: every kernel stepwise).  In f32
+# every shape runs stepwise_tc (clusters of 4-8, partial pixel tiles, C=20
+# and 48 with ragged last K stages) and stepwise.
 EDGE_SHAPES = ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20), (3, 2, 8, 8, 32), (2, 3, 8, 16, 64),
                (2, 3, 8, 32, 128))
 # Ragged frames for kernels 4 and 6 (F, H, W, 3): rows of 150 and 810
@@ -269,14 +277,14 @@ def phase_device():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    from vad_tpu_torch.utils.profiling import device_peaks
+    from vad_tpu_torch.utils.profiling import device_peaks, tf32_peak
 
     name = torch.cuda.get_device_name(0)
     card, flops, f32_flops, bw = device_peaks(name)
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count(),
           "peaks_from": card, "peak_bf16_flops": flops, "peak_f32_flops": f32_flops,
-          "peak_bytes_per_s": bw})
+          "peak_tf32_flops": tf32_peak(name), "peak_bytes_per_s": bw})
     return name, flops, bw, f32_flops, smi
 
 
@@ -315,21 +323,64 @@ def phase_build():
     start = time.perf_counter()
     _build.build(["convlstm_serving", "first_block", "convlstm_backward", "pool_bwd",
                   "first_block_ablate"])
+    ptxas = {name: ptxas_summary(rec["log"]) for name, rec in _build.build_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - start,
           "per_source_seconds": {k: v["seconds"] for k, v in _build.build_log.items()},
-          "ptxas": {name: ptxas_summary(rec["log"]) for name, rec in _build.build_log.items()}})
+          "ptxas": ptxas,
+          # the stepwise_tc design's kernels: the wgmma ones (namespace tc;
+          # one or two warpgroups) and kernel 3's mma.sync GEMMs (TC = true)
+          "stepwise_tc_ptxas": {k: v for rec in ptxas.values() for k, v in rec.items()
+                                if "tc::" in k or ", true>" in k}})
+
+
+def design_fits(kernel: str, shape, dtype, design: str) -> bool:
+    from vad_tpu_torch.ops.convlstm import resident_fits, tc_fits
+
+    b, t, hgt, wid, c = shape
+    return {"resident": resident_fits(kernel, hgt, wid, c, dtype),
+            "stepwise_tc": tc_fits(c, dtype, wid)}.get(design, True)
 
 
 def designs(kernel: str, shape, dtype) -> list:
     """Every design ``recurrence_plan`` can choose for ``kernel`` at
     ``shape`` (B, T, H, W, C) and ``dtype``, its own choice first."""
-    from vad_tpu_torch.ops.convlstm import recurrence_plan, resident_fits
+    from vad_tpu_torch.ops.convlstm import recurrence_plan
 
-    b, t, hgt, wid, c = shape
-    chosen = recurrence_plan(kernel, b, t, hgt, wid, c, dtype).design
-    other = [] if not resident_fits(kernel, hgt, wid, c, dtype) else [
-        d for d in ("resident", "stepwise") if d != chosen]
-    return [chosen] + other
+    chosen = recurrence_plan(kernel, *shape, dtype).design
+    return [chosen] + [d for d in ("resident", "stepwise_tc", "stepwise")
+                       if d != chosen and design_fits(kernel, shape, dtype, d)]
+
+
+def recurrence_bound(label: str, flops: float, nbytes: float, peak_flops: float,
+                     peak_bw: float, f32_flops: float) -> dict:
+    """A kernel 1-3 line's bound: the larger of its bytes over the memory
+    rate and its operations over the rate of their type.  bf16 runs on the
+    tensor cores; f32-accurate work takes three TF32 tensor-core products a
+    multiply-add (3xTF32: the stepwise_tc design's arithmetic, and the
+    least time the card can take for it), so f32 is bounded at 3 x FLOP
+    over the TF32 peak, with the FMA cores' bound (FLOP over the f32 peak)
+    beside it as ``bound_fma_ms``."""
+    import torch
+
+    from vad_tpu_torch.utils.profiling import tf32_peak
+
+    t_bytes = nbytes / peak_bw
+    if label == "bf16":
+        t_ops, by = flops / peak_flops, "operations"
+    else:
+        t_ops, by = 3 * flops / tf32_peak(torch.cuda.get_device_name(0)), "operations (3xTF32)"
+    rec = {"bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": by if t_ops > t_bytes else "bytes"}
+    if label == "f32":
+        rec["bound_fma_ms"] = max(flops / f32_flops, t_bytes) * 1e3
+    return rec
+
+
+def bounded(rec: dict, what: str) -> dict:
+    """``rec`` with its share of its bound (``bound_ms / ms``), which must
+    not exceed 1: no line may read faster than the card can go."""
+    rec["of_bound"] = rec["bound_ms"] / rec["ms"]
+    require(rec["of_bound"] <= 1.0, f"{what} reads {rec['of_bound']:.3f} of its bound")
+    return rec
 
 
 def plan_record(kernel: str, shape, dtype, design=None) -> dict:
@@ -342,67 +393,76 @@ def plan_record(kernel: str, shape, dtype, design=None) -> dict:
 
 def phase_convlstm(peak_flops: float, peak_bw: float, f32_flops: float) -> dict:
     """Kernel 1 against its plain version at the serving shape, in every
-    design its plan can choose there (f32: stepwise; bf16: resident, and
-    stepwise forced); the plan's own choice bounded in both dtypes."""
+    design its plan can choose there (f32: stepwise_tc, and stepwise forced;
+    bf16: resident, and stepwise forced), and in f32 at the ``--video``
+    shape (B=1); every line timed and bounded."""
     import torch
 
     from vad_tpu_torch.ops import convlstm as cl
     from vad_tpu_torch.ops.convlstm import convlstm_recurrence_ref, recurrence_plan
 
     lat, c = IMAGE // 16, 128
-    shape = (S, T, lat, lat, c)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    gates_x = torch.randn((S, T, lat, lat, 4 * c), generator=g, device="cuda") * 0.5
-    w_h = torch.randn((3, 3, c, 4 * c), generator=g, device="cuda") * 0.05
-    h0 = torch.randn((S, lat, lat, c), generator=g, device="cuda") * 0.1
-    c0 = torch.randn((S, lat, lat, c), generator=g, device="cuda") * 0.1
     out, f32 = {}, {}
-    for label, dtype, bar in (("f32", torch.float32, F32_BAR), ("bf16", torch.bfloat16, BF16_BAR)):
-        gx, wh = gates_x.to(dtype), w_h.to(dtype)
-        choices = designs("convlstm_serving", shape, dtype)
-        for design in choices:
-            plan = recurrence_plan("convlstm_serving", *shape, dtype, design)
+    for b, dtypes in ((S, ("f32", "bf16")), (B_VIDEO, ("f32",))):
+        shape = (b, T, lat, lat, c)
+        gates_x = torch.randn((b, T, lat, lat, 4 * c), generator=g, device="cuda") * 0.5
+        w_h = torch.randn((3, 3, c, 4 * c), generator=g, device="cuda") * 0.05
+        h0 = torch.randn((b, lat, lat, c), generator=g, device="cuda") * 0.1
+        c0 = torch.randn((b, lat, lat, c), generator=g, device="cuda") * 0.1
+        for label in dtypes:
+            dtype, bar = ((torch.float32, F32_BAR) if label == "f32"
+                          else (torch.bfloat16, BF16_BAR))
+            gx, wh = gates_x.to(dtype), w_h.to(dtype)
+            choices = designs("convlstm_serving", shape, dtype)
+            for design in choices:
+                plan = recurrence_plan("convlstm_serving", *shape, dtype, design)
 
-            def kernel(p=plan):
-                seq, _, final = cl._forward_kernel(gx, wh, h0, c0, False, p)
-                return seq, final
+                def kernel(p=plan):
+                    seq, _, final = cl._forward_kernel(gx, wh, h0, c0, False, p)
+                    return seq, final
 
-            with no_tf32():
-                cl.convlstm_recurrence.launches = 0
-                seq, (hf, cf) = kernel()
-                per_call = cl.convlstm_recurrence.launches
-                rseq, (rhf, rcf) = convlstm_recurrence_ref(gx, wh, h0, c0)
-                torch.cuda.synchronize()
-            require(seq.dtype == dtype and hf.dtype == cf.dtype == torch.float32, "output dtypes")
-            errs = [close(a, b, bar) for a, b in ((seq, rseq), (hf, rhf), (cf, rcf))]
-            ok = all(e[1] for e in errs) and per_call == plan.launches
-            rec = {"phase": "kernel_check", "kernel": "convlstm_serving", "dtype": label,
-                   "shape": list(gx.shape), "design": design, "plan": plan_record(
-                       "convlstm_serving", shape, dtype, design),
-                   "launches_per_call": per_call, "max_abs_err": max(e[0] for e in errs),
-                   "bar": bar, "ok": ok, "ms": time_ms(kernel)}
-            if plan.cluster > 1:
-                rec["active_clusters"] = cl.active_clusters("convlstm_serving", S, lat, lat, c)
-            if design == choices[0]:
+                with no_tf32():
+                    cl.convlstm_recurrence.launches = 0
+                    seq, (hf, cf) = kernel()
+                    per_call = cl.convlstm_recurrence.launches
+                    rseq, (rhf, rcf) = convlstm_recurrence_ref(gx, wh, h0, c0)
+                    torch.cuda.synchronize()
+                require(seq.dtype == dtype and hf.dtype == cf.dtype == torch.float32,
+                        "output dtypes")
+                errs = [close(a, r, bar) for a, r in ((seq, rseq), (hf, rhf), (cf, rcf))]
+                ok = all(e[1] for e in errs) and per_call == plan.launches
+                rec = {"phase": "kernel_check", "kernel": "convlstm_serving", "dtype": label,
+                       "shape": list(gx.shape), "design": design, "plan": plan_record(
+                           "convlstm_serving", shape, dtype, design),
+                       "launches_per_call": per_call, "max_abs_err": max(e[0] for e in errs),
+                       "bar": bar, "ok": ok, "ms": time_ms(kernel)}
+                if plan.cluster > 1 and design == "resident":
+                    rec["active_clusters"] = cl.active_clusters("convlstm_serving", b, lat, lat, c)
                 hw, e = lat * lat, gx.element_size()
-                flops = 2 * S * T * hw * 9 * c * 4 * c
-                nbytes = (S * T * hw * 4 * c * e + S * T * hw * c * e  # gates_x in, h_seq out
-                          + 4 * S * hw * c * 4 + 9 * c * 4 * c * e)  # h0, c0, h_T, c_T, Wh
-                t_ops = flops / (peak_flops if label == "bf16" else f32_flops)
-                rec["bound_ms"] = max(t_ops, nbytes / peak_bw) * 1e3
-                rec["bound_by"] = "operations" if t_ops > nbytes / peak_bw else "bytes"
+                flops = 2 * b * T * hw * 9 * c * 4 * c
+                nbytes = (b * T * hw * 4 * c * e + b * T * hw * c * e  # gates_x in, h_seq out
+                          + 4 * b * hw * c * 4 + 9 * c * 4 * c * e)  # h0, c0, h_T, c_T, Wh
+                rec.update(recurrence_bound(label, flops, nbytes, peak_flops, peak_bw, f32_flops))
                 rec["tflops"] = flops / rec["ms"] / 1e9
-                if label == "bf16":
+                emit(bounded(rec, f"convlstm_serving {label} {design} at B={b}"))
+                require(ok, f"convlstm_serving {label} {design} B={b} vs plain version within "
+                            f"{bar}, {per_call} launches as planned ({plan.launches})")
+                if label == "bf16" and design == choices[0]:
                     out = rec
-                else:
-                    f32 = {k: rec[k] for k in ("design", "ms", "bound_ms", "bound_by", "tflops")}
-            emit(rec)
-            require(ok, f"convlstm_serving {label} {design} vs plain version within {bar}, "
-                        f"{per_call} launches as planned ({plan.launches})")
-        if label == "bf16":
-            out["plain_ms"] = time_ms(lambda: convlstm_recurrence_ref(gx, wh, h0, c0), iters=5)
-            out["f32"] = f32
-            emit({**out, "phase": "kernel_time"})
+                elif label == "f32":  # every f32 design at both shapes, for the kernels line
+                    f32[f"B={b} {design}"] = {k: rec[k] for k in (
+                        "design", "launches_per_call", "max_abs_err", "ms", "bound_ms",
+                        "bound_by", "bound_fma_ms", "tflops")}
+                    f32[f"B={b} {design}"]["step_blocks"] = plan.step_blocks
+            if label == "bf16":
+                out["plain_ms"] = time_ms(lambda: convlstm_recurrence_ref(gx, wh, h0, c0),
+                                          iters=5)
+            elif b == S:
+                f32[f"B={b} plain_ms"] = time_ms(
+                    lambda: convlstm_recurrence_ref(gx, wh, h0, c0), iters=5)
+    out["f32"] = f32
+    emit({**out, "phase": "kernel_time"})
     return out
 
 
@@ -828,11 +888,11 @@ def train_designs(shape, dtype) -> list:
 def train_plans(shape, dtype, design=None) -> dict:
     """Kernels 2 and 3's plans at ``shape``: ``design`` where it fits the
     kernel, else the plan's own choice."""
-    from vad_tpu_torch.ops.convlstm import recurrence_plan, resident_fits
+    from vad_tpu_torch.ops.convlstm import recurrence_plan
 
     plans = {}
     for kname in ("convlstm_train_forward", "convlstm_backward"):
-        fits = design != "resident" or resident_fits(kname, *shape[2:], dtype)
+        fits = design is not None and design_fits(kname, shape, dtype, design)
         plans[kname] = recurrence_plan(kname, *shape, dtype, design if fits else None)
     return plans
 
@@ -900,8 +960,9 @@ def check_train_kernels(g, shape, dtype, bar, design=None):
 
 def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> dict:
     """Kernels 2 and 3 at the training shape (B=8, T=16, 16x16, C=128),
-    f32 (TF32 off) and bf16, in every design their plans can choose there
-    (f32: stepwise; bf16: resident, and stepwise forced): checked, timed,
+    f32 (TF32 off) and bf16, and in f32 at the ``--video`` shape (B=1), in
+    every design their plans can choose there (f32: stepwise_tc, and
+    stepwise forced; bf16: resident, and stepwise forced): checked, timed,
     bounded, and kernel 3 timed by part (gate recompute, reverse loop, dWh)
     from a device profile of three calls."""
     import torch
@@ -910,18 +971,19 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
     from vad_tpu_torch.ops.convlstm import convlstm_backward_ref, convlstm_forward_ref
 
     lat, c = IMAGE // 16, 128
-    shape = (B_TRAIN, T, lat, lat, c)
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    out = {}
-    for label, dtype, bar, flops_peak in (("f32", torch.float32, F32_BAR, f32_flops),
-                                          ("bf16", torch.bfloat16, BF16_BAR, peak_flops)):
+    out, f32 = {}, {"convlstm_train_forward": {}, "convlstm_backward": {}}
+    for b, label, dtype, bar in ((B_TRAIN, "f32", torch.float32, F32_BAR),
+                                 (B_TRAIN, "bf16", torch.bfloat16, BF16_BAR),
+                                 (B_VIDEO, "f32", torch.float32, F32_BAR)):
+        shape = (b, T, lat, lat, c)
         for design in train_designs(shape, dtype):
             plans = train_plans(shape, dtype, design)
             rec, ok, args = check_train_kernels(g, shape, dtype, bar, design)
             gx, wh, h0, c0 = args[:4]
             e = gx.element_size()
-            seq = B_TRAIN * T * lat * lat * c  # elements of one [B,T,H,W,C] tensor
-            state = B_TRAIN * lat * lat * c * 4  # bytes of one f32 [B,H,W,C] tensor
+            seq = b * T * lat * lat * c  # elements of one [B,T,H,W,C] tensor
+            state = b * lat * lat * c * 4  # bytes of one f32 [B,H,W,C] tensor
             w_bytes = 9 * c * 4 * c * e
             gemm = 2 * seq * 9 * c * 4  # one implicit GEMM of the recurrence, FLOP
             fwd_plan, bwd_plan = plans["convlstm_train_forward"], plans["convlstm_backward"]
@@ -943,38 +1005,45 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
                 with no_tf32():
                     ms = time_ms(kernel, iters=10)
                     plain_ms = (time_ms(plain, iters=3, warmup=1) if design == train_designs(
-                        shape, dtype)[0] else None)
-                t_ops, t_bytes = flops / flops_peak, nbytes / peak_bw
+                        shape, dtype)[0] and b == B_TRAIN else None)
                 own = "forward" if kname == "convlstm_train_forward" else "backward"
                 krec = {"phase": "kernel_check", "kernel": kname, "dtype": label,
                         "shape": list(shape), **rec, "design": plan.design,
                         "plan": rec["plans"][kname], "bar": bar, "ok": ok, "ms": ms,
                         "plain_ms": plain_ms, "launches_per_call": rec["launches_per_call"][kname],
-                        "bound_ms": max(t_ops, t_bytes) * 1e3,
-                        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                        **recurrence_bound(label, flops, nbytes, peak_flops, peak_bw, f32_flops),
                         "tflops": flops / ms / 1e9, "flops": flops, "bytes": nbytes,
                         "max_abs_err": rec[f"{own}_max_abs_err"]}
-                if plan.cluster > 1:
-                    krec["active_clusters"] = cl.active_clusters(kname, B_TRAIN, lat, lat, c)
+                if plan.cluster > 1 and plan.design == "resident":
+                    krec["active_clusters"] = cl.active_clusters(kname, b, lat, lat, c)
                 if kname == "convlstm_backward":
                     with no_tf32():
                         prof = device_profile(lambda i: kernel(), n=3, unit="call")
                     # per launch times the launches a call makes (the
                     # profiler can miss the first launches of its window);
-                    # the stepwise loop launches once a step, the rest once
+                    # the stepwise loops launch once a step, the rest once
                     parts = {}
                     for name, r in prof["port_kernels"].items():
                         per_launch = r["ms_per_call"] / r["calls_per_call"]
                         part = BWD_PARTS[name]
-                        parts[part] = (parts.get(part, 0.0)
-                                       + per_launch * (T if name == "step_kernel" else 1))
+                        parts[part] = (parts.get(part, 0.0) + per_launch
+                                       * (T if name in ("step_kernel", "dh_tc_step") else 1))
                     krec["ms_by_part"] = parts
                     krec["profile"] = prof["port_kernels"]
-                emit(krec)
+                emit(bounded(krec, f"{kname} {label} {plan.design} at B={b}"))
                 if label == "bf16" and plain_ms is not None:
                     out[kname] = krec
-            require(ok, f"kernels 2 and 3 {label} {rec['designs']} vs plain versions and "
-                        f"autograd within {bar}, launches as planned, dWh deterministic")
+                elif label == "f32":  # both f32 designs at both shapes, for the kernels line
+                    key = f"B={b} {plan.design}"
+                    f32[kname][key] = {k: krec[k] for k in (
+                        "launches_per_call", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "bound_fma_ms", "tflops")}
+                    f32[kname][key].update(step_blocks=plan.step_blocks, cluster=plan.cluster,
+                                           ms_by_part=krec.get("ms_by_part"))
+            require(ok, f"kernels 2 and 3 {label} {rec['designs']} at B={b} vs plain versions "
+                        f"and autograd within {bar}, launches as planned, dWh deterministic")
+    for kname, rec in f32.items():
+        out[kname]["f32"] = rec
     return out
 
 
@@ -1293,7 +1362,7 @@ def phase_eval(ckpt_path, test_ds, card: str) -> dict:
       both also measured against the plain f32 stream.  Twice: with the
       trained weights and with ``init_weights(SEED)`` (larger states);
     - ``temporal_features`` over the test windows at batch 4 (kernel 1
-      stepwise, f32) against the plain versions at the f32 bar;
+      stepwise_tc, f32) against the plain versions at the f32 bar;
     - ``--scorer latent``: ``latent_frame_maps`` fitted on 8 training
       windows' frames, then ``score_windows`` over the test windows, with
       both AUROCs (no port kernel: the scorer reads the encoder only).
@@ -1420,7 +1489,7 @@ def phase_eval(ckpt_path, test_ds, card: str) -> dict:
     require(launches["convlstm_serving"] > 0, f"dataset scoring went through kernel 1: {launches}")
     require(all(r["ok"] for r in cmp.values()), f"dataset scores vs plain within {F32_BAR}")
 
-    # temporal_features: the last ConvLSTM layer's h_seq, kernel 1 stepwise in f32
+    # temporal_features: the last ConvLSTM layer's h_seq, kernel 1 stepwise_tc in f32
     start = time.perf_counter()
     windows = torch.from_numpy(test_ds.frames).to("cuda")
 
@@ -2804,7 +2873,7 @@ def accuracy_draw(name: str, draw: int, precision: str, data_dir: Path, workdir:
 def phase_accuracy(card: str, workdir: Path) -> dict:
     """One draw of run_parity's ``video_synthetic`` on the card, f32: the
     fixture from the port's generator, ``train_video`` (15 epochs, 128x128,
-    T=8, B=4, stepwise kernels 2 and 3, kernel 1 in its eval step),
+    T=8, B=4, stepwise_tc kernels 2 and 3, kernel 1 in its eval step),
     ``evaluate_video`` in dataset mode (kernel 1), then ``--video-dir`` over
     ``ACCURACY_CLIPS`` mp4s from ``create_synthetic_video_file`` (kernels 4
     and 1), half with the intruder.  Its ``accuracy`` line has both AUROCs
@@ -3329,16 +3398,15 @@ def check_rows_kernel(shape, label: str, peak_flops: float, peak_bw: float,
     flops = 2 * b * t * hw * 9 * c * 4 * c
     nbytes = (b * t * hw * 4 * c * e + b * t * hw * c * e  # gates_x in, h_seq out
               + 4 * b * hw * c * 4 + 9 * c * 4 * c * e)  # h0, c0, h_T, c_T, Wh
-    t_ops = flops / (peak_flops if label == "bf16" else f32_flops)
     rec = {"shape": list(shape[:3]) + [lat, c], "shards": n, "dtype": label,
            "launches_per_call": per_call, "plan": dataclasses.asdict(plan),
            "max_abs_err": max(x[0] for x in vs_plain),
            "max_abs_err_vs_unsplit": max(x[0] for x in vs_whole),
            "staged_equal": all(torch.equal(a, s) for a, s in zip(got, staged)),
            "bar": bar, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_ops, nbytes / peak_bw) * 1e3,
-           "bound_by": "operations" if t_ops > nbytes / peak_bw else "bytes",
+           **recurrence_bound(label, flops, nbytes, peak_flops, peak_bw, f32_flops),
            "tflops": flops / ms / 1e9}
+    bounded(rec, f"the row form {label} at {n} shards")
     rec["ok"] = (all(x[1] for x in vs_plain + vs_whole) and rec["staged_equal"]
                  and per_call == plan.launches == t * n)
     return rec
@@ -3800,6 +3868,7 @@ def main() -> int:
                                reference_import_launches=reference["launches"])
         if kname in ("convlstm_train_forward", "convlstm_backward"):  # the profiled CLI run
             kernels[-1]["profiling_launches"] = profiling["launches"][kname]
+            kernels[-1]["f32"] = rec["f32"]  # stepwise_tc and stepwise at B=8
         if kname in accuracy["launches"]:  # train, evaluate and --video-dir of a real model
             kernels[-1]["accuracy_launches"] = accuracy["launches"][kname]
         if kname in scaling["launches"]:  # each of the two gloo ranks' train steps

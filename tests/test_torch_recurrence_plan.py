@@ -48,7 +48,10 @@ def expected_design(kernel, shape, dtype):
     if kernel == "convlstm_backward":
         fits = fits and w % 16 == 0 and c % 64 == 0
     fits = fits and resident_bytes(kernel, h, w, c) <= SMEM_LIMIT
-    return "resident" if fits else "stepwise"
+    if fits:
+        return "resident"
+    # f32 with C % 4 == 0 runs on the tensor cores in 3xTF32
+    return "stepwise_tc" if dtype == F32 and c % 4 == 0 else "stepwise"
 
 
 # Frames of four 8x8 tiles in a row: at C=128 the resident blocks need
@@ -74,6 +77,8 @@ def test_plan_design_and_limits(kernel, dtype, shape):
         assert plan.cluster <= 8 and blocks % plan.cluster == 0
         wh_slice = 9 * c * 64 * 2
         assert plan.smem_bytes >= c // 8 * plane(h, w) + wh_slice
+    elif plan.design == "stepwise_tc":  # a cluster splits K: at most the portable 8
+        assert plan.cluster in (1, 2, 4, 8) and plan.grids["step"][0] == plan.cluster
     else:
         assert plan.cluster == 1
 
@@ -107,13 +112,21 @@ def test_backward_plan_at_training_shape():
     act = b * t * h * w * 4 * c * 4
     assert act == 67_108_864  # the f32 gate activations, 67 MB
     assert res.scratch_bytes == act + res.dw_splits * 9 * c * 4 * c * 4
-    step = recurrence_plan("convlstm_backward", b, t, h, w, c, F32)
+    # f32 takes stepwise_tc: the stepwise launches, its reverse loop on the
+    # tensor cores in clusters of 8 blocks of 128 pixels x 64 channels
+    tc = recurrence_plan("convlstm_backward", b, t, h, w, c, F32)
+    assert (tc.design, tc.launches, tc.cluster) == ("stepwise_tc", t + 3, 8)
+    assert tc.dw_splits == 3 and tc.scratch_bytes == act + 3 * 9 * c * 4 * c * 4
+    assert tc.grids["step"] == (8, 2, b * h * w // 128) and tc.grids["dw"] == (18, 4, 3)
+    # the forced stepwise design keeps its grids
+    step = recurrence_plan("convlstm_backward", b, t, h, w, c, F32, design="stepwise")
     assert (step.design, step.launches) == ("stepwise", t + 3)
     assert step.dw_splits == 3  # 18 x 4 output tiles x 3 = 216 blocks, two a SM
     assert step.scratch_bytes == act + 3 * 9 * c * 4 * c * 4
     assert step.grids["step"] == (b * h * w // 64, 1) and step.grids["dw"] == (18, 4, 3)
     # dh0's 32 tiles, then one thread a dWh element for the split sum
     assert step.grids["finish"] == (32 + 9 * c * 4 * c // 256,)
+    assert tc.grids["finish"] == step.grids["finish"]
 
 
 @pytest.mark.parametrize("shape", ALL_SHAPES, ids=lambda s: "x".join(map(str, s)))

@@ -45,7 +45,16 @@
 //       its frames (h_{t-1} and dgates by TMA; both operands MN-major),
 //       and writes an f32 partial; a second pass sums the partials in
 //       split order.  No atomics: the sum is deterministic.
-// Stepwise (f32, and shapes the resident design does not take): T + 3
+// Stepwise_tc (f32, C % 4 == 0): the stepwise design's T + 3 launches,
+//   with every GEMM on the tensor cores in 3xTF32 (convlstm_tiles.cuh):
+//   the gate recompute and the per-step dh product on the wgmma f32 tile
+//   over grids that fill the card (the `tc` namespace below), and dWh and
+//   dh0 on the cp.async ring's mma.sync path (staged as the stepwise design
+//   stages them; dWh's operands are both pixel-major in device memory,
+//   where wgmma's TF32 form would need them K-major, and dh0 is one
+//   product of T + 1).
+// Stepwise (bf16 shapes the resident design does not take; f32 when
+//   named or C % 4 != 0): T + 3
 //   launches on the cp.async / WMMA / FMA core: the same gate launch over
 //   all frames (gate_all_kernel); per step t one launch (step_kernel)
 //   computing dh_t = correlation of dgates[t+1] for a 64-pixel x
@@ -58,13 +67,16 @@
 // Bound on an H100 SXM at the training shape (B=8, T=16, 16x16, C=128,
 // bf16): 3 x 38.65 = 116 GFLOP per call -> 117 us at 989 TFLOP/s, against
 // ~96 MB of compulsory traffic -> 29 us at 3.35 TB/s: the tensor cores
-// bound it.  In f32 (no tensor cores) the floor is 1.73 ms at 67
-// TFLOP/s.  The activations scratch adds 2 x 67 MB of traffic.
+// bound it.  In f32, as 3xTF32 on the tensor cores (three TF32 products a
+// multiply-add at 494.7 TFLOP/s), the floor is 0.703 ms (1.73 ms on the
+// FMA cores at 67 TFLOP/s).  The activations scratch adds 2 x 67 MB of
+// traffic.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
 // §6), training shape: bf16 resident 0.735 ms per call, 4 launches (158
 // TFLOP/s; parts: loop 0.31, dWh 0.20, gate 0.17 ms); bf16 stepwise 2.92
-// ms; f32 stepwise 10.10 ms, 19 launches (11.5 TFLOP/s against 67).
+// ms; f32 stepwise 10.10 ms, 19 launches (11.5 TFLOP/s against 67).  f32
+// stepwise_tc by part beside stepwise, from one run: PERF.md §6.
 // What holds the resident loop above its bound: three cluster barriers a
 // step and a GEMM of one gate at a time (M = H*W, N = 64, K = 9C).
 
@@ -653,7 +665,7 @@ template <typename T, bool VEC> struct DwLoad {
 // Partial dWh of K split blockIdx.z: sum over its `per` stages of BK pixels
 // m of im2col(h)[m]^T dgates[m] (M = 9C rows in [3,3,C,4C] order, N = 4C),
 // one block per output tile, into part[split].
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool TC = false>
 __global__ void __launch_bounds__(THREADS)
     dw_kernel(const T* __restrict__ h0, const T* __restrict__ h_seq,
               const T* __restrict__ dgates_x, float* __restrict__ part, Shape s, int per) {
@@ -665,7 +677,7 @@ __global__ void __launch_bounds__(THREADS)
   const int stages = (s.B * s.T * s.H * s.W + L::BK - 1) / L::BK;
   const int kk0 = blockIdx.z * per;
   const DwLoad<T, VEC> load{h0, h_seq, dgates_x, s, rb, nb, kk0};
-  gemm_tile<T, true>(load, max(0, min(per, stages - kk0)), smem);
+  gemm_tile<T, true, DwLoad<T, VEC>, TC>(load, max(0, min(per, stages - kk0)), smem);
 
   float* out = part + (size_t)blockIdx.z * 9 * s.C * 4 * s.C;
   for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
@@ -680,7 +692,7 @@ __global__ void __launch_bounds__(THREADS)
 // The last launch: blocks [0, dh_blocks) compute dh0, the correlation of
 // dgates[0] (dh_step_kernel's work, tile blockIdx.x over the (pixels,
 // channels) grid of width tiles_x); the rest sum the dWh partials.
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool TC = false>
 __global__ void __launch_bounds__(THREADS)
     finish_kernel(const T* __restrict__ dgates_x, const T* __restrict__ w_t,
                   float* __restrict__ dh_carry, const float* __restrict__ part,
@@ -699,7 +711,7 @@ __global__ void __launch_bounds__(THREADS)
   const int cb = blockIdx.x / tiles_x * BN;
   const int kchunks = (4 * s.C + L::BK - 1) / L::BK;
   const DhLoad<T, VEC> load{dgates_x, w_t, s, m0, cb, kchunks};
-  gemm_tile<T, false>(load, 9 * kchunks, smem);
+  gemm_tile<T, false, DhLoad<T, VEC>, TC>(load, 9 * kchunks, smem);
   for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
     const int row = e / BN;
     const int col = e - row * BN;
@@ -709,11 +721,184 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ================================================= stepwise_tc design
+//
+// Step t of the reverse loop (f32): dh_t = the correlation of dgates[t+1]
+// with Wh's taps reversed, a GEMM of M = B*H*W pixels, N = C channels, K =
+// 9 taps x 4C (4,608 at C = 128), then dgates[t] and dc for the same
+// pixels and channels.  A block owns 64 NW pixels (NW = 1 or 2
+// warpgroups, from the plan) x 64 channels; at B = 8 that is 16 x 2 tiles
+// of 128 pixels, so a cluster of `ranks` blocks (gridDim.x, from the plan)
+// splits K's 4C/8 chunks (8 gate columns at all 9 taps each), parks its
+// f32 partials and sums them in rank order through distributed shared
+// memory, block `rank` taking rows [64 NW rank / ranks, 64 NW (rank + 1) /
+// ranks) of the tile for the sum and the elementwise epilogue (the
+// stepwise design's).  A is dgates_x[:, t+1] (f32, read once a chunk with
+// its halo rows and split as it is read); B is Wh (a row per output
+// channel, K-major for this product) split by the wrapper into TF32 big and
+// small planes and laid out as each channel tile's stage images.
+namespace tc {
+using namespace hopper;
+
+// Step t: grid (ranks, ceil(C/64), ceil(B*H*W/(64 NW))), clusters of ranks
+// along x.  At t = T-1 dh is dh_init (no GEMM).  Chunk kc of K is gate
+// columns [8 kc, 8 kc + 8) of dgates[t+1] at all 9 taps (reversed); w_tc =
+// [ceil(C/64) channel tiles][4C/8 chunks][TC_BBYTES] stage images.
+template <int NW>
+__global__ void __launch_bounds__(NW * WG_THREADS, 2)
+    dh_tc_step(const float* __restrict__ w_tc, const float* __restrict__ act,
+               const float* __restrict__ c_seq, const float* __restrict__ c0,
+               const float* __restrict__ dh_seq, const float* __restrict__ dh_init,
+               float* __restrict__ dc_carry, float* __restrict__ dgates_x, Shape s, int t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int M = 64 * NW;
+  const int ranks = gridDim.x, rank = static_cast<int>(cluster_rank());
+  const int cb = blockIdx.y * 64, m0 = blockIdx.z * M;
+  const int hw = s.H * s.W, pixels = s.B * hw, four_c = 4 * s.C;
+  const bool gemm = t < s.T - 1;
+  float* X = reinterpret_cast<float*>(smem);
+  if (gemm) {
+    const int chunks = four_c / TC_KC;
+    const float* dg = dgates_x + (size_t)(t + 1) * hw * four_c;  // dgates[t+1]
+    const int top = m0 - (s.W + 1);
+    const float* w_tile = w_tc + (size_t)blockIdx.y * chunks * (TC_BBYTES / 4);
+    const auto copy = [&](int kc, unsigned char* st, uint64_t* bar) {
+      tc_copy_stage<NW>(
+          st, s.W,
+          [&](int row, int piece) -> const float* {
+            const int m = top + row, n = kc * TC_KC + 4 * piece;
+            if (m < 0 || m >= pixels) return nullptr;
+            const int b = m / hw;
+            return dg + ((size_t)b * s.T * hw + (m - b * hw)) * four_c + n;
+          },
+          w_tile + (size_t)kc * (TC_BBYTES / 4), bar, dg);
+    };
+    const auto hrow = [&](int tap, int i) -> int {
+      const int r = tc_frag_row(i), m = m0 + r, p = m % hw;
+      const int dy = 1 - tap / 3, dx = 1 - tap % 3;  // the reversed tap's source
+      const int y = p / s.W + dy, x = p % s.W + dx;
+      if (m >= pixels || y < 0 || y >= s.H || x < 0 || x >= s.W) return -1;
+      return r + s.W + 1 + dy * s.W + dx;
+    };
+    float acc[32];
+    tc_gemm<NW>(acc, copy, hrow, rank * chunks / ranks, (rank + 1) * chunks / ranks, s.W, smem);
+    tc_park(acc, X);
+  }
+  cluster_sync();  // every rank's partial is parked
+
+  const int r0 = rank * M / ranks, r1 = (rank + 1) * M / ranks;
+  for (int e = threadIdx.x; e < (r1 - r0) * 64; e += NW * WG_THREADS) {
+    const int rr = r0 + e / 64, j = e % 64;
+    const int r = m0 + rr, ch = cb + j;
+    if (r >= pixels || ch >= s.C) continue;
+    const int b = r / hw, p = r - b * hw;
+    const size_t cell = ((size_t)b * s.T + t) * hw + p;  // (b, t, p)
+    const size_t sidx = (size_t)r * s.C + ch, cidx = cell * s.C + ch;
+    const float* a = act + cell * 4 * s.C + ch;
+    const float dh = gemm ? tc_rank_sum(X + rr * TC_LDX + j, ranks) : dh_init[sidx];
+    const float cp = t == 0 ? c0[sidx] : c_seq[cidx - (size_t)hw * s.C];
+    const GateGrad gg = gate_grad(a[0], a[s.C], a[2 * s.C], a[3 * s.C], tanhf(c_seq[cidx]), cp,
+                                  dh_seq[cidx] + dh, dc_carry[sidx]);
+    float* dgo = dgates_x + cell * 4 * s.C + ch;
+    dgo[0] = gg.di, dgo[s.C] = gg.df, dgo[2 * s.C] = gg.dg, dgo[3 * s.C] = gg.do_;
+    dc_carry[sidx] = gg.dc;
+  }
+  cluster_sync();  // the partials are read: the cluster's blocks may exit
+}
+
+// The gate recompute over every frame (f32): act = the activations of
+// gates_x + conv3x3(h_{t-1}, Wh) for M = B*T*H*W pixels in (b, t, pixel)
+// order, h_{t-1} from h0 (t = 0) or h_seq; kernel 1's GEMM on the same
+// tile and stage images (w_fwd = [ceil(C/16)][ceil(C/8)][TC_BBYTES]).
+// Grid (ranks, ceil(C/16), ceil(M/(64 NW))), clusters of ranks along x.
+template <int NW>
+__global__ void __launch_bounds__(NW * WG_THREADS, 2)
+    gate_tc(const float* __restrict__ gates_x, const float* __restrict__ w_fwd,
+            const float* __restrict__ h0, const float* __restrict__ h_seq,
+            float* __restrict__ act, Shape s) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int M = 64 * NW;
+  const int ranks = gridDim.x, rank = static_cast<int>(cluster_rank());
+  const int cb = blockIdx.y * 16, m0 = blockIdx.z * M;
+  const int hw = s.H * s.W, rows = s.B * s.T * hw;
+  const int chunks = (s.C + TC_KC - 1) / TC_KC;
+  const int top = m0 - (s.W + 1);
+  const float* w_tile = w_fwd + (size_t)blockIdx.y * chunks * (TC_BBYTES / 4);
+  const auto copy = [&](int kc, unsigned char* st, uint64_t* bar) {
+    tc_copy_stage<NW>(
+        st, s.W,
+        [&](int row, int piece) -> const float* {
+          const int m = top + row, ch = kc * TC_KC + 4 * piece;
+          if (m < 0 || m >= rows || ch >= s.C) return nullptr;
+          const int f = m / hw, p = m - f * hw;  // frame f = (b, t)
+          const float* frame =
+              f % s.T == 0 ? h0 + (size_t)(f / s.T) * hw * s.C : h_seq + (size_t)(f - 1) * hw * s.C;
+          return frame + (size_t)p * s.C + ch;
+        },
+        w_tile + (size_t)kc * (TC_BBYTES / 4), bar, h0);
+  };
+  const auto hrow = [&](int tap, int i) -> int {
+    const int r = tc_frag_row(i), m = m0 + r, p = m % hw;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const int y = p / s.W + dy, x = p % s.W + dx;
+    if (m >= rows || y < 0 || y >= s.H || x < 0 || x >= s.W) return -1;
+    return r + s.W + 1 + dy * s.W + dx;
+  };
+  float acc[32];
+  tc_gemm<NW>(acc, copy, hrow, rank * chunks / ranks, (rank + 1) * chunks / ranks, s.W, smem);
+  float* X = reinterpret_cast<float*>(smem);
+  tc_park(acc, X);
+  cluster_sync();  // every rank's partial is parked
+
+  const int r0 = rank * M / ranks, r1 = (rank + 1) * M / ranks;
+  for (int e = threadIdx.x; e < (r1 - r0) * 16; e += NW * WG_THREADS) {
+    const int rr = r0 + e / 16, j = e % 16;
+    const int r = m0 + rr, ch = cb + j;
+    if (r >= rows || ch >= s.C) continue;
+#pragma unroll
+    for (int G = 0; G < 4; ++G) {
+      const size_t o = (size_t)r * 4 * s.C + G * s.C + ch;
+      const float v = tc_rank_sum(X + rr * TC_LDX + G * 16 + j, ranks) + gates_x[o];
+      act[o] = G == 2 ? tanhf(v) : sigmoid(v);
+    }
+  }
+  cluster_sync();  // the partials are read: the cluster's blocks may exit
+}
+
+template <int NW>
+cudaError_t launch_gate(const void* gates_x, const void* w_fwd, const void* h0, const void* h_seq,
+                        float* act, Shape s, int ranks, cudaStream_t stream) {
+  const dim3 grid(ranks, (s.C + 15) / 16, (s.B * s.T * s.H * s.W + 64 * NW - 1) / (64 * NW));
+  return launch(gate_tc<NW>, grid, NW * WG_THREADS, tc_smem_bytes(NW, s.W), ranks, stream,
+                static_cast<const float*>(gates_x), static_cast<const float*>(w_fwd),
+                static_cast<const float*>(h0), static_cast<const float*>(h_seq), act, s);
+}
+
+template <int NW>
+cudaError_t launch_dh_steps(const void* w_tc, const float* act, const void* c_seq, const void* c0,
+                            const void* dh_seq, const float* dh_init, float* dc_carry,
+                            float* dgates_x, Shape s, int ranks, cudaStream_t stream) {
+  const dim3 grid(ranks, (s.C + 63) / 64, (s.B * s.H * s.W + 64 * NW - 1) / (64 * NW));
+  for (int t = s.T - 1; t >= 0; --t) {
+    const cudaError_t err = launch(
+        dh_tc_step<NW>, grid, NW * WG_THREADS, tc_smem_bytes(NW, s.W), ranks, stream,
+        static_cast<const float*>(w_tc), act, static_cast<const float*>(c_seq),
+        static_cast<const float*>(c0), static_cast<const float*>(dh_seq), dh_init, dc_carry,
+        dgates_x, s, t);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace tc
+
 // ============================================================== dispatch
 
 struct Args {
   const void *gates_x, *w_h, *w_t, *h0, *c0, *h_seq, *c_seq, *dh_seq;
   void *dh_carry, *dc_carry, *dgates_x, *dw, *act, *part;
+  const void* w_tc;      // stepwise_tc: the reverse loop's stage images of Wh's TF32 terms
+  const void* w_tc_fwd;  // stepwise_tc: the gate recompute's (kernel 1's layout)
 };
 
 #define RETURN_IF_ERROR(expr)                                    \
@@ -721,6 +906,29 @@ struct Args {
     const cudaError_t err_ = (expr);                             \
     if (err_ != cudaSuccess) return static_cast<int>(err_);      \
   } while (0)
+
+// dWh with its K split over `splits` (f32 partials), then the last launch:
+// dh0 and the partials' fixed-order sum.  TC: both on mma.sync in 3xTF32.
+template <typename T, bool VEC, bool TC>
+int launch_dw_finish(const Args& a, Shape s, int splits, cudaStream_t stream) {
+  const int pixels = s.B * s.H * s.W;
+  const T* h0 = static_cast<const T*>(a.h0);
+  const T* hs = static_cast<const T*>(a.h_seq);
+  T* dg = static_cast<T*>(a.dgates_x);
+  auto* part = static_cast<float*>(a.part);
+  const int stages = (pixels * s.T + Tiles<T>::BK - 1) / Tiles<T>::BK;
+  const int per = (stages + splits - 1) / splits;
+  const dim3 dw_grid((9 * s.C + BM - 1) / BM, (4 * s.C + BN - 1) / BN, splits);
+  dw_kernel<T, VEC, TC><<<dw_grid, THREADS, 0, stream>>>(h0, hs, dg, part, s, per);
+  RETURN_IF_ERROR(cudaGetLastError());
+  const dim3 step_grid((pixels + BM - 1) / BM, (s.C + BN - 1) / BN);
+  const int dh_blocks = step_grid.x * step_grid.y;
+  const int reduce_blocks = (9 * s.C * 4 * s.C + THREADS - 1) / THREADS;
+  finish_kernel<T, VEC, TC><<<dh_blocks + reduce_blocks, THREADS, 0, stream>>>(
+      dg, static_cast<const T*>(a.w_t), static_cast<float*>(a.dh_carry), part,
+      static_cast<float*>(a.dw), s, step_grid.x, dh_blocks, splits);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T, bool VEC>
 int run_stepwise(const Args& a, Shape s, int splits, cudaStream_t stream) {
@@ -743,17 +951,33 @@ int run_stepwise(const Args& a, Shape s, int splits, cudaStream_t stream) {
         static_cast<const T*>(a.dh_seq), dh, static_cast<float*>(a.dc_carry), dg, s, t);
     RETURN_IF_ERROR(cudaGetLastError());
   }
-  const int stages = (pixels * s.T + Tiles<T>::BK - 1) / Tiles<T>::BK;
-  const int per = (stages + splits - 1) / splits;
-  const dim3 dw_grid((9 * s.C + BM - 1) / BM, (4 * s.C + BN - 1) / BN, splits);
-  auto* part = static_cast<float*>(a.part);
-  dw_kernel<T, VEC><<<dw_grid, THREADS, 0, stream>>>(h0, hs, dg, part, s, per);
-  RETURN_IF_ERROR(cudaGetLastError());
-  const int dh_blocks = step_grid.x * step_grid.y;
-  const int reduce_blocks = (9 * s.C * 4 * s.C + THREADS - 1) / THREADS;
-  finish_kernel<T, VEC><<<dh_blocks + reduce_blocks, THREADS, 0, stream>>>(
-      dg, wt, dh, part, static_cast<float*>(a.dw), s, step_grid.x, dh_blocks, splits);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dw_finish<T, VEC, false>(a, s, splits, stream);
+}
+
+// The stepwise launches in f32 with every GEMM in 3xTF32: the gate
+// recompute on the wgmma tile (clusters of `gate_ranks` blocks of
+// `gate_warpgroups`), the reverse loop's steps on it too (`ranks`,
+// `warpgroups`), dWh and the last launch (dh0) on the ring's mma.sync path.
+template <bool VEC>
+int run_stepwise_tc(const Args& a, Shape s, int splits, int ranks, int warpgroups,
+                    int gate_ranks, int gate_warpgroups, cudaStream_t stream) {
+  const auto bad = [](int r, int nw) { return r < 1 || r > 8 || nw < 1 || nw > 2; };
+  if (s.C % 4 != 0 || bad(ranks, warpgroups) || bad(gate_ranks, gate_warpgroups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* act = static_cast<float*>(a.act);
+  RETURN_IF_ERROR(gate_warpgroups == 1
+                      ? tc::launch_gate<1>(a.gates_x, a.w_tc_fwd, a.h0, a.h_seq, act, s,
+                                           gate_ranks, stream)
+                      : tc::launch_gate<2>(a.gates_x, a.w_tc_fwd, a.h0, a.h_seq, act, s,
+                                           gate_ranks, stream));
+  auto* dh = static_cast<float*>(a.dh_carry);
+  auto* dc = static_cast<float*>(a.dc_carry);
+  auto* dg = static_cast<float*>(a.dgates_x);
+  RETURN_IF_ERROR(warpgroups == 1 ? tc::launch_dh_steps<1>(a.w_tc, act, a.c_seq, a.c0, a.dh_seq,
+                                                           dh, dc, dg, s, ranks, stream)
+                                  : tc::launch_dh_steps<2>(a.w_tc, act, a.c_seq, a.c0, a.dh_seq,
+                                                           dh, dc, dg, s, ranks, stream));
+  return launch_dw_finish<float, VEC, true>(a, s, splits, stream);
 }
 
 template <typename T>
@@ -811,21 +1035,34 @@ extern "C" {
 // c0 [B,H,W,C] f32.  dh_carry, dc_carry [B,H,W,C] f32 hold the final
 // states' cotangents on entry and dh0, dc0 on return; dw [3,3,C,4C] f32
 // receives dWh.  act [B,T,H,W,4C] f32 is scratch; part [splits,9C,4C] f32
-// is scratch of the resident design.  All contiguous.  design 1
-// (resident, bf16) launches 4 kernels, design 0 (stepwise) T + 3, on
-// `stream`; returns the first launch error, or 0.
+// is scratch of the dWh split sum.  w_tc, w_tc_fwd: design 2's stage images
+// of w_h's TF32 big and small terms for the reverse loop and for the gate
+// recompute (ops/convlstm.py's tc_stage_images "bwd" and "fwd"; unread by
+// the other designs).  All contiguous.  design 1 (resident, bf16)
+// launches 4 kernels, design 2 (stepwise_tc, f32: the gate launch in
+// clusters of `gate_groups` blocks of `gate_warpgroups` warpgroups, the
+// reverse loop's of `cluster` blocks of `warpgroups`) T + 3, design 0
+// (stepwise) T + 3, on `stream`; returns the first launch error, or 0.
 int convlstm_backward(const void* gates_x, const void* w_h, const void* w_t, const void* h0,
                       const void* c0, const void* h_seq, const void* c_seq, const void* dh_seq,
                       void* dh_carry, void* dc_carry, void* dgates_x, void* dw, void* act,
-                      void* part, int B, int T, int H, int W, int C, int is_bf16, int design,
-                      int gate_groups, int splits, void* stream) {
+                      void* part, const void* w_tc, const void* w_tc_fwd, int B, int T, int H,
+                      int W, int C, int is_bf16, int design, int gate_groups, int splits,
+                      int cluster, int warpgroups, int gate_warpgroups, void* stream) {
   const Args a{gates_x, w_h, w_t, h0, c0, h_seq, c_seq, dh_seq, dh_carry, dc_carry,
-               dgates_x, dw, act, part};
+               dgates_x, dw, act, part, w_tc, w_tc_fwd};
   const Shape s{B, T, H, W, C};
   auto st = static_cast<cudaStream_t>(stream);
   if (design == 1) {
     if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
     return run_resident(a, s, gate_groups, splits, st);
+  }
+  if (design == 2) {
+    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return s.C % 8 == 0 ? run_stepwise_tc<true>(a, s, splits, cluster, warpgroups, gate_groups,
+                                                gate_warpgroups, st)
+                        : run_stepwise_tc<false>(a, s, splits, cluster, warpgroups, gate_groups,
+                                                 gate_warpgroups, st);
   }
   if (is_bf16) return run_stepwise_t<__nv_bfloat16>(a, s, splits, st);
   return run_stepwise_t<float>(a, s, splits, st);

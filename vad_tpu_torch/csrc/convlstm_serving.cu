@@ -17,7 +17,7 @@
 // h_seq written in the gates' type and the final (h, c) in f32.
 //
 // Design.  The TPU kernel runs the T grid axis in order and keeps (h, c)
-// in VMEM between steps.  Here ops/convlstm.py's plan picks one of two
+// in VMEM between steps.  Here ops/convlstm.py's plan picks one of three
 // designs from the shape and type:
 //
 // Resident (bf16, H and W multiples of 8, H*W <= 256, C a multiple of 16
@@ -27,7 +27,12 @@
 // steps and Wh is read from device memory once per block per call (the
 // `resident` namespace below says how).
 //
-// Stepwise (f32, and every other shape): a host loop of one launch per
+// Stepwise_tc (f32, C % 4 == 0; the `tc` namespace below): one launch a
+// step, the step's implicit GEMM on the tensor cores in 3xTF32
+// (convlstm_tiles.cuh's f32 tile) over a grid that fills the card.
+//
+// Stepwise (bf16 shapes the resident design refuses, f32 when named or
+// C % 4 != 0): a host loop of one launch per
 // step (T per call, on the caller's stream, which orders them).  Each
 // launch is an implicit GEMM over the whole batch: M = B*H*W pixels, K =
 // 9*C (3x3 taps of h), N = 4*C gate columns.  A block owns 64 pixels and
@@ -66,7 +71,8 @@
 // §6): kernel 1 at the serving shape 0.457 ms per call, one launch (169
 // TFLOP/s; bound 0.078 ms; the stepwise design 0.88 ms, 16 launches);
 // kernel 2 at the training shape 0.238 ms, one launch (162 TFLOP/s; bound
-// 0.039 ms); f32 (stepwise) 3.10 and 1.92 ms.
+// 0.039 ms); f32 (stepwise) 3.10 and 1.92 ms.  The f32 stepwise_tc times
+// beside the stepwise ones, from one run: PERF.md §6.
 
 #include "convlstm_tiles.cuh"
 
@@ -255,6 +261,131 @@ int run_resident(const void* gates_x, const void* w_t, const void* h0, float* c,
 
 }  // namespace resident
 
+// ---------------------------------------------------- stepwise_tc design
+//
+// One launch a step (f32).  The step's GEMM (M = B*H*W pixels, N = 4C gate
+// columns, K = 9C) runs on the f32 tile (convlstm_tiles.cuh): a block owns
+// 64 NW pixels (NW = 1 or 2 warpgroups, from the plan) and 16 hidden
+// channels with their four gates (columns gate * 16 + j -> Wh column gate *
+// C + cb + j), so at B = 1 (256 pixels, C = 128) the M and N sides give
+// only 4 x 8 = 32 tiles.  The rest of the card comes from K: a cluster of
+// `ranks` blocks (gridDim.x, from the plan) splits the C/8 chunks of K (8
+// channels at all 9 taps each); each parks its f32 partial in shared
+// memory, and block
+// `rank` sums rows [64 NW rank / ranks, 64 NW (rank + 1) / ranks) of the
+// cluster's partials in rank order through distributed shared memory and
+// runs the gate epilogue for them (sigmoid / tanh, c in f32, as the
+// stepwise design's).  A is h_{t-1} (f32, read once a chunk with its halo
+// rows and split as it is read); B is Wh split by the wrapper into TF32
+// big and small planes and laid out as each column tile's stage images.
+//
+// Bound on an H100 SXM (f32 work on the tensor cores, 3 TF32 products a
+// multiply-add at 494.7 TFLOP/s): kernel 1 at the serving shape (S=16) 77.3
+// GFLOP -> 0.469 ms; at B = 1 (--video) 4.83 GFLOP -> 0.029 ms, where 16
+// steps of launch and cluster exchange dominate; kernel 2 at B = 8 38.65
+// GFLOP -> 0.234 ms.  What holds it above: every 64 NW-pixel tile reads its
+// B slice (two planes) from L2 again, and each step's launch, halo and
+// cluster exchange.
+namespace tc {
+using namespace hopper;
+
+// Step t: grid (ranks, ceil(C/16), ceil(B*H*W/(64 NW))), clusters of ranks
+// along x.  Chunk kc of K is channels [8 kc, 8 kc + 8) of h_{t-1} at all 9
+// taps; w_tc = [ceil(C/16) column tiles][ceil(C/8) chunks][TC_BBYTES] stage
+// images (ops/convlstm.py's tc_weight_layout).
+template <bool STORE_CELL, int NW>
+__global__ void __launch_bounds__(NW * WG_THREADS, 2)
+    convlstm_tc_step(const float* __restrict__ gates_x, const float* __restrict__ w_tc,
+                     const float* __restrict__ h0, float* __restrict__ c_state,
+                     float* __restrict__ h_seq, float* __restrict__ c_seq,
+                     float* __restrict__ h_final, Shape s, int t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int M = 64 * NW;
+  const int ranks = gridDim.x, rank = static_cast<int>(cluster_rank());
+  const int cb = blockIdx.y * 16, m0 = blockIdx.z * M;
+  const int hw = s.H * s.W, pixels = s.B * hw;
+  const int chunks = (s.C + TC_KC - 1) / TC_KC;
+  // the conv's input: h0 at t = 0, else h_seq[:, t-1]
+  const float* h_in = t == 0 ? h0 : h_seq + (size_t)(t - 1) * hw * s.C;
+  const size_t h_bstride = (size_t)(t == 0 ? 1 : s.T) * hw * s.C;
+  const int top = m0 - (s.W + 1);  // the pixel of halo row 0
+  const float* w_tile = w_tc + (size_t)blockIdx.y * chunks * (TC_BBYTES / 4);
+  const auto copy = [&](int kc, unsigned char* st, uint64_t* bar) {
+    tc_copy_stage<NW>(
+        st, s.W,
+        [&](int row, int piece) -> const float* {
+          const int m = top + row, ch = kc * TC_KC + 4 * piece;
+          if (m < 0 || m >= pixels || ch >= s.C) return nullptr;
+          const int b = m / hw;
+          return h_in + b * h_bstride + (size_t)(m - b * hw) * s.C + ch;
+        },
+        w_tile + (size_t)kc * (TC_BBYTES / 4), bar, h_in);
+  };
+  const auto hrow = [&](int tap, int i) -> int {
+    const int r = tc_frag_row(i), m = m0 + r, p = m % hw;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const int y = p / s.W + dy, x = p % s.W + dx;
+    if (m >= pixels || y < 0 || y >= s.H || x < 0 || x >= s.W) return -1;
+    return r + s.W + 1 + dy * s.W + dx;
+  };
+  float acc[32];
+  tc_gemm<NW>(acc, copy, hrow, rank * chunks / ranks, (rank + 1) * chunks / ranks, s.W, smem);
+  float* X = reinterpret_cast<float*>(smem);
+  tc_park(acc, X);
+  cluster_sync();  // every rank's partial is parked
+
+  const int r0 = rank * M / ranks, r1 = (rank + 1) * M / ranks;
+  for (int e = threadIdx.x; e < (r1 - r0) * 16; e += NW * WG_THREADS) {
+    const int rr = r0 + e / 16, j = e % 16;
+    const int r = m0 + rr, ch = cb + j;
+    if (r >= pixels || ch >= s.C) continue;
+    const int b = r / hw, p = r - b * hw;
+    const size_t bt = (size_t)b * s.T + t;
+    const float* gx = gates_x + (bt * hw + p) * (4 * s.C) + ch;
+    const float* x = X + rr * TC_LDX + j;
+    const float gi = tc_rank_sum(x + 0 * 16, ranks) + gx[0 * s.C];
+    const float gf = tc_rank_sum(x + 1 * 16, ranks) + gx[1 * s.C];
+    const float gg = tc_rank_sum(x + 2 * 16, ranks) + gx[2 * s.C];
+    const float go = tc_rank_sum(x + 3 * 16, ranks) + gx[3 * s.C];
+    const size_t sidx = (size_t)r * s.C + ch;
+    const float c_new = sigmoid(gf) * c_state[sidx] + sigmoid(gi) * tanhf(gg);
+    const float h_new = sigmoid(go) * tanhf(c_new);
+    c_state[sidx] = c_new;
+    h_seq[(bt * hw + p) * s.C + ch] = h_new;
+    if constexpr (STORE_CELL) c_seq[(bt * hw + p) * s.C + ch] = c_new;
+    if (t == s.T - 1) h_final[sidx] = h_new;
+  }
+  cluster_sync();  // the partials are read: the cluster's blocks may exit
+}
+
+template <bool STORE_CELL, int NW>
+int run_tc_nw(const void* gates_x, const void* w_tc, const void* h0, float* c, void* h_seq,
+              void* c_seq, float* h_final, Shape s, int ranks, cudaStream_t stream) {
+  const dim3 grid(ranks, (s.C + 15) / 16, (s.B * s.H * s.W + 64 * NW - 1) / (64 * NW));
+  for (int t = 0; t < s.T; ++t) {
+    const cudaError_t err =
+        launch(convlstm_tc_step<STORE_CELL, NW>, grid, NW * WG_THREADS, tc_smem_bytes(NW, s.W),
+               ranks, stream, static_cast<const float*>(gates_x), static_cast<const float*>(w_tc),
+               static_cast<const float*>(h0), c, static_cast<float*>(h_seq),
+               static_cast<float*>(c_seq), h_final, s, t);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+template <bool STORE_CELL>
+int run_tc(const void* gates_x, const void* w_tc, const void* h0, float* c, void* h_seq,
+           void* c_seq, float* h_final, Shape s, int ranks, int warpgroups, cudaStream_t stream) {
+  if (s.C % 4 != 0 || ranks < 1 || ranks > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (warpgroups == 1)
+    return run_tc_nw<STORE_CELL, 1>(gates_x, w_tc, h0, c, h_seq, c_seq, h_final, s, ranks, stream);
+  if (warpgroups == 2)
+    return run_tc_nw<STORE_CELL, 2>(gates_x, w_tc, h0, c, h_seq, c_seq, h_final, s, ranks, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tc
+
 // ------------------------------------------------------ stepwise design
 
 template <typename T, bool VEC, bool STORE_CELL>
@@ -280,17 +411,24 @@ int run_t(const void* gates_x, const void* w_h, const void* h0, float* c, void* 
 }
 
 // design 1: resident (bf16 only, the shapes ops/convlstm.py's plan admits);
-// design 0: stepwise, T launches.
+// design 2: stepwise_tc (f32 only; w_t holds the split [2][9][4C][C],
+// clusters of `cluster` blocks of `warpgroups`), T launches; design 0:
+// stepwise, T launches.
 template <bool STORE_CELL>
 int run_dtype(const void* gates_x, const void* w_h, const void* w_t, const void* h0, void* c,
               void* h_seq, void* c_seq, void* h_final, Shape s, int is_bf16, int design,
-              void* stream) {
+              int cluster, int warpgroups, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto* cf = static_cast<float*>(c);
   auto* hf = static_cast<float*>(h_final);
   if (design == 1) {
     if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
     return resident::run_resident<STORE_CELL>(gates_x, w_t, h0, cf, h_seq, c_seq, hf, s, st);
+  }
+  if (design == 2) {
+    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return tc::run_tc<STORE_CELL>(gates_x, w_t, h0, cf, h_seq, c_seq, hf, s, cluster, warpgroups,
+                                  st);
   }
   if (is_bf16)
     return run_t<__nv_bfloat16, STORE_CELL>(gates_x, w_h, h0, cf, h_seq, c_seq, hf, s, st);
@@ -408,25 +546,29 @@ cudaError_t run(Shard* sh, int n, const Shape& s) {
 extern "C" {
 
 // gates_x [B,T,H,W,4C], w_h [3,3,C,4C], w_t [9,4C,C] (w_h per tap
-// transposed), h0 [B,H,W,C] and h_seq [B,T,H,W,C] in one type (bf16 when
+// transposed; for design 2 the f32 [2][9][4C][C] of its TF32 big and small
+// terms), h0 [B,H,W,C] and h_seq [B,T,H,W,C] in one type (bf16 when
 // is_bf16, else f32); c [B,H,W,C] f32 holds c0 and is updated in place;
 // h_final [B,H,W,C] f32 receives h_T.  All contiguous.  design 1 launches
-// one kernel (resident; bf16), design 0 launches T (stepwise), on
+// one kernel (resident; bf16), design 2 T (stepwise_tc; f32, clusters of
+// `cluster` blocks of `warpgroups` warpgroups), design 0 T (stepwise), on
 // `stream`; returns the first launch error, or 0.
 int convlstm_serving_forward(const void* gates_x, const void* w_h, const void* w_t,
                              const void* h0, void* c, void* h_seq, void* h_final, int B, int T,
-                             int H, int W, int C, int is_bf16, int design, void* stream) {
+                             int H, int W, int C, int is_bf16, int design, int cluster,
+                             int warpgroups, void* stream) {
   return run_dtype<false>(gates_x, w_h, w_t, h0, c, h_seq, nullptr, h_final,
-                          Shape{B, T, H, W, C}, is_bf16, design, stream);
+                          Shape{B, T, H, W, C}, is_bf16, design, cluster, warpgroups, stream);
 }
 
 // As convlstm_serving_forward, and c_seq [B,T,H,W,C] (the gates' type)
 // receives every step's cell state.
 int convlstm_train_forward(const void* gates_x, const void* w_h, const void* w_t, const void* h0,
                            void* c, void* h_seq, void* c_seq, void* h_final, int B, int T, int H,
-                           int W, int C, int is_bf16, int design, void* stream) {
+                           int W, int C, int is_bf16, int design, int cluster, int warpgroups,
+                           void* stream) {
   return run_dtype<true>(gates_x, w_h, w_t, h0, c, h_seq, c_seq, h_final, Shape{B, T, H, W, C},
-                         is_bf16, design, stream);
+                         is_bf16, design, cluster, warpgroups, stream);
 }
 
 // Kernel 1's row form: n row shards of one frame batch, shard i's tensors

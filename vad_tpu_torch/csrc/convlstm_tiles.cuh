@@ -4,11 +4,25 @@
 // - the stepwise core: one implicit-GEMM tile of BM x BN outputs
 //   accumulated over K in 64-byte stages that stream through a 3-stage
 //   cp.async ring, on the tensor cores (WMMA 16x16x16, f32 accumulate) for
-//   bf16 and as register-blocked f32 FMAs for f32, and the loader of the
-//   recurrence's own GEMM (3x3 taps of h_{t-1} against Wh);
+//   bf16, and for f32 either as register-blocked f32 FMAs or (TC) as
+//   3xTF32 mma.sync m16n8k8; and the loader of the recurrence's own GEMM
+//   (3x3 taps of h_{t-1} against Wh);
 // - the Hopper core (namespace hopper, sm_90a): padded frames staged by
 //   TMA, wgmma on shared-memory descriptors, mbarriers, cluster barriers
-//   and distributed shared memory, and the gate GEMM's column layout.
+//   and distributed shared memory, the gate GEMM's column layout, and the
+//   f32 tile of the stepwise_tc design (wgmma m64n64k8 on 3xTF32 terms).
+//
+// 3xTF32.  An f32 operand x is split into two TF32 values, big =
+// rna(x) and small = rna(x - big) (rna: cvt.rna.tf32.f32, round to
+// nearest, ties away, on the 13 mantissa bits TF32 drops; x - big is exact
+// in f32), and a product a.b is accumulated in f32 as small_a.big_b +
+// big_a.small_b + big_a.big_b.  The dropped small_a.small_b and the
+// remainder of the split are about 2^-22 of |a.b|: near f32, where one
+// TF32 product (2^-11) is not.  The tensor cores' f32 accumulator does
+// not round each addition to nearest, and over a long K its error grows
+// past the FMA core's, so each stage's products go to a fresh accumulator
+// that is then added to the running sum with an ordinary
+// (round-to-nearest) f32 add, in stage order.
 //
 // Everything sits in anonymous namespaces: each source that includes it
 // gets its own copy.
@@ -33,14 +47,16 @@ constexpr int NSTAGE = 3;
 constexpr int LDC = BN + 4;  // f32 epilogue tile [BM][LDC]
 
 // Per element type: K chunk of 64 bytes, 16-byte copy chunks, rows padded
-// by one chunk.  A is stored row-major [BM][LDA] (K contiguous) or, for
-// kernel 3's dWh GEMM, K-major [BK][LDAT]; B is [BK][LDB].
+// by one chunk (LDA) or by 8 elements (LDAT, LDB: a row stride of 8 banks
+// mod 32 in f32, so the mma.sync fragment reads hit 32 distinct banks).
+// A is stored row-major [BM][LDA] (K contiguous) or, for kernel 3's dWh
+// GEMM, K-major [BK][LDAT]; B is [BK][LDB].
 template <typename T> struct Tiles {
   static constexpr int CE = 16 / sizeof(T);  // elements per 16-byte chunk
   static constexpr int BK = 64 / sizeof(T);  // K per stage (32 bf16, 16 f32)
   static constexpr int LDA = BK + CE;
-  static constexpr int LDAT = BM + CE;
-  static constexpr int LDB = BN + CE;
+  static constexpr int LDAT = BM + 8;
+  static constexpr int LDB = BN + 8;
   static constexpr int A_ELEMS = BM * LDA > BK * LDAT ? BM * LDA : BK * LDAT;
   static constexpr int STAGE = A_ELEMS + BK * LDB;  // elements
 };
@@ -61,6 +77,28 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// ---------------------------------------------------------------- 3xTF32
+// x rounded to TF32 by cvt.rna (the low 13 bits cleared), as f32 bits.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xFFFFE000u;
+}
+// x = big + small (+ ~2^-22 |x|), both TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+// d += a . b, mma.sync m16n8k8, TF32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32_sync(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -94,8 +132,11 @@ struct Shape {
 //
 // Accumulates one BM x BN output tile over KT stages of K into the f32
 // epilogue tile at the start of `smem` ([BM][LDC], aliasing the stages).
-// `load(As, Bs, kk)` issues stage kk's copies.  Ends synchronized.
-template <typename T, bool A_KMAJOR, class Load>
+// `load(As, Bs, kk)` issues stage kk's copies.  Ends synchronized.  TC
+// (f32 only): the stages' values are split into TF32 terms as each warp
+// reads its fragments and multiplied by mma.sync m16n8k8 (3xTF32); else
+// f32 runs FMAs.
+template <typename T, bool A_KMAJOR, class Load, bool TC = false>
 __device__ __forceinline__ void gemm_tile(const Load& load, int KT, unsigned char* smem) {
   using L = Tiles<T>;
   T* stages = reinterpret_cast<T*>(smem);
@@ -159,6 +200,79 @@ __device__ __forceinline__ void gemm_tile(const Load& load, int KT, unsigned cha
       for (int j = 0; j < 2; ++j)
         wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16, acc[i][j], LDC,
                                 wmma::mem_row_major);
+  } else if constexpr (TC) {
+    // 8 warps of 32 x 32 (2 m16 x 4 n8 tiles); fragments per the PTX ISA's
+    // m16n8k8 .tf32 layout (g = lane / 4, q = lane % 4): A (g | g+8, q |
+    // q+4), B (k q | q+4, n g), C (g | g+8, 2q, 2q+1).
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+    const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+    float acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+    for (int kk = 0; kk < KT; ++kk) {
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();
+      const int nxt = kk + NSTAGE - 1;
+      if (nxt < KT) {
+        T* base = stages + (nxt % NSTAGE) * L::STAGE;
+        load(base, base + L::A_ELEMS, nxt);
+      }
+      cp_async_commit();
+      const T* As = stages + (kk % NSTAGE) * L::STAGE;
+      const T* Bs = As + L::A_ELEMS;
+      float part[2][4][4];  // this stage's products (see 3xTF32 above)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < L::BK; ks += 8) {
+        uint32_t ab[2][4], as[2][4], bb[4][2], bs[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = wm + 16 * i + g + 8 * (e & 1), k = ks + q + 4 * (e >> 1);
+            split_tf32(to_f32(A_KMAJOR ? As[k * L::LDAT + r] : As[r * L::LDA + k]), ab[i][e],
+                       as[i][e]);
+          }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            split_tf32(to_f32(Bs[(ks + q + 4 * e) * L::LDB + wn + 8 * j + g]), bb[j][e], bs[j][e]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            mma_tf32_sync(part[i][j], as[i], bb[j]);
+            mma_tf32_sync(part[i][j], ab[i], bs[j]);
+            mma_tf32_sync(part[i][j], ab[i], bb[j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the epilogue tile aliases the stages
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          Cs[(wm + 16 * i + g + 8 * (e >> 1)) * LDC + wn + 8 * j + 2 * q + (e & 1)] = acc[i][j][e];
   } else {
     const int tr = (tid >> 4) * 4;  // 4 rows
     const int tc = tid & 15;        // columns tc + 16*j, j < 8
@@ -549,6 +663,218 @@ __device__ __forceinline__ void thread_pixels(int (&pix)[2], int W) {
   const int warp = threadIdx.x % WG_THREADS / 32;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) pix[rr] = tile_pixel(wg, 16 * warp + lane / 4 + 8 * rr, W);
+}
+
+// --------------------------------------- the f32 tile (stepwise_tc, 3xTF32)
+//
+// NW warpgroups a block (template, 1 or 2) accumulate a (64 NW) x 64 f32
+// tile of a 3x3 convolution's implicit GEMM: warpgroup g owns pixel rows
+// [64 g, 64 g + 64) of the block's M0 = 64 NW consecutive pixels (raster
+// order over the batch), the 64 columns are the block's.  K runs over
+// chunks of TC_KC input channels, each chunk with all 9 taps (K = 72 a
+// stage), so a stage holds the chunk of every pixel a tap can reach once:
+// the halo rows M0 - (W + 1) .. M0 + 64 NW + W, [rows][TC_LDA] raw f32,
+// where tap (dy, dx) of pixel m reads row m + (dy - 1) W + (dx - 1) (and
+// zero where that pixel leaves the frame).  That reads the input 1 +
+// (2 W + 2) / (64 NW) times a chunk instead of 9.
+//
+// Per tap and 8 of K, three wgmma m64n64k8 (TF32 in, f32 accumulate), one
+// per term of the 3xTF32 product.  For TF32, wgmma reads a shared-memory
+// operand K-major only (the transpose bits exist only for 16-bit types),
+// so B (the weights, split by the wrapper into big and small planes) sits
+// in shared memory as K-major core matrices, [tap][plane][2 groups of 4]
+// [64 rows][4] (8 rows x 16 bytes a core matrix; LBO = 1024, the next 4
+// of K; SBO = 128, the next 8 rows).  The wrapper lays the split weights
+// out as these stage images, [column tile][chunk][TC_BBYTES], so one
+// thread copies a stage's B whole with cp.async.bulk on an mbarrier.  A
+// comes from registers: each warp reads its m64n64k8 fragment (the
+// mma.sync m16n8k8 .tf32 layout: rows 16 warp + lane/4 and + 8, K lane % 4
+// and + 4) from the halo rows, splits it there and hands big and small to
+// wgmma; the halo rows arrive by cp.async (16 bytes a copy, rows outside
+// the batch zero-filled).  Stages are double buffered, so the copies of
+// the next chunk run while the tensor cores work on this one.  A block's B
+// serves its NW warpgroups.
+//
+// A stage's products go to a fresh accumulator (its first wgmma with
+// scale-d = 0) that is added to the running sum after the stage (see
+// 3xTF32 above).
+constexpr int TC_KC = 8;                      // input channels (K per tap) of a stage
+constexpr int TC_LDA = TC_KC + 4;             // halo row stride, f32 (fragment reads hit 32 banks)
+constexpr int TC_BTAP = 2 * 64 * TC_KC * 4;   // one tap's two B planes of a stage, 4 KB
+constexpr int TC_BBYTES = 9 * TC_BTAP;        // 36,864
+constexpr int TC_NSTAGE = 2;
+constexpr int TC_LDX = 64 + 4;                // the parked partial tile [64 NW][TC_LDX] f32
+__host__ __device__ constexpr int tc_halo_rows(int nw, int W) { return 64 * nw + 2 * W + 2; }
+__host__ __device__ constexpr int tc_a_bytes(int nw, int W) {
+  return (tc_halo_rows(nw, W) * TC_LDA * 4 + 127) / 128 * 128;
+}
+__host__ __device__ constexpr int tc_stage_bytes(int nw, int W) {
+  return tc_a_bytes(nw, W) + TC_BBYTES;
+}
+// The stages (the parked tile aliases them), then the stages' mbarriers:
+// 89,360 bytes for two warpgroups at W = 16 (two blocks an SM).
+__host__ __device__ constexpr int tc_ring_bytes(int nw, int W) {
+  return TC_NSTAGE * tc_stage_bytes(nw, W) > 64 * nw * TC_LDX * 4
+             ? TC_NSTAGE * tc_stage_bytes(nw, W)
+             : 64 * nw * TC_LDX * 4;
+}
+__host__ __device__ constexpr int tc_smem_bytes(int nw, int W) {
+  return tc_ring_bytes(nw, W) + 8 * TC_NSTAGE;
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, one bulk
+// copy completing on `bar`; one thread issues, after its mbar_expect_tx.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// d = A . B + (scale_d ? d : 0), m64n64k8, A (TF32) from registers, B
+// (TF32, K-major) from shared memory, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tc_fold(float (&acc)[32], const float (&part)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += part[i];
+}
+
+// A stage's copies: the halo rows' TC_KC channels by every thread (two
+// 16-byte pieces a row; `a_src(row, piece)` gives the source or nullptr
+// for zeros) and B's stage image `b_src` (TC_BBYTES) in one bulk copy by
+// thread 0, completing on `bar`.
+template <int NW, class ASrc>
+__device__ __forceinline__ void tc_copy_stage(unsigned char* st, int W, const ASrc& a_src,
+                                              const float* b_src, uint64_t* bar,
+                                              const void* any) {
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, TC_BBYTES);
+    bulk_copy(st + tc_a_bytes(NW, W), b_src, TC_BBYTES, bar);
+  }
+  const int rows = tc_halo_rows(NW, W);
+  for (int e = threadIdx.x; e < 2 * rows; e += NW * WG_THREADS) {
+    const float* src = a_src(e / 2, e % 2);
+    cp_async16(st + (e / 2) * TC_LDA * 4 + (e % 2) * 16, src != nullptr ? src : any,
+               src != nullptr);
+  }
+}
+
+// acc = the sum over chunks [s0, s1) of this warpgroup's rows of the
+// block's tile, chunk by chunk in order.  `copy(s, stage, bar)` issues
+// chunk s's copies (tc_copy_stage).  `hrow(tap, i)` gives the halo row
+// that tap reads for this thread's fragment row i (0: 16 warp + lane/4 of
+// the warpgroup's rows, 1: that + 8), or -1 for zero.  `smem`:
+// tc_smem_bytes(NW, W).  Ends with every copy and wgmma done and the block
+// synchronized.
+template <int NW, class Copy, class HRow>
+__device__ __forceinline__ void tc_gemm(float (&acc)[32], const Copy& copy, const HRow& hrow,
+                                        int s0, int s1, int W, unsigned char* smem) {
+  const int STAGE = tc_stage_bytes(NW, W);
+  const int q = threadIdx.x % 4;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + tc_ring_bytes(NW, W));
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  if (threadIdx.x == 0)
+    for (int b = 0; b < TC_NSTAGE; ++b) mbar_init(&bars[b], 1);
+  __syncthreads();
+  if (s0 < s1) copy(s0, smem, &bars[0]);
+  cp_async_commit();
+  for (int s = s0; s < s1; ++s) {
+    const int k = s - s0;
+    cp_async_wait<0>();
+    mbar_wait(&bars[k % TC_NSTAGE], (k / TC_NSTAGE) & 1);  // B's bulk copy
+    fence_async();    // this thread's copies, visible to wgmma
+    __syncthreads();  // chunk s is in; every warpgroup is done with the other buffer
+    if (s + 1 < s1) copy(s + 1, smem + (k + 1) % TC_NSTAGE * STAGE, &bars[(k + 1) % TC_NSTAGE]);
+    cp_async_commit();
+    const unsigned char* st = smem + k % TC_NSTAGE * STAGE;
+    const float* A = reinterpret_cast<const float*>(st);
+    const unsigned char* B = st + tc_a_bytes(NW, W);
+    float part[32];
+    uint32_t ab[2][3][4], as[2][3][4];  // two register sets of three taps' fragments
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {  // taps 3g .. 3g + 2
+      if (g == 2) wgmma_wait<1>();  // group 0 is done with register set 0
+#pragma unroll
+      for (int tt = 0; tt < 3; ++tt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = hrow(3 * g + tt, i);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // K lane % 4 and + 4: fragment elements i + 2 h
+            const float v = r >= 0 ? A[r * TC_LDA + q + 4 * h] : 0.0f;
+            split_tf32(v, ab[g % 2][tt][i + 2 * h], as[g % 2][tt][i + 2 * h]);
+          }
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int tt = 0; tt < 3; ++tt) {
+        const unsigned char* bt = B + (3 * g + tt) * TC_BTAP;
+        const uint64_t bb = desc(bt, 1024, 128), bs = desc(bt + TC_BTAP / 2, 1024, 128);
+        mma_tf32(part, as[g % 2][tt], bb, g + tt > 0);
+        mma_tf32(part, ab[g % 2][tt], bs, 1);
+        mma_tf32(part, ab[g % 2][tt], bb, 1);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    tc_fold(acc, part);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// This thread's two fragment rows (0 and 1: + 8) within the block's tile.
+__device__ __forceinline__ int tc_frag_row(int i) {
+  return 64 * (threadIdx.x / WG_THREADS) + 16 * (threadIdx.x % WG_THREADS / 32) +
+         threadIdx.x % 32 / 4 + 8 * i;
+}
+
+// The accumulators of this thread's warpgroup into X [64 NW][TC_LDX].
+__device__ __forceinline__ void tc_park(const float (&acc)[32], float* X) {
+  const int wg = threadIdx.x / WG_THREADS, warp = threadIdx.x % WG_THREADS / 32;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int row = 64 * wg + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(X + row * TC_LDX + col) = make_float2(acc[i], acc[i + 1]);
+  }
+}
+
+__device__ __forceinline__ float ld_peer_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+// The element at `x` (in this block's parked tile) summed over the
+// cluster's `ranks` blocks in rank order: a fixed order, so the split-K
+// sum is the same on every call.
+__device__ __forceinline__ float tc_rank_sum(const float* x, int ranks) {
+  float v[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) v[r] = r < ranks ? ld_peer_f32(peer(x, r)) : 0.0f;
+  float sum = v[0];
+#pragma unroll
+  for (int r = 1; r < 8; ++r)
+    if (r < ranks) sum += v[r];
+  return sum;
 }
 
 // ------------------------------------------------------------ host side

@@ -29,11 +29,20 @@ Three kernels, each with its plain version beside it:
   gates from ``h_seq``/``c_seq`` (``convlstm_backward``; plain version
   ``convlstm_backward_ref``).
 
-Each has two designs, and ``recurrence_plan`` picks one from the shape and
-type alone: *resident* (bf16 frames of at most 256 pixels in 8x8 tiles:
-weights and the frame stay in shared memory, wgmma and TMA, one launch for
-kernels 1 and 2 and four for kernel 3) or *stepwise* (everything else:
-f32, ragged frames and widths; one launch per step).
+Each has three designs, and ``recurrence_plan`` picks one from the shape
+and type alone:
+
+- *resident* (bf16 frames of at most 256 pixels in 8x8 tiles: weights and
+  the frame stay in shared memory, wgmma and TMA, one launch for kernels 1
+  and 2 and four for kernel 3);
+- *stepwise_tc* (f32 with C % 4 == 0, any frame: one launch per step, the
+  step's GEMM on the tensor cores in 3xTF32, every f32 operand split into
+  TF32 big and small terms (``tf32_split``), with its K split across a
+  thread-block cluster where the pixel and channel tiles alone leave SMs
+  idle; kernel 3's other GEMMs in 3xTF32 on mma.sync);
+- *stepwise* (everything else: bf16 frames the resident design refuses,
+  ragged widths; one launch per step on the FMA/WMMA core).  Naming it
+  still runs f32 on FMAs, the design the f32 default replaced.
 
 ``convlstm_recurrence`` is the one entry point.  When autograd records
 (grad enabled and an input requires grad) it goes through
@@ -55,6 +64,7 @@ the implementation by the tensors' device: a kernel that fails raises.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -70,33 +80,52 @@ _KERNEL = "convlstm_serving"
 _BWD_KERNEL = "convlstm_backward"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "convlstm_serving_forward": [_P] * 7 + [_I] * 7 + [_P],
-    "convlstm_train_forward": [_P] * 8 + [_I] * 7 + [_P],
+    "convlstm_serving_forward": [_P] * 7 + [_I] * 9 + [_P],
+    "convlstm_train_forward": [_P] * 8 + [_I] * 9 + [_P],
     "convlstm_serving_active_clusters": [_I] * 5,
     "convlstm_serving_rows": [_P] * 10 + [_I] * 7,
 }
 _BWD_SIGNATURES = {
-    "convlstm_backward": [_P] * 14 + [_I] * 9 + [_P],
+    "convlstm_backward": [_P] * 16 + [_I] * 12 + [_P],
     "convlstm_backward_active_clusters": [_I] * 4,
 }
-_DESIGN_CODES = {"stepwise": 0, "resident": 1}
+_DESIGN_CODES = {"stepwise": 0, "resident": 1, "stepwise_tc": 2}
 
 NUM_SMS = 132  # H100 SXM
 _NT = 64  # wgmma N: GEMM columns of a resident block
 _STEP_TILE = (64, 128)  # the stepwise core's output tile (pixels, columns)
 _STEP_SMEM = 41_472  # the stepwise core's static shared memory (3-stage ring)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (csrc/convlstm_tiles.cuh)
+# stepwise_tc (convlstm_tiles.cuh's f32 tile): a warpgroup's 64 x 64 output
+# tile, the input channels of a K chunk (all 9 taps), and the largest
+# portable cluster that splits K
+_TC_TILE, _TC_KC, _TC_MAX_CLUSTER = 64, 8, 8
+_TC_STAGE_B = 9 * 2 * 64 * _TC_KC * 4  # a stage's B image: 9 taps x 2 planes x 64 rows x 8
+
+
+def _tc_smem(warpgroups: int, wid: int) -> int:
+    """A stepwise_tc block's shared memory (``tc_smem_bytes``): two
+    stages of a K chunk's halo rows (64 per warpgroup + 2W + 2, 8 channels
+    padded to 12 f32) and B's 9 taps x 2 planes x 64 rows x 8 (the parked
+    partial tile aliases them), and the stages' two mbarriers."""
+    halo = _cdiv((64 * warpgroups + 2 * wid + 2) * 12 * 4, 128) * 128
+    return max(2 * (halo + 9 * 2 * 64 * _TC_KC * 4), 64 * warpgroups * 68 * 4) + 16
 
 
 @dataclass(frozen=True)
 class RecurrencePlan:
     """How one call of a recurrence kernel runs on the card.
 
-    ``design`` is ``"resident"`` or ``"stepwise"``; ``grids`` names each
-    launch's grid, ``cluster`` the blocks per cluster (1: none),
-    ``smem_bytes`` the largest block's shared memory, ``launches`` the
-    launches per call (what the kernel's counter adds), ``scratch_bytes``
-    the device scratch the wrapper allocates for the call."""
+    ``design`` is ``"resident"``, ``"stepwise_tc"`` or ``"stepwise"``;
+    ``grids`` names each launch's grid, ``cluster`` the blocks per cluster
+    (1: none; stepwise_tc: the K split of each step), ``smem_bytes`` the
+    largest block's shared memory, ``launches`` the launches per call (what
+    the kernel's counter adds), ``scratch_bytes`` the device scratch the
+    wrapper allocates for the call, ``step_blocks`` the blocks that run one
+    step of the recurrence (kernel 3: of its reverse loop), ``warpgroups``
+    stepwise_tc's warpgroups a block (its tile is 64 pixels a warpgroup),
+    and ``weight_bytes`` stepwise_tc's TF32 split of Wh, made once per
+    weight tensor and version and cached (``tf32_split``)."""
 
     kernel: str
     design: str
@@ -105,9 +134,13 @@ class RecurrencePlan:
     smem_bytes: int
     scratch_bytes: int
     grids: Dict[str, Tuple[int, ...]] = field(default_factory=dict)
-    gate_groups: int = 0  # kernel 3 resident: frame groups of the gate launch
+    gate_groups: int = 0  # kernel 3: the resident gate launch's frame groups, stepwise_tc's cluster
+    gate_warpgroups: int = 0  # kernel 3 stepwise_tc: warpgroups a block of the gate launch
     dw_splits: int = 0  # kernel 3: K splits of the dWh launch
     shards: int = 1  # kernel 1's row form: row shards of the frame, one grid each
+    step_blocks: int = 0
+    warpgroups: int = 0
+    weight_bytes: int = 0
 
 
 _KERNELS = ("convlstm_serving", "convlstm_train_forward", "convlstm_backward")
@@ -156,6 +189,33 @@ def resident_fits(kernel: str, hgt: int, wid: int, ch: int, dtype: torch.dtype) 
     return fits and _resident_smem(kernel, hgt, wid, ch) <= SMEM_LIMIT
 
 
+def tc_fits(ch: int, dtype: torch.dtype, wid: int) -> bool:
+    """Whether the stepwise_tc design takes this width and type: f32 (its
+    3xTF32 terms keep f32's accuracy; bf16 has the resident and stepwise
+    designs), C % 4 == 0 (its operands move in 16-byte groups of 4
+    channels) and frame rows of ``wid`` pixels whose halo fits a block's
+    shared memory.  Any frame height and batch: pixels beyond the last tile
+    and taps outside the frame read zeros."""
+    return dtype == torch.float32 and ch % 4 == 0 and _tc_smem(2, wid) <= SMEM_LIMIT
+
+
+def _tc_grid(pixels: int, n_tiles: int, stages: int) -> Tuple[int, int, int]:
+    """stepwise_tc's step grid: (warpgroups a block, pixel tiles, cluster
+    size).  Two warpgroups (128-pixel tiles: a block's B slice serves both)
+    unless even clusters of 8 would leave SMs idle, then one; the K split
+    is the fewest blocks a cluster (a power of two up to the portable 8,
+    none with fewer than one K stage) that give at least one block per SM."""
+    for nw in (2, 1):
+        m_tiles = _cdiv(pixels, _TC_TILE * nw)
+        if nw == 1 or m_tiles * n_tiles * _TC_MAX_CLUSTER >= NUM_SMS:
+            break
+    ranks = 1
+    while (ranks < _TC_MAX_CLUSTER and m_tiles * n_tiles * ranks < NUM_SMS
+           and 2 * ranks <= stages):
+        ranks *= 2
+    return nw, m_tiles, ranks
+
+
 def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
                     dtype: torch.dtype, design: Optional[str] = None,
                     shards: int = 1) -> RecurrencePlan:
@@ -163,7 +223,23 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
     and scratch of ``kernel`` (``"convlstm_serving"``, ``"convlstm_train_forward"``
     or ``"convlstm_backward"``) at ``gates_x [b, t, hgt, wid, 4*ch]`` of
     ``dtype``.  ``design=None`` takes the resident design wherever it fits,
-    else the stepwise one; naming a design that does not fit raises.
+    else stepwise_tc wherever it fits (``tc_fits``: f32), else the stepwise
+    one; naming a design that does not fit raises.
+
+    stepwise_tc's step runs on tiles of 64 or 128 pixels (one or two
+    warpgroups, ``_tc_grid``) x 64 columns (kernels 1-2: 16 channels x 4
+    gates; kernel 3's reverse loop: 64 output channels), and a cluster of up
+    to 8 blocks splits each tile's K (chunks of 8 channels, or of 8 gate
+    columns for kernel 3, at all 9 taps) until the step has at least one
+    block per SM (``NUM_SMS``): at C=128,
+    256 blocks at the serving shape (S=16, 16x16: 32 x 8 tiles of 128),
+    256 for kernel 2 at B=8 (16 x 8 x 2), 256 for kernel 1 at B=1
+    (``--video``: 4 x 8 tiles of 64 x 8), 256 for kernel 3's loop at B=8
+    (16 x 2 x 8).  Where 8 blocks a tile still fall short the step runs on
+    fewer: kernel 3 at B*H*W <= 256 (64 blocks: 4 x 2 tiles x 8; the
+    portable cluster holds 8 blocks, and its 64-channel tile halves the
+    channel tiles of kernels 1-2) and frames too small for 17 tiles (the
+    ragged edge shapes).
 
     ``shards`` > 1 is kernel 1's row form (``convlstm_recurrence_rows``):
     the ``hgt`` rows split in ``shards`` equal row shards, always stepwise
@@ -181,17 +257,18 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
             raise ValueError("the row form is stepwise: the resident design keeps h in one "
                              "cluster's shared memory and cannot see a neighbour shard")
         rows = hgt // shards
+        step = (_cdiv(b * rows * wid, _STEP_TILE[0]), _cdiv(ch, 32))
         return RecurrencePlan(kernel, "stepwise", launches=t * shards, cluster=1,
-                              smem_bytes=_STEP_SMEM, scratch_bytes=0,
-                              grids={"step": (_cdiv(b * rows * wid, _STEP_TILE[0]),
-                                              _cdiv(ch, 32))}, shards=shards)
-    fits = resident_fits(kernel, hgt, wid, ch, dtype)
+                              smem_bytes=_STEP_SMEM, scratch_bytes=0, grids={"step": step},
+                              shards=shards, step_blocks=step[0] * step[1])
+    fits = {"resident": resident_fits(kernel, hgt, wid, ch, dtype),
+            "stepwise_tc": tc_fits(ch, dtype, wid), "stepwise": True}
     if design is None:
-        design = "resident" if fits else "stepwise"
+        design = next(d for d in ("resident", "stepwise_tc", "stepwise") if fits[d])
     elif design not in _DESIGN_CODES:
         raise ValueError(f"unknown design {design!r}")
-    elif design == "resident" and not fits:
-        raise ValueError(f"the resident design does not take {kernel} at "
+    elif not fits[design]:
+        raise ValueError(f"the {design} design does not take {kernel} at "
                          f"B={b} T={t} {hgt}x{wid} C={ch} {dtype}")
     hw, four_c = hgt * wid, 4 * ch
     act_bytes = b * t * hw * four_c * 4  # kernel 3's f32 gate activations
@@ -199,10 +276,20 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
         if design == "resident":
             return RecurrencePlan(kernel, design, launches=1, cluster=ch // 16,
                                   smem_bytes=_resident_smem(kernel, hgt, wid, ch),
-                                  scratch_bytes=0, grids={"recurrence": (ch // 16, b)})
+                                  scratch_bytes=0, grids={"recurrence": (ch // 16, b)},
+                                  step_blocks=ch // 16 * b)
+        if design == "stepwise_tc":
+            n_tiles = _cdiv(ch, 16)
+            nw, m_tiles, ranks = _tc_grid(b * hw, n_tiles, _cdiv(ch, _TC_KC))
+            return RecurrencePlan(kernel, design, launches=t, cluster=ranks,
+                                  smem_bytes=_tc_smem(nw, wid), scratch_bytes=0,
+                                  grids={"step": (ranks, n_tiles, m_tiles)},
+                                  step_blocks=ranks * n_tiles * m_tiles, warpgroups=nw,
+                                  weight_bytes=n_tiles * _cdiv(ch, _TC_KC) * _TC_STAGE_B)
+        step = (_cdiv(b * hw, _STEP_TILE[0]), _cdiv(ch, 32))
         return RecurrencePlan(kernel, design, launches=t, cluster=1, smem_bytes=_STEP_SMEM,
-                              scratch_bytes=0,
-                              grids={"step": (_cdiv(b * hw, _STEP_TILE[0]), _cdiv(ch, 32))})
+                              scratch_bytes=0, grids={"step": step},
+                              step_blocks=step[0] * step[1])
     if design == "resident":
         blocks = ch // 16
         gate_groups = max(1, min(b * t, NUM_SMS // blocks))
@@ -214,18 +301,30 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
             scratch_bytes=act_bytes + splits * 9 * ch * four_c * 4,
             grids={"gate": (blocks, gate_groups), "loop": (blocks, b),
                    "dw": (dw_blocks, splits), "dw_reduce": (_cdiv(9 * ch * four_c, 256),)},
-            gate_groups=gate_groups, dw_splits=splits)
+            gate_groups=gate_groups, dw_splits=splits, step_blocks=blocks * b)
     step = (_cdiv(b * hw, _STEP_TILE[0]), _cdiv(ch, _STEP_TILE[1]))
     dw_tiles = (_cdiv(9 * ch, 64), _cdiv(four_c, _STEP_TILE[1]))
     stages = _cdiv(b * t * hw, 64 // (2 if dtype == torch.bfloat16 else 4))  # 64-byte K stages
     splits = _even_splits(stages, 2 * NUM_SMS // (dw_tiles[0] * dw_tiles[1]))
-    return RecurrencePlan(
-        kernel, design, launches=t + 3, cluster=1, smem_bytes=_STEP_SMEM,
-        scratch_bytes=act_bytes + splits * 9 * ch * four_c * 4,
-        grids={"gate": (_cdiv(b * t * hw, _STEP_TILE[0]), _cdiv(ch, 32)), "step": step,
-               "dw": dw_tiles + (splits,),
-               "finish": (step[0] * step[1] + _cdiv(9 * ch * four_c, 256),)},
-        dw_splits=splits)
+    grids = {"gate": (_cdiv(b * t * hw, _STEP_TILE[0]), _cdiv(ch, 32)), "step": step,
+             "dw": dw_tiles + (splits,),
+             "finish": (step[0] * step[1] + _cdiv(9 * ch * four_c, 256),)}
+    scratch = act_bytes + splits * 9 * ch * four_c * 4
+    if design == "stepwise_tc":  # the gate recompute and the reverse loop on the f32 tile
+        n_tiles = _cdiv(ch, _TC_TILE)
+        nw, m_tiles, ranks = _tc_grid(b * hw, n_tiles, four_c // _TC_KC)
+        g_nw, g_tiles, g_ranks = _tc_grid(b * t * hw, _cdiv(ch, 16), _cdiv(ch, _TC_KC))
+        grids.update(step=(ranks, n_tiles, m_tiles), gate=(g_ranks, _cdiv(ch, 16), g_tiles))
+        return RecurrencePlan(kernel, design, launches=t + 3, cluster=ranks,
+                              smem_bytes=max(_tc_smem(max(nw, g_nw), wid), _STEP_SMEM),
+                              scratch_bytes=scratch, grids=grids, gate_groups=g_ranks,
+                              gate_warpgroups=g_nw, dw_splits=splits,
+                              step_blocks=ranks * n_tiles * m_tiles, warpgroups=nw,
+                              weight_bytes=(n_tiles * four_c // _TC_KC
+                                            + _cdiv(ch, 16) * _cdiv(ch, _TC_KC)) * _TC_STAGE_B)
+    return RecurrencePlan(kernel, design, launches=t + 3, cluster=1, smem_bytes=_STEP_SMEM,
+                          scratch_bytes=scratch, grids=grids, dw_splits=splits,
+                          step_blocks=step[0] * step[1])
 
 
 def active_clusters(kernel: str, b: int, hgt: int, wid: int, ch: int) -> int:
@@ -386,6 +485,78 @@ def _w_t(w_h: torch.Tensor) -> torch.Tensor:
     return w_h.reshape(9, ch, 4 * ch).transpose(1, 2).contiguous()
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero, on the 13 low mantissa bits, which come
+    out zero (adding half of the dropped range to the sign-magnitude bits
+    carries into the kept ones exactly when the dropped bits reach half)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> torch.Tensor:
+    """``[2, *x.shape]``: x's TF32 big term ``rna(x)`` and small term
+    ``rna(x - big)`` (``x - big`` is exact in f32), the 3xTF32 operand
+    split of the stepwise_tc design; ``big + small`` is x to about 2^-22."""
+    big = tf32_rna(x.float())
+    return torch.stack([big, tf32_rna(x.float() - big)])
+
+
+# stepwise_tc's split weights: (id(w_h), layout) -> (weakref to w_h, its
+# version, data pointer and shape, the split); a few entries (one per
+# layer and layout) at a time
+_TC_WEIGHTS: Dict[Tuple[int, str], tuple] = {}
+
+
+def tc_weight_layout(w_h: torch.Tensor, layout: str) -> torch.Tensor:
+    """``w_h`` as stepwise_tc's B rows: ``[column tiles, K chunks, 9 taps,
+    64 rows, 8]``, row n of a tile holding its 8 values of the chunk (zeros
+    past C).  ``"fwd"`` (kernels 1-2): tiles of 16 hidden channels, row n =
+    gate n / 16 of channel 16 tile + n % 16 (Wh column gate * C + channel),
+    chunks of 8 input channels; ``"bwd"`` (kernel 3's dh product): tiles
+    of 64 output channels, row n = channel 64 tile + n, chunks of 8 of the
+    4C gate columns."""
+    ch = w_h.shape[2]
+    w9 = w_h.reshape(9, ch, 4 * ch)
+    if layout == "fwd":  # [9, C (K), 4, C (rows)] -> [tiles, chunks, 9, 4, 16, 8]
+        w = F.pad(w9.reshape(9, ch, 4, ch), (0, -ch % 16, 0, 0, 0, -ch % _TC_KC))
+        w = w.reshape(9, -1, _TC_KC, 4, w.shape[-1] // 16, 16)
+        return w.permute(4, 1, 0, 3, 5, 2).reshape(w.shape[4], w.shape[1], 9, 64, _TC_KC)
+    w = F.pad(w9, (0, 0, 0, -ch % 64))  # [9, C (rows), 4C (K)]
+    w = w.reshape(9, -1, 64, 4 * ch // _TC_KC, _TC_KC)
+    return w.permute(1, 3, 0, 2, 4)
+
+
+def tc_stage_images(w_h: torch.Tensor, layout: str) -> torch.Tensor:
+    """stepwise_tc's B operand, the TF32 terms of ``w_h`` as the kernels'
+    shared-memory stage images (``convlstm_tiles.cuh``): ``[column tiles, K
+    chunks, 9 taps, 2 planes (big, small), 2 groups of 4, 64 rows, 4]``, so
+    a stage is one contiguous copy."""
+    rows = tc_weight_layout(w_h, layout)  # [tiles, chunks, 9, 64, 8]
+    split = tf32_split(rows)  # [2, tiles, chunks, 9, 64, 8]
+    split = split.reshape(*split.shape[:5], 2, 4)  # the 8 of K in two groups of 4
+    return split.permute(1, 2, 3, 0, 5, 4, 6).contiguous()
+
+
+def _tc_weights(w_h: torch.Tensor, layout: str) -> torch.Tensor:
+    """``tc_stage_images`` of ``w_h``, made once per weight tensor and
+    version (Wh is constant over a call's T steps, and a model's weights
+    over many calls)."""
+    key = (id(w_h), layout)
+    # ``p.data = x`` swaps a tensor's storage without moving its version
+    state = (w_h._version, w_h.data_ptr(), tuple(w_h.shape))
+    hit = _TC_WEIGHTS.get(key)
+    if hit is not None and hit[0]() is w_h and hit[1] == state:
+        return hit[2]
+    split = tc_stage_images(w_h.detach(), layout)
+    for k in [k for k, v in _TC_WEIGHTS.items() if v[0]() is None]:
+        del _TC_WEIGHTS[k]
+    if len(_TC_WEIGHTS) >= 16:
+        _TC_WEIGHTS.clear()
+    _TC_WEIGHTS[key] = (weakref.ref(w_h), state, split)
+    return split
+
+
 def _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq: bool,
                     plan: Optional[RecurrencePlan] = None):
     """Kernel 1 (or kernel 2 with ``with_cell_seq``) on the card, in the
@@ -396,7 +567,12 @@ def _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq: bool,
     if plan is None:
         plan = recurrence_plan(who, b, t, hgt, wid, ch, gates_x.dtype)
     gx, w = gates_x.contiguous(), w_h.contiguous()
-    w_t = _w_t(w) if plan.design == "resident" else w
+    if plan.design == "resident":
+        w_t = _w_t(w)
+    elif plan.design == "stepwise_tc":
+        w_t = _tc_weights(w, "fwd")
+    else:
+        w_t = w
     h0_in = h0.to(gates_x.dtype).contiguous()  # the conv's input at t = 0
     c = c0.to(torch.float32, copy=True).contiguous()  # updated in place
     h_final = torch.empty(h0.shape, dtype=torch.float32, device=gx.device)
@@ -407,7 +583,7 @@ def _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq: bool,
     with torch.cuda.device(gx.device):
         stream = torch.cuda.current_stream().cuda_stream
         shape = (b, t, hgt, wid, ch, int(gx.dtype == torch.bfloat16),
-                 _DESIGN_CODES[plan.design], stream)
+                 _DESIGN_CODES[plan.design], plan.cluster, plan.warpgroups, stream)
         if with_cell_seq:
             status = lib.convlstm_train_forward(
                 gx.data_ptr(), w.data_ptr(), w_t.data_ptr(), h0_in.data_ptr(), c.data_ptr(),
@@ -428,7 +604,8 @@ def convlstm_train_forward(
     """Kernel 2 (CUDA tensors only): the recurrence that also stores
     ``c_seq``; same contract as ``convlstm_forward_ref(...,
     with_cell_seq=True)``.  Launches per call as ``recurrence_plan`` says
-    (1 resident, T stepwise), counted in ``convlstm_train_forward.launches``."""
+    (1 resident, T stepwise_tc or stepwise), counted in
+    ``convlstm_train_forward.launches``."""
     return _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq=True)
 
 
@@ -449,6 +626,8 @@ def _backward_kernel(gates_x, w_h, h0, c0, h_seq, c_seq, dh_seq, dhf, dcf,
         plan = recurrence_plan("convlstm_backward", b, t, hgt, wid, ch, dt)
     gx, w = gates_x.contiguous(), w_h.contiguous()
     w_t = _w_t(w)
+    tc = plan.design == "stepwise_tc"  # its stage images of Wh, else unread
+    w_tc, w_tc_fwd = (_tc_weights(w, "bwd"), _tc_weights(w, "fwd")) if tc else (w_t, w_t)
     h0_in = h0.to(dt).contiguous()
     c0f = c0.to(torch.float32).contiguous()
     hs, cs, dhs = (x.to(dt).contiguous() for x in (h_seq, c_seq, dh_seq))
@@ -468,9 +647,10 @@ def _backward_kernel(gates_x, w_h, h0, c0, h_seq, c_seq, dh_seq, dhf, dcf,
             gx.data_ptr(), w.data_ptr(), w_t.data_ptr(), h0_in.data_ptr(), c0f.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(), dh_carry.data_ptr(),
             dc_carry.data_ptr(), dgates_x.data_ptr(), dw.data_ptr(), act.data_ptr(),
-            part.data_ptr(),
+            part.data_ptr(), w_tc.data_ptr(), w_tc_fwd.data_ptr(),
             b, t, hgt, wid, ch, int(dt == torch.bfloat16), _DESIGN_CODES[plan.design],
-            plan.gate_groups, plan.dw_splits, stream,
+            plan.gate_groups, plan.dw_splits, plan.cluster, plan.warpgroups,
+            plan.gate_warpgroups, stream,
         )
     _build.check(lib, _BWD_KERNEL, status)
     convlstm_backward.launches += plan.launches
@@ -484,7 +664,7 @@ def convlstm_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel 3 (CUDA tensors only); same contract as
     ``convlstm_backward_ref``.  Launches per call as ``recurrence_plan``
-    says (4 resident, T + 3 stepwise), counted in
+    says (4 resident, T + 3 stepwise_tc or stepwise), counted in
     ``convlstm_backward.launches``."""
     return _backward_kernel(gates_x, w_h, h0, c0, h_seq, c_seq, dh_seq, dhf, dcf)
 

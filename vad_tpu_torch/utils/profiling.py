@@ -41,6 +41,13 @@ DEVICE_PEAKS = {
 }
 
 
+# Dense TF32 tensor-core FLOP/s per ``DEVICE_PEAKS`` row (data sheets: half
+# the bf16 rate).  f32-accurate work on the tensor cores takes three TF32
+# products a multiply-add (3xTF32, the stepwise_tc recurrence design), so
+# its least time is 3 x FLOP / this rate.
+TF32_PEAKS = {"H100 PCIe": 378e12, "H100 NVL": 417.5e12, "H100": 494.7e12}
+
+
 def device_peaks(name: str) -> Tuple[str, float, float, float]:
     """(row of ``DEVICE_PEAKS``, bf16 FLOP/s, f32 FLOP/s, bytes/s) for a
     card named ``name`` (``torch.cuda.get_device_name``)."""
@@ -48,6 +55,12 @@ def device_peaks(name: str) -> Tuple[str, float, float, float]:
         if key in name:
             return (key, *val)
     return ("H100", *DEVICE_PEAKS["H100"])
+
+
+def tf32_peak(name: str) -> float:
+    """Dense TF32 tensor-core FLOP/s of the card named ``name``, from the
+    ``DEVICE_PEAKS`` row ``device_peaks`` picks."""
+    return TF32_PEAKS[device_peaks(name)[0]]
 
 
 def device_memory_report(device=None) -> Optional[Dict[str, float]]:
