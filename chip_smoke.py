@@ -12,18 +12,27 @@ choice, and the FMA design stepwise beside it), at the serving, training
 and ``--video`` (B=1) shapes, with the plan, its blocks per step, the
 launches per call, the clusters that fit, kernel 3's time by part and its
 dWh repeated bit for bit, each line bounded (f32 as 3xTF32 on the tensor
-cores, with the FMA bound beside it); kernel 4 with its design and time in
-both dtypes, and kernels 4 and 6 at ragged frames), then drives four paths
-at the default video model's full width:
+cores, with the FMA bound beside it); kernels 1 and 2 in bf16 on the 32x32
+latent of 512x512 streams (S=16, B=1, and kernel 2 at B=8) on the bf16
+stepwise_tc tile and on the WMMA stepwise core, each against its plain
+version and against each other, and the bf16 tile at the 256x256 serving
+shape beside resident; stepwise_tc's weight cache across an
+``Adam(fused=True)`` step and a ``copy_``; kernel 4 with its design and
+time in both dtypes, and kernels 4 and 6 at ragged frames), then drives
+four paths at the default video model's full width:
 
 - serving: ``MultiStreamScorer`` (S=16 streams, T=16 frames per chunk,
   256x256, bf16 with f32 cell state, random weights from a seed), checked
   to go through kernels 1 and 4 and to agree with the plain versions,
   then timed (frames/s) and profiled (device time by kernel, device-busy
-  share) with ``fused_input`` on and off;
+  share) with ``fused_input`` on and off; and at 512x512 (S=16, T=16,
+  bf16, fused input: kernel 4, then kernel 1 on the bf16 stepwise_tc
+  tile) against the plain versions, with its frames/s;
 - training: one ``make_train_step`` step (B=8 windows of T=16 frames,
   256x256) through kernels 2 and 3, compared in f32 and bf16 with the same
-  step on the plain versions (loss, every gradient, BatchNorm statistics);
+  step on the plain versions (loss, every gradient, BatchNorm statistics),
+  and one bf16 step at 512x512 (kernel 2 on the bf16 tile, kernel 3
+  stepwise);
   then ``fit`` for 2 epochs over in-memory orbit windows, its best
   checkpoint scored by ``MultiStreamScorer``; then the train step timed
   (frames/s) and profiled in both precisions;
@@ -77,7 +86,8 @@ at the default video model's full width:
 - the spatial row split (``--spatial N``), every row shard on the one
   card: kernel 1's row form (halo rows read in place, and staged through
   copies behind events) against its plain version and the unsplit kernel
-  1 at 2 and 16 shards, bf16 and f32; ``MultiStreamScorer(spatial=True)``
+  1 at 2 and 16 shards, bf16 and f32, on the stepwise_tc tile and on the
+  stepwise core; ``MultiStreamScorer(spatial=True)``
   at 256² and 512² (``model_parallel`` 2 and 4) and the ``--spatial 2``
   daemon (/v1/streams, /v1/images) against the unsplit scorer and
   service, with kernel 1's row launches counted and none of kernel 4;
@@ -95,8 +105,9 @@ at the default video model's full width:
   to kernel 4 bit for bit), then ``python -m vad_tpu_torch.tools.
   probe_pool_bwd`` and ``... ablate_block1`` at their defaults.
 
-Each phase prints one JSON line; the last line is
-``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py --artifact-check
+Each phase prints one JSON line; a ``script`` line gives the whole run's
+seconds; the last line is ``{"ok": true, "device": {...}}``.
+``python3 chip_smoke.py --artifact-check
 <artifact> <checkpoint> <dtype>`` is the export phase's loading process,
 ``python3 chip_smoke.py --scaling-worker RANK WORLD DIR`` a rank of the
 scaling phase.
@@ -165,9 +176,10 @@ PROBE_FRAMES = 128  # kernel 5's pool inputs: B*T of the training step (8 x 16)
 # with C=32 (kernels 1-2 resident in a cluster of 2 with one pixel tile,
 # kernel 3 stepwise), 8x16 with C=64 (all resident, clusters of 4, two
 # tiles) and 8x32 with C=128 (four tiles, but the resident blocks would
-# need 235,536 bytes of shared memory: every kernel stepwise).  In f32
-# every shape runs stepwise_tc (clusters of 4-8, partial pixel tiles, C=20
-# and 48 with ragged last K stages) and stepwise.
+# need 235,536 bytes of shared memory: kernels 1-2 stepwise_tc, kernel 3
+# stepwise); 5x7 with C=48 runs kernels 1-2 on the bf16 tile with a partial
+# pixel tile.  In f32 every shape runs stepwise_tc (clusters of 4-8, partial
+# pixel tiles, C=20 and 48 with ragged last K stages) and stepwise.
 EDGE_SHAPES = ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20), (3, 2, 8, 8, 32), (2, 3, 8, 16, 64),
                (2, 3, 8, 32, 128))
 # Ragged frames for kernels 4 and 6 (F, H, W, 3): rows of 150 and 810
@@ -338,7 +350,7 @@ def design_fits(kernel: str, shape, dtype, design: str) -> bool:
 
     b, t, hgt, wid, c = shape
     return {"resident": resident_fits(kernel, hgt, wid, c, dtype),
-            "stepwise_tc": tc_fits(c, dtype, wid)}.get(design, True)
+            "stepwise_tc": tc_fits(c, dtype, wid, kernel)}.get(design, True)
 
 
 def designs(kernel: str, shape, dtype) -> list:
@@ -394,8 +406,8 @@ def plan_record(kernel: str, shape, dtype, design=None) -> dict:
 def phase_convlstm(peak_flops: float, peak_bw: float, f32_flops: float) -> dict:
     """Kernel 1 against its plain version at the serving shape, in every
     design its plan can choose there (f32: stepwise_tc, and stepwise forced;
-    bf16: resident, and stepwise forced), and in f32 at the ``--video``
-    shape (B=1); every line timed and bounded."""
+    bf16: resident, and the bf16 stepwise_tc tile and stepwise forced), and
+    in f32 at the ``--video`` shape (B=1); every line timed and bounded."""
     import torch
 
     from vad_tpu_torch.ops import convlstm as cl
@@ -403,7 +415,7 @@ def phase_convlstm(peak_flops: float, peak_bw: float, f32_flops: float) -> dict:
 
     lat, c = IMAGE // 16, 128
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    out, f32 = {}, {}
+    out, f32, bf16 = {}, {}, {}
     for b, dtypes in ((S, ("f32", "bf16")), (B_VIDEO, ("f32",))):
         shape = (b, T, lat, lat, c)
         gates_x = torch.randn((b, T, lat, lat, 4 * c), generator=g, device="cuda") * 0.5
@@ -448,8 +460,11 @@ def phase_convlstm(peak_flops: float, peak_bw: float, f32_flops: float) -> dict:
                 emit(bounded(rec, f"convlstm_serving {label} {design} at B={b}"))
                 require(ok, f"convlstm_serving {label} {design} B={b} vs plain version within "
                             f"{bar}, {per_call} launches as planned ({plan.launches})")
-                if label == "bf16" and design == choices[0]:
-                    out = rec
+                if label == "bf16":  # the resident choice, and the others beside it
+                    bf16[design] = {k: rec[k] for k in (
+                        "launches_per_call", "max_abs_err", "ms", "bound_ms", "tflops")}
+                    if design == choices[0]:
+                        out = rec
                 elif label == "f32":  # every f32 design at both shapes, for the kernels line
                     f32[f"B={b} {design}"] = {k: rec[k] for k in (
                         "design", "launches_per_call", "max_abs_err", "ms", "bound_ms",
@@ -461,7 +476,7 @@ def phase_convlstm(peak_flops: float, peak_bw: float, f32_flops: float) -> dict:
             elif b == S:
                 f32[f"B={b} plain_ms"] = time_ms(
                     lambda: convlstm_recurrence_ref(gx, wh, h0, c0), iters=5)
-    out["f32"] = f32
+    out["f32"], out["bf16_designs"] = f32, bf16
     emit({**out, "phase": "kernel_time"})
     return out
 
@@ -585,10 +600,13 @@ def phase_edge_shapes() -> None:
                               "max_abs_err": rec["max_abs_err"],
                               "ok": ok and max(smem.values()) <= SMEM_LIMIT})
     # a frame of four tiles whose resident blocks would not fit: the plan's
-    # own choice must be stepwise for every kernel
-    over = [k for k in ("convlstm_serving", "convlstm_train_forward", "convlstm_backward")
-            if recurrence_plan(k, *EDGE_SHAPES[-1], torch.bfloat16).design != "stepwise"]
-    require(not over, f"8x32 C=128 bf16 takes the stepwise design, not resident: {over}")
+    # own choice must be stepwise_tc for kernels 1-2 and stepwise for kernel 3
+    over = [k for k, want in (("convlstm_serving", "stepwise_tc"),
+                              ("convlstm_train_forward", "stepwise_tc"),
+                              ("convlstm_backward", "stepwise"))
+            if recurrence_plan(k, *EDGE_SHAPES[-1], torch.bfloat16).design != want]
+    require(not over, f"8x32 C=128 bf16 takes stepwise_tc (kernels 1-2) or stepwise "
+                      f"(kernel 3), not resident: {over}")
     for frames in EDGE_FRAMES:
         u8 = torch.randint(0, 256, frames, generator=g, device="cuda", dtype=torch.uint8)
         w = torch.randn((32, 3, 3, 3), generator=g, device="cuda") * 0.01
@@ -857,6 +875,81 @@ def phase_main_path() -> dict:
     return launches
 
 
+HIGH_RES = 512  # 512x512 streams: a 32x32 latent, beyond the resident design's frames
+
+
+def phase_main_path_512() -> dict:
+    """``MultiStreamScorer`` on ``VideoAEConfig(image_size=512)`` (S=16, T=16,
+    bf16 with f32 cell state, ``fused_input`` on, seeded weights) over
+    ``CHUNKS`` chunks of carried state: kernel 4, then kernel 1 on the bf16
+    stepwise_tc tile (the plan's choice at 32x32), its launches counted;
+    each layer's (h, c), the scores and a further chunk's reconstruction
+    against the same scorer on the plain versions at the bf16 bar; then
+    frames/s."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.core.config import VideoAEConfig
+    from vad_tpu_torch.eval.serving import MultiStreamScorer
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+    from vad_tpu_torch.ops import convlstm, encoder_fused
+
+    cfg = VideoAEConfig(image_size=HIGH_RES, sequence_length=T)
+    lat = HIGH_RES // 16
+    plan = convlstm.recurrence_plan("convlstm_serving", S, T, lat, lat, cfg.lstm_hidden_dim,
+                                    torch.bfloat16)
+    require(plan.design == "stepwise_tc", f"512x512 bf16 streams take stepwise_tc: {plan}")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    chunks = torch.randint(0, 256, (CHUNKS, S, T, HIGH_RES, HIGH_RES, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+
+    def scorer():
+        model = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED)
+        sc = MultiStreamScorer(model, None, S, T, HIGH_RES, dtype=torch.bfloat16, device="cuda")
+        for slot in range(S):
+            sc.attach(slot)
+        return sc
+
+    main, plain = scorer(), scorer()
+    require(main.fused_input, "fused_input is on at 512x512")
+    convlstm.convlstm_recurrence.launches = 0
+    encoder_fused.fused_first_block.launches = 0
+    scores = np.stack([main.score_chunk(chunks[i]) for i in range(CHUNKS)])
+    torch.cuda.synchronize()
+    launches = {"convlstm_serving": convlstm.convlstm_recurrence.launches,
+                "first_block": encoder_fused.fused_first_block.launches}
+    layers = len(main.states)
+    expect = {"convlstm_serving": CHUNKS * layers * plan.launches, "first_block": CHUNKS}
+    require(launches == expect, f"512x512 scorer launches {launches}, planned {expect}")
+    require(scores.shape == (CHUNKS, S, T) and bool(np.isfinite(scores).all()), "finite scores")
+    with plain_versions():
+        plain_scores = np.stack([plain.score_chunk(chunks[i]) for i in range(CHUNKS)])
+        plain_recon = plain._forward(chunks[0])[0]
+    recon = main._forward(chunks[0])[0]
+    pairs = {"scores": (scores, plain_scores), "recon": (recon, plain_recon)}
+    for i, ((h, c), (ph, pc)) in enumerate(zip(main.states, plain.states)):
+        pairs[f"layer{i}_h"], pairs[f"layer{i}_c"] = (h, ph), (c, pc)
+    cmp = {what: agree(got, ref) for what, (got, ref) in pairs.items()}
+    for i in range(2):
+        main.score_chunk(chunks[i])
+    torch.cuda.synchronize()
+    n = 6
+    start = time.perf_counter()
+    for i in range(n):
+        main.score_chunk(chunks[i % CHUNKS])  # returns host scores: synchronizes
+    fps = n * S * T / (time.perf_counter() - start)
+    rec = {"phase": "main_path_512", "streams": S, "chunk": T, "image": HIGH_RES,
+           "dtype": "bfloat16", "chunks": CHUNKS, "plan": {"design": plan.design,
+                                                          "step_blocks": plan.step_blocks},
+           "launches": launches, "bar": BF16_BAR, "compare_plain_versions": cmp,
+           "frames_per_s": fps, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    require(all(r["ok"] for r in cmp.values()),
+            f"512x512 scorer vs the plain versions within {BF16_BAR}: "
+            f"{[k for k, r in cmp.items() if not r['ok']]}")
+    return rec
+
+
 # ------------------------------------------------------------- training
 
 
@@ -1047,6 +1140,138 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
     return out
 
 
+# Kernels 1 and 2 in bf16 on the 32x32 latent of 512x512 streams, where the
+# resident design (at most four 8x8 tiles) refuses the frame: kernel 1 at
+# S=16 and at the --video B=1, kernel 2 at B=8 (B, T, H, W, C).
+LARGE_SHAPES = {"convlstm_serving": ((S, T, 32, 32, 128), (B_VIDEO, T, 32, 32, 128)),
+                "convlstm_train_forward": ((B_TRAIN, T, 32, 32, 128),)}
+
+
+def phase_large_frames(peak_flops: float, peak_bw: float) -> dict:
+    """Kernels 1 and 2 in bf16 at ``LARGE_SHAPES``, in every design their
+    plan can choose there: stepwise_tc (the bf16 tile, the plan's choice)
+    and the WMMA stepwise core forced, each against its plain version at the
+    bf16 bar (allclose, and rel L2 within its rtol) and the two designs
+    against each other; each timed, bounded (``of_bound`` <= 1), with its
+    launches and plan."""
+    import torch
+
+    from vad_tpu_torch.ops import convlstm as cl
+    from vad_tpu_torch.ops.convlstm import convlstm_forward_ref, recurrence_plan
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    dtype, out = torch.bfloat16, {}
+    for kname, shapes in LARGE_SHAPES.items():
+        cell = kname == "convlstm_train_forward"
+        counter = cl.convlstm_train_forward if cell else cl.convlstm_recurrence
+        names = ("h_seq", "c_seq", "h_T", "c_T") if cell else ("h_seq", "h_T", "c_T")
+        for shape in shapes:
+            b, t, hgt, wid, c = shape
+            gx = (torch.randn((b, t, hgt, wid, 4 * c), generator=g, device="cuda") * 0.5).to(dtype)
+            wh = (torch.randn((3, 3, c, 4 * c), generator=g, device="cuda") * 0.05).to(dtype)
+            h0 = torch.randn((b, hgt, wid, c), generator=g, device="cuda") * 0.1
+            c0 = torch.randn((b, hgt, wid, c), generator=g, device="cuda") * 0.1
+
+            def flat(res):
+                seq, cseq, (hf, cf) = res
+                return (seq, cseq, hf, cf) if cell else (seq, hf, cf)
+
+            ref = flat(convlstm_forward_ref(gx, wh, h0, c0, with_cell_seq=cell))
+            plain_ms = time_ms(lambda: convlstm_forward_ref(gx, wh, h0, c0, cell), iters=3,
+                               warmup=1)
+            hw, e = hgt * wid, gx.element_size()
+            flops = 2 * b * t * hw * 9 * c * 4 * c
+            nbytes = (b * t * hw * 4 * c * e + (2 if cell else 1) * b * t * hw * c * e
+                      + 4 * b * hw * c * 4 + 9 * c * 4 * c * e)  # gates_x, outputs, states, Wh
+            got, recs = {}, {}
+            for design in designs(kname, shape, dtype):
+                plan = recurrence_plan(kname, *shape, dtype, design)
+
+                def kernel(p=plan):
+                    return cl._forward_kernel(gx, wh, h0, c0, cell, p)
+
+                counter.launches = 0
+                got[design] = flat(kernel())
+                per_call = counter.launches
+                torch.cuda.synchronize()
+                cmp = {n: agree(a, r) for n, a, r in zip(names, got[design], ref)}
+                rec = {"phase": "kernel_check", "kernel": kname, "dtype": "bf16",
+                       "shape": list(shape), "design": design,
+                       "plan": plan_record(kname, shape, dtype, design),
+                       "launches_per_call": per_call, "vs_plain": cmp,
+                       "max_abs_err": max(r["max_abs_err"] for r in cmp.values()),
+                       "bar": BF16_BAR, "ms": time_ms(kernel, iters=10), "plain_ms": plain_ms,
+                       "library_ms": None, "flops": flops, "bytes": nbytes,
+                       **recurrence_bound("bf16", flops, nbytes, peak_flops, peak_bw, 0.0)}
+                rec["tflops"] = flops / rec["ms"] / 1e9
+                rec["ok"] = (all(r["ok"] for r in cmp.values()) and per_call == plan.launches)
+                emit(bounded(rec, f"{kname} bf16 {design} at {shape}"))
+                require(rec["ok"], f"{kname} bf16 {design} at {shape} vs its plain version "
+                                   f"within {BF16_BAR}, {per_call} launches as planned "
+                                   f"({plan.launches})")
+                recs[design] = {k: rec[k] for k in (
+                    "launches_per_call", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "of_bound", "tflops", "library_ms")}
+                recs[design]["step_blocks"] = plan.step_blocks
+            between = {n: agree(a, r) for n, a, r in zip(names, got["stepwise_tc"],
+                                                        got["stepwise"])}
+            emit({"phase": "kernel_designs", "kernel": kname, "shape": list(shape),
+                  "stepwise_tc_vs_stepwise": between})
+            require(all(r["ok"] for r in between.values()),
+                    f"{kname} bf16 at {shape}: stepwise_tc against stepwise within {BF16_BAR}")
+            out.setdefault(kname, {})[f"B={b} 32x32"] = recs
+    return out
+
+
+def phase_weight_cache() -> dict:
+    """stepwise_tc's cached stage images of Wh (``ops/weight_cache.py``) on
+    the card: f32 kernel 1 at the ``--video`` shape (B=1, 16x16, C=128) on a
+    weight ``Parameter``, then an ``Adam(fused=True)`` step (which leaves the
+    weight's version as it was), then a ``torch.no_grad()`` ``copy_``, each
+    followed by a call that must equal the plain version on the new weights
+    at the f32 bar and differ from the call before; the cache must hit
+    while the weight is unchanged."""
+    import torch
+
+    from vad_tpu_torch.ops import convlstm as cl
+    from vad_tpu_torch.ops.convlstm import convlstm_recurrence_ref
+
+    lat, c = IMAGE // 16, 128
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    gx = torch.randn((B_VIDEO, T, lat, lat, 4 * c), generator=g, device="cuda") * 0.5
+    wh = torch.nn.Parameter(torch.randn((3, 3, c, 4 * c), generator=g, device="cuda") * 0.05)
+    h0 = torch.randn((B_VIDEO, lat, lat, c), generator=g, device="cuda") * 0.1
+    c0 = torch.randn((B_VIDEO, lat, lat, c), generator=g, device="cuda") * 0.1
+    require(cl.recurrence_plan("convlstm_serving", B_VIDEO, T, lat, lat, c,
+                               torch.float32).design == "stepwise_tc", "f32 B=1 is stepwise_tc")
+    checks, last = {}, None
+    optimizer = torch.optim.Adam([wh], lr=1e-2, fused=True)
+    for update in ("initial", "adam_fused", "no_grad_copy"):
+        if update == "adam_fused":
+            version = wh._version
+            wh.grad = torch.randn(wh.shape, generator=g, device="cuda")
+            optimizer.step()
+            require(wh._version == version, "a fused Adam step leaves the version as it was")
+        elif update == "no_grad_copy":
+            with torch.no_grad():
+                wh.copy_(wh * 0.5 + 0.01)
+        with no_tf32(), torch.no_grad():
+            seq, (hf, cf) = cl.convlstm_recurrence(gx, wh, h0, c0)
+            rseq, (rhf, rcf) = convlstm_recurrence_ref(gx, wh.detach(), h0, c0)
+            torch.cuda.synchronize()
+        errs = [close(a, r, F32_BAR) for a, r in ((seq, rseq), (hf, rhf), (cf, rcf))]
+        moved = last is None or not torch.equal(seq, last)
+        checks[update] = {"max_abs_err": max(e[0] for e in errs),
+                          "ok": all(e[1] for e in errs) and moved, "moved": moved}
+        last = seq
+    hit = cl._tc_weights(wh, "fwd") is cl._tc_weights(wh, "fwd")
+    rec = {"phase": "weight_cache", "shape": list(gx.shape), "bar": F32_BAR, "checks": checks,
+           "cache_hits_when_unchanged": hit, "ok": hit and all(r["ok"] for r in checks.values())}
+    emit(rec)
+    require(rec["ok"], f"kernel 1 after each weight update equals the plain version: {checks}")
+    return rec
+
+
 TRAIN_BARS = {"f32": (F32_BAR, TRAIN_F32_BAR), "bf16": (BF16_BAR, BF16_BAR)}
 
 
@@ -1106,14 +1331,15 @@ def judge_train_step(test: dict, ref: dict, exact: dict, label: str,
     }
 
 
-def phase_train_step_compare() -> None:
-    """One full-width ``make_train_step`` step (B=8, T=16, 256x256, the
-    default model from ``init_weights(seed)``) through kernels 2 and 3,
+def phase_train_step_compare(image: int = IMAGE, judged=("f32", "bf16")) -> None:
+    """One full-width ``make_train_step`` step (B=8, T=16, ``image``² frames,
+    the default model from ``init_weights(seed)``) through kernels 2 and 3,
     against the same step from the same weights on the plain versions:
     the loss, every parameter's gradient and the BatchNorm running
-    statistics after the step, in f32 (TF32 off) and bf16, with ``agree``:
-    in f32 the loss and statistics at ``F32_BAR`` and the gradients at
-    ``TRAIN_F32_BAR``; in bf16 all at ``BF16_BAR``.
+    statistics after the step, in each precision of ``judged`` (f32 with
+    TF32 off, bf16), with ``agree``: in f32 the loss and statistics at
+    ``F32_BAR`` and the gradients at ``TRAIN_F32_BAR``; in bf16 all at
+    ``BF16_BAR``.  The plain f32 step always runs: it is bf16's noise floor.
 
     Two cases the bar cannot judge by relative error: a gradient that is
     zero by construction (``zero_gradient_biases``) is held to the
@@ -1132,16 +1358,19 @@ def phase_train_step_compare() -> None:
     from vad_tpu_torch.train.state import make_optimizer
     from vad_tpu_torch.train.steps import make_train_step
 
-    cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
+    cfg = VideoAEConfig(image_size=image, sequence_length=T)
     base = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED)
     zero_by_construction = set(zero_gradient_biases(base))
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    batch = torch.randint(0, 256, (B_TRAIN, T, IMAGE, IMAGE, 3), generator=g, device="cuda",
+    batch = torch.randint(0, 256, (B_TRAIN, T, image, image, 3), generator=g, device="cuda",
                           dtype=torch.uint8)
     runs = {}
+    torch.cuda.reset_peak_memory_stats()
     for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
         step = make_train_step(mse_per_sample, dtype)
         for which in ("kernels", "plain"):
+            if which == "kernels" and label not in judged:
+                continue
             model = copy.deepcopy(base).to("cuda")
             optimizer = make_optimizer(model.parameters(), 1e-4)
             zero_counters()
@@ -1153,9 +1382,11 @@ def phase_train_step_compare() -> None:
                 "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
                 "stats": {n: b.clone() for n, b in model.named_buffers() if ".running_" in n},
             }
+            del model, optimizer
+            torch.cuda.empty_cache()
     exact = runs["f32", "plain"]["grads"]
     results = {}
-    for label in ("f32", "bf16"):
+    for label in judged:
         k, pl = runs[label, "kernels"], runs[label, "plain"]
         results[label] = {
             "loss": float(k["loss"]), "plain_loss": float(pl["loss"]),
@@ -1170,7 +1401,12 @@ def phase_train_step_compare() -> None:
                 and pl["launches"]["convlstm_backward"] == 0,
                 f"{label} plain step launched no recurrence kernel: {pl['launches']}")
         require(not zero_grads, f"{label}: every parameter got a non-zero gradient")
-    emit({"phase": "train_step_compare", "batch": [B_TRAIN, T, IMAGE, IMAGE, 3],
+    plans = {label: {k: p.design for k, p in train_plans(
+        (B_TRAIN, T, image // 16, image // 16, cfg.lstm_hidden_dim),
+        torch.bfloat16 if label == "bf16" else torch.float32).items()} for label in judged}
+    emit({"phase": "train_step_compare" if image == IMAGE else f"train_step_compare_{image}",
+          "batch": [B_TRAIN, T, image, image, 3], "designs": plans,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "bars": {"f32": TRAIN_BARS["f32"], "bf16": TRAIN_BARS["bf16"][0],
                    "bf16_noise_floor_from": BF16_NOISY,
                    "bf16_noisy_vs_plain": BF16_NOISY_VS_PLAIN}, **results})
@@ -3354,8 +3590,9 @@ SPLIT_SCORES, SPLIT_MAPS = dict(rtol=2e-5, atol=1e-7), dict(rtol=2e-4, atol=1e-6
 
 
 def check_rows_kernel(shape, label: str, peak_flops: float, peak_bw: float,
-                      f32_flops: float) -> dict:
-    """Kernel 1's row form at ``shape`` against its plain version and the
+                      f32_flops: float, design: str) -> dict:
+    """Kernel 1's row form at ``shape`` in ``design`` (stepwise_tc, the
+    plan's choice, or stepwise forced) against its plain version and the
     concatenated result against the unsplit kernel 1; the staged form (a
     stream a shard: every neighbour row copied behind an event) must equal
     the in-place form bit for bit.  Times the call and bounds it."""
@@ -3383,22 +3620,22 @@ def check_rows_kernel(shape, label: str, peak_flops: float, peak_bw: float,
 
     with no_tf32():
         cl.convlstm_recurrence.launches = 0
-        got = joined(*cl.convlstm_recurrence_rows(*args))
+        got = joined(*cl.convlstm_recurrence_rows(*args, design=design))
         per_call = cl.convlstm_recurrence.launches
-        staged = joined(*cl.convlstm_recurrence_rows(*args, staged=True))
+        staged = joined(*cl.convlstm_recurrence_rows(*args, staged=True, design=design))
         plain = joined(*cl.convlstm_recurrence_rows_ref(*args))
         whole_seq, whole_final = cl.convlstm_recurrence(gx, wh, h0, c0)
         torch.cuda.synchronize()
-        ms = time_ms(lambda: cl.convlstm_recurrence_rows(*args))
+        ms = time_ms(lambda: cl.convlstm_recurrence_rows(*args, design=design))
         plain_ms = time_ms(lambda: cl.convlstm_recurrence_rows_ref(*args), iters=3, warmup=1)
     vs_plain = [close(a, r, bar) for a, r in zip(got, plain)]
     vs_whole = [close(a, r, bar) for a, r in zip(got, (whole_seq, *whole_final))]
-    plan = cl.recurrence_plan("convlstm_serving", b, t, lat, lat, c, dtype, shards=n)
+    plan = cl.recurrence_plan("convlstm_serving", b, t, lat, lat, c, dtype, design, shards=n)
     hw, e = lat * lat, gx.element_size()
     flops = 2 * b * t * hw * 9 * c * 4 * c
     nbytes = (b * t * hw * 4 * c * e + b * t * hw * c * e  # gates_x in, h_seq out
               + 4 * b * hw * c * 4 + 9 * c * 4 * c * e)  # h0, c0, h_T, c_T, Wh
-    rec = {"shape": list(shape[:3]) + [lat, c], "shards": n, "dtype": label,
+    rec = {"shape": list(shape[:3]) + [lat, c], "shards": n, "dtype": label, "design": design,
            "launches_per_call": per_call, "plan": dataclasses.asdict(plan),
            "max_abs_err": max(x[0] for x in vs_plain),
            "max_abs_err_vs_unsplit": max(x[0] for x in vs_whole),
@@ -3406,7 +3643,7 @@ def check_rows_kernel(shape, label: str, peak_flops: float, peak_bw: float,
            "bar": bar, "ms": ms, "plain_ms": plain_ms,
            **recurrence_bound(label, flops, nbytes, peak_flops, peak_bw, f32_flops),
            "tflops": flops / ms / 1e9}
-    bounded(rec, f"the row form {label} at {n} shards")
+    bounded(rec, f"the row form {label} {design} at {n} shards")
     rec["ok"] = (all(x[1] for x in vs_plain + vs_whole) and rec["staged_equal"]
                  and per_call == plan.launches == t * n)
     return rec
@@ -3500,8 +3737,9 @@ def phase_spatial(card: str, image: dict, workdir: Path, peak_flops: float, peak
     1's halo reads run for real; scaling across cards is not measured.
 
     - Kernel 1's row form (``SPATIAL_KERNEL_SHAPES``, bf16 and f32 with
-      TF32 off) against its plain version and, joined, against the unsplit
-      kernel 1, at the bar of its type; its staged form equal bit for bit.
+      TF32 off, stepwise_tc (the plan's choice) and stepwise forced)
+      against its plain version and, joined, against the unsplit kernel 1,
+      at the bar of its type; its staged form equal bit for bit.
     - ``MultiStreamScorer(spatial=True)`` on ``get_mesh(["cuda:0"] * 4,
       model_parallel=2)`` against the unsplit scorer from one ``.ckpt`` of
       the default model (S=4, T=16, 3 chunks of carried state) at 256² and
@@ -3525,13 +3763,15 @@ def phase_spatial(card: str, image: dict, workdir: Path, peak_flops: float, peak
 
     phase_start = time.perf_counter()
     workdir.mkdir(parents=True, exist_ok=True)
-    kernel = [check_rows_kernel(shape, label, peak_flops, peak_bw, f32_flops)
-              for shape in SPATIAL_KERNEL_SHAPES for label in ("bf16", "f32")]
+    kernel = [check_rows_kernel(shape, label, peak_flops, peak_bw, f32_flops, design)
+              for shape in SPATIAL_KERNEL_SHAPES for label in ("bf16", "f32")
+              for design in ("stepwise_tc", "stepwise")]
     for rec in kernel:
         emit({"phase": "spatial_kernel", "card": card, **rec})
     require(all(r["ok"] for r in kernel),
             f"kernel 1's row form vs its plain version, the unsplit kernel and its staged "
-            f"form: {[(r['shards'], r['dtype'], r['max_abs_err']) for r in kernel if not r['ok']]}")
+            f"form: {[(r['shards'], r['dtype'], r['design'], r['max_abs_err'])
+                      for r in kernel if not r['ok']]}")
 
     cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
     model = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED + 5)
@@ -3588,15 +3828,19 @@ def phase_spatial(card: str, image: dict, workdir: Path, peak_flops: float, peak
     fps = {f"{r['size']}": r["frames_per_s"] for r in scorers if r["frames_per_s"]}
     emit({"phase": "spatial", "card": card,
           "note": "every row shard on one card: the split's cost, not scaling",
-          "kernel_ms": {f"{r['shards']}x{r['shape'][2]}-{r['dtype']}": r["ms"] for r in kernel},
+          "kernel_ms": {f"{r['shards']}x{r['shape'][2]}-{r['dtype']}-{r['design']}": r["ms"]
+                        for r in kernel},
           "kernel_bound_ms": {f"{r['shards']}x{r['shape'][2]}-{r['dtype']}": r["bound_ms"]
                               for r in kernel},
           "scorer_frames_per_s": fps, "scorers_ok": all(r["ok"] for r in scorers),
           "daemon_ok": daemon["ok"], "seconds": time.perf_counter() - phase_start})
     row = next(r for r in kernel if r["shards"] == 2 and r["shape"][3] == 16
-               and r["dtype"] == "bf16")
+               and r["dtype"] == "bf16" and r["design"] == "stepwise_tc")
+    forms = {f"{r['shards']}x{r['shape'][3]} {r['dtype']} {r['design']}": {k: r[k] for k in (
+        "launches_per_call", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        for r in kernel}
     return {"launches": sum(r["launches"]["convlstm_serving"] for r in scorers)
-            + launches["convlstm_serving"], "kernel": row,
+            + launches["convlstm_serving"], "kernel": row, "kernel_forms": forms,
             "first_block_launches": sum(r["launches"]["first_block"] for r in scorers)
             + launches["first_block"]}
 
@@ -3794,14 +4038,19 @@ def main() -> int:
         return accuracy_main(sys.argv[2:])
     if sys.argv[1:2] == ["--scaling-worker"]:  # phase_scaling's rank processes
         return scaling_worker(*sys.argv[2:5])
+    script_start = time.perf_counter()
     name, peak_flops, peak_bw, f32_flops, card = phase_device()
     phase_build()
     checks = {"convlstm_serving": phase_convlstm(peak_flops, peak_bw, f32_flops),
               "first_block": phase_first_block(peak_flops, peak_bw)}
     checks.update(phase_train_kernels(peak_flops, peak_bw, f32_flops))
+    large = phase_large_frames(peak_flops, peak_bw)
+    phase_weight_cache()
     phase_edge_shapes()
     launches = phase_main_path()
+    high_res = phase_main_path_512()
     phase_train_step_compare()
+    phase_train_step_compare(HIGH_RES, judged=("bf16",))
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, best_ckpt, test_ds = phase_train(tmp)
         evaluation = phase_eval(best_ckpt, test_ds, card)
@@ -3850,17 +4099,23 @@ def main() -> int:
                                             for path, counts in evaluation["launches"].items()}
         if kname in ("convlstm_serving", "first_block"):  # behind the daemon's /v1/streams
             kernels[-1]["serve_launches"] = serve["launches"][kname]
+        if kname in large:  # bf16 on a 32x32 latent: the bf16 stepwise_tc tile and WMMA core
+            kernels[-1]["bf16_32x32"] = large[kname]
         if kname == "convlstm_serving":
             kernels[-1]["f32"] = rec["f32"]
+            kernels[-1]["bf16_designs_16x16"] = rec["bf16_designs"]  # resident, and the others
+            kernels[-1]["main_path_512_launches"] = high_res["launches"][kname]
             # the spatial row split: the split scorers' and the --spatial 2
             # daemon's launches, and the row form (2 shards, bf16) timed
             row = spatial["kernel"]
             kernels[-1]["spatial_launches"] = spatial["launches"]
             kernels[-1]["rows"] = {k: row[k] for k in (
-                "shards", "launches_per_call", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by")}
+                "shards", "design", "launches_per_call", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by")}
+            kernels[-1]["rows_forms"] = spatial["kernel_forms"]
         if kname == "first_block":  # kernel 4 is off under the row split, as in JAX
             kernels[-1]["spatial_launches"] = spatial["first_block_launches"]
+            kernels[-1]["main_path_512_launches"] = high_res["launches"][kname]
             # the artifacts' loading processes, stream_step_fast, the UI's
             # analyze_video and the port's forward beside the reference layout
             kernels[-1].update(export_launches=export["launches"],
@@ -3877,6 +4132,7 @@ def main() -> int:
             kernels[-1]["scaling_scorer_launches"] = scaling["scorer_launches"][kname]
         if kname in bench_launches:  # python -m vad_tpu_torch.bench, by line
             kernels[-1]["bench_launches"] = bench_launches[kname]
+    emit({"phase": "script", "seconds": time.perf_counter() - script_start})
     emit({"kernels": kernels})
     import torch
 

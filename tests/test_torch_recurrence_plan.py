@@ -50,8 +50,11 @@ def expected_design(kernel, shape, dtype):
     fits = fits and resident_bytes(kernel, h, w, c) <= SMEM_LIMIT
     if fits:
         return "resident"
-    # f32 with C % 4 == 0 runs on the tensor cores in 3xTF32
-    return "stepwise_tc" if dtype == F32 and c % 4 == 0 else "stepwise"
+    # f32 with C % 4 == 0 runs on the tensor cores in 3xTF32; kernels 1-2's
+    # bf16 with C % 8 == 0 on bf16 wgmma
+    if dtype == F32 and c % 4 == 0:
+        return "stepwise_tc"
+    return "stepwise_tc" if kernel != "convlstm_backward" and c % 8 == 0 else "stepwise"
 
 
 # Frames of four 8x8 tiles in a row: at C=128 the resident blocks need
@@ -165,12 +168,13 @@ def test_unknown_kernel_or_design_raises():
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_resident_plan_over_the_shared_memory_limit_goes_stepwise(kernel, shape):
     """Four 8x8 tiles pass the tile rule, but C=128's planes and Wh slice
-    need 235,536 bytes a block: every kernel takes the stepwise design,
-    and naming the resident one raises."""
+    need 235,536 bytes a block: kernels 1-2 take the stepwise_tc design,
+    kernel 3 the stepwise one, and naming the resident one raises."""
     b, t, h, w, c = shape
     assert resident_bytes(kernel, h, w, c) >= 235_520 > SMEM_LIMIT
     plan = recurrence_plan(kernel, b, t, h, w, c, BF16)
-    assert plan.design == "stepwise" and plan.smem_bytes <= SMEM_LIMIT
+    want = "stepwise" if kernel == "convlstm_backward" else "stepwise_tc"
+    assert plan.design == want and plan.smem_bytes <= SMEM_LIMIT
     assert not resident_fits(kernel, h, w, c, BF16)
     with pytest.raises(ValueError, match="does not take"):
         recurrence_plan(kernel, b, t, h, w, c, BF16, design="resident")
@@ -233,18 +237,26 @@ def test_cpu_wrappers_count_no_launch(shape, dtype):
 @pytest.mark.parametrize("dtype", (BF16, F32), ids=("bf16", "f32"))
 @pytest.mark.parametrize("shape", (SERVING, IMAGE_512), ids=("serving", "512"))
 def test_row_form_plan_is_stepwise_per_shard(shape, dtype, shards):
-    """The row form is stepwise in both types (a resident cluster cannot
-    see a neighbour shard): T launches a shard, each shard on the grid of
-    its own H / shards rows, the unsplit stepwise grid's per-row share."""
+    """The row form takes stepwise_tc in both types where it fits (a
+    resident cluster cannot see a neighbour shard): T launches a shard,
+    each shard on the grid of its own H / shards rows, its pixel tiles
+    within each frame; named, the stepwise design keeps its grid, the
+    unsplit stepwise grid's per-row share."""
     b, t, h, w, c = shape
-    plan = recurrence_plan("convlstm_serving", *shape, dtype, shards=shards)
-    assert (plan.design, plan.launches, plan.cluster, plan.shards) == (
-        "stepwise", t * shards, 1, shards)
     rows = h // shards
-    assert plan.grids == {"step": (-(-b * rows * w // 64), -(-c // 32))}
+    plan = recurrence_plan("convlstm_serving", *shape, dtype, shards=shards)
+    assert (plan.design, plan.launches, plan.shards) == ("stepwise_tc", t * shards, shards)
+    ranks, n_tiles, m_tiles = plan.grids["step"]
+    assert ranks == plan.cluster and n_tiles == -(-c // 16)
+    assert m_tiles == b * -(-rows * w // (64 * plan.warpgroups))
+    assert plan.step_blocks == ranks * n_tiles * m_tiles >= 132  # at least one block per SM
+    step = recurrence_plan("convlstm_serving", *shape, dtype, design="stepwise", shards=shards)
+    assert (step.design, step.launches, step.cluster, step.shards) == (
+        "stepwise", t * shards, 1, shards)
+    assert step.grids == {"step": (-(-b * rows * w // 64), -(-c // 32))}
     whole = recurrence_plan("convlstm_serving", *shape, dtype, design="stepwise")
-    assert plan.grids["step"][1] == whole.grids["step"][1]
-    assert plan.grids["step"][0] * shards >= whole.grids["step"][0]
+    assert step.grids["step"][1] == whole.grids["step"][1]
+    assert step.grids["step"][0] * shards >= whole.grids["step"][0]
 
 
 def test_row_form_plan_refusals():

@@ -499,16 +499,34 @@ def test_stepwise_tc_grids_at_the_slice_shapes():
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_naming_stepwise_tc_where_it_does_not_fit_raises(kernel):
+    # bf16 stepwise_tc is kernels 1-2's (C % 8 == 0), not kernel 3's
+    if kernel == "convlstm_backward":
+        with pytest.raises(ValueError, match="stepwise_tc design does not take"):
+            recurrence_plan(kernel, *TRAINING, BF16, design="stepwise_tc")
+    else:
+        assert recurrence_plan(kernel, *TRAINING, BF16, design="stepwise_tc").launches == 16
     with pytest.raises(ValueError, match="stepwise_tc design does not take"):
-        recurrence_plan(kernel, *TRAINING, BF16, design="stepwise_tc")
+        recurrence_plan(kernel, 2, 3, 8, 8, 20, BF16, design="stepwise_tc")
     with pytest.raises(ValueError, match="stepwise_tc design does not take"):
         recurrence_plan(kernel, 2, 3, 8, 8, 30, F32T, design="stepwise_tc")
     # C % 4 != 0 in f32 takes the FMA design
     assert recurrence_plan(kernel, 2, 3, 8, 8, 30, F32T).design == "stepwise"
-    assert not tc_fits(30, F32T, 8) and not tc_fits(128, BF16, 8)
+    assert not tc_fits(30, F32T, 8) and not tc_fits(20, BF16, 8)
+    assert tc_fits(128, BF16, 8) and not tc_fits(128, BF16, 8, "convlstm_backward")
 
 
 def test_row_form_refuses_stepwise_tc():
-    with pytest.raises(ValueError, match="stepwise"):
-        recurrence_plan("convlstm_serving", *SERVING, F32T, design="stepwise_tc", shards=2)
-    assert recurrence_plan("convlstm_serving", *SERVING, F32T, shards=2).design == "stepwise"
+    """The row form takes stepwise_tc wherever ``tc_fits``: its choice
+    unless the stepwise design is named; named where it does not fit (C %
+    4 != 0 in f32, C % 8 != 0 in bf16), it raises."""
+    plan = recurrence_plan("convlstm_serving", *SERVING, F32T, design="stepwise_tc", shards=2)
+    assert plan.design == "stepwise_tc" == recurrence_plan(
+        "convlstm_serving", *SERVING, F32T, shards=2).design
+    assert recurrence_plan("convlstm_serving", *SERVING, F32T, design="stepwise",
+                           shards=2).design == "stepwise"
+    for c, dtype in ((30, F32T), (20, BF16)):
+        with pytest.raises(ValueError, match="stepwise_tc design does not take the row form"):
+            recurrence_plan("convlstm_serving", 2, 3, 8, 8, c, dtype, design="stepwise_tc",
+                            shards=2)
+        assert recurrence_plan("convlstm_serving", 2, 3, 8, 8, c, dtype,
+                               shards=2).design == "stepwise"

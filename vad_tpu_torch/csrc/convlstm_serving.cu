@@ -27,12 +27,14 @@
 // steps and Wh is read from device memory once per block per call (the
 // `resident` namespace below says how).
 //
-// Stepwise_tc (f32, C % 4 == 0; the `tc` namespace below): one launch a
-// step, the step's implicit GEMM on the tensor cores in 3xTF32
-// (convlstm_tiles.cuh's f32 tile) over a grid that fills the card.
+// Stepwise_tc (f32 with C % 4 == 0, bf16 with C % 8 == 0 where the
+// resident design refuses the frame; the `tc` namespace below): one launch
+// a step, the step's implicit GEMM on the tensor cores (convlstm_tiles.cuh's
+// stepwise_tc tile: 3xTF32 in f32, bf16 wgmma m64n64k16) over a grid that
+// fills the card.
 //
-// Stepwise (bf16 shapes the resident design refuses, f32 when named or
-// C % 4 != 0): a host loop of one launch per
+// Stepwise (the WMMA / FMA core: the shapes the other two refuse, and any shape
+// when named): a host loop of one launch per
 // step (T per call, on the caller's stream, which orders them).  Each
 // launch is an implicit GEMM over the whole batch: M = B*H*W pixels, K =
 // 9*C (3x3 taps of h), N = 4*C gate columns.  A block owns 64 pixels and
@@ -49,11 +51,11 @@
 //
 // Row form (entry point convlstm_serving_rows): the frame split in row
 // shards, as the spatial row split serves it (parallel/spatial.py).  Each
-// step launches the stepwise kernel once a shard; a tap above a shard's
-// first row or below its last reads the neighbour shard's boundary row of
-// h_{t-1} (GateLoad's halo operand) instead of the zero pad.  The resident
-// design keeps h in one cluster's shared memory for all T steps and cannot
-// see a neighbour, so the row form is stepwise in both types.
+// step launches the stepwise_tc kernel (or, where it does not fit or is
+// named, the stepwise one) once a shard; a tap above a shard's first row
+// or below its last reads the neighbour shard's boundary row of h_{t-1}
+// instead of the zero pad.  The resident design keeps h in one cluster's
+// shared memory for all T steps and cannot see a neighbour.
 //
 // Bound on an H100 SXM at the serving shape (B=16, T=16, 16x16, C=128,
 // bf16): 77.3 GFLOP per call -> 78 us at 989 TFLOP/s, against ~93 MB of
@@ -263,73 +265,109 @@ int run_resident(const void* gates_x, const void* w_t, const void* h0, float* c,
 
 // ---------------------------------------------------- stepwise_tc design
 //
-// One launch a step (f32).  The step's GEMM (M = B*H*W pixels, N = 4C gate
-// columns, K = 9C) runs on the f32 tile (convlstm_tiles.cuh): a block owns
-// 64 NW pixels (NW = 1 or 2 warpgroups, from the plan) and 16 hidden
-// channels with their four gates (columns gate * 16 + j -> Wh column gate *
-// C + cb + j), so at B = 1 (256 pixels, C = 128) the M and N sides give
-// only 4 x 8 = 32 tiles.  The rest of the card comes from K: a cluster of
-// `ranks` blocks (gridDim.x, from the plan) splits the C/8 chunks of K (8
-// channels at all 9 taps each); each parks its f32 partial in shared
-// memory, and block
+// One launch a step (f32 with C % 4 == 0; bf16 with C % 8 == 0, where the
+// resident design does not take the frame).  The step's GEMM (M = B*H*W
+// pixels, N = 4C gate columns, K = 9C) runs on the stepwise_tc tile
+// (convlstm_tiles.cuh): in f32 on 3xTF32 terms, in bf16 one wgmma m64n64k16
+// a tap of a 16-channel chunk.  A block owns 64 NW pixels (NW = 1 or 2
+// warpgroups, from the plan) and 16 hidden channels with their four gates
+// (columns gate * 16 + j -> Wh column gate * C + cb + j), so at B = 1 (256
+// pixels, C = 128) the M and N sides give only 4 x 8 = 32 tiles.  The rest
+// of the card comes from K: a cluster of `ranks` blocks (gridDim.x, from
+// the plan) splits the chunks of K (8 channels in f32, 16 in bf16, at all
+// 9 taps each); each parks its f32 partial in shared memory, and block
 // `rank` sums rows [64 NW rank / ranks, 64 NW (rank + 1) / ranks) of the
 // cluster's partials in rank order through distributed shared memory and
 // runs the gate epilogue for them (sigmoid / tanh, c in f32, as the
-// stepwise design's).  A is h_{t-1} (f32, read once a chunk with its halo
-// rows and split as it is read); B is Wh split by the wrapper into TF32
-// big and small planes and laid out as each column tile's stage images.
+// stepwise design's; h_seq and c_seq in the gates' type).  A is h_{t-1}
+// (read once a chunk with its halo rows; f32 split as it is read); B is Wh
+// laid out by the wrapper as each column tile's stage images (f32: TF32 big
+// and small planes; bf16: one plane).
 //
-// Bound on an H100 SXM (f32 work on the tensor cores, 3 TF32 products a
-// multiply-add at 494.7 TFLOP/s): kernel 1 at the serving shape (S=16) 77.3
-// GFLOP -> 0.469 ms; at B = 1 (--video) 4.83 GFLOP -> 0.029 ms, where 16
-// steps of launch and cluster exchange dominate; kernel 2 at B = 8 38.65
-// GFLOP -> 0.234 ms.  What holds it above: every 64 NW-pixel tile reads its
-// B slice (two planes) from L2 again, and each step's launch, halo and
-// cluster exchange.
+// The row form (ROWS) runs the same step on one row shard of Hs rows: its
+// tiles never span two batch elements (ceil(Hs W / 64 NW) a batch
+// element), so a tile's halo rows are rows -1 .. Hs of its own element, and
+// rows -1 and Hs are the neighbour shards' boundary rows of h_{t-1}
+// (halo_top, halo_bot; nullptr: the frame's edge, zeros).
+//
+// Bound on an H100 SXM.  f32 (3 TF32 products a multiply-add at 494.7
+// TFLOP/s): kernel 1 at the serving shape (S=16) 77.3 GFLOP -> 0.469 ms;
+// at B = 1 (--video) 4.83 GFLOP -> 0.029 ms, where 16 steps of launch and
+// cluster exchange dominate; kernel 2 at B = 8 38.65 GFLOP -> 0.234 ms.
+// bf16 at 989 TFLOP/s on a 32x32 latent (512x512 frames): kernel 1 at S=16
+// 309.2 GFLOP -> 0.313 ms, at B = 1 0.0195 ms; kernel 2 at B = 8 154.6
+// GFLOP -> 0.156 ms.  What holds it above: every 64 NW-pixel tile reads
+// its B slice from L2 again, and each step's launch, halo and cluster
+// exchange.
 namespace tc {
 using namespace hopper;
 
-// Step t: grid (ranks, ceil(C/16), ceil(B*H*W/(64 NW))), clusters of ranks
-// along x.  Chunk kc of K is channels [8 kc, 8 kc + 8) of h_{t-1} at all 9
-// taps; w_tc = [ceil(C/16) column tiles][ceil(C/8) chunks][TC_BBYTES] stage
-// images (ops/convlstm.py's tc_weight_layout).
-template <bool STORE_CELL, int NW>
-__global__ void __launch_bounds__(NW * WG_THREADS, 2)
-    convlstm_tc_step(const float* __restrict__ gates_x, const float* __restrict__ w_tc,
-                     const float* __restrict__ h0, float* __restrict__ c_state,
-                     float* __restrict__ h_seq, float* __restrict__ c_seq,
-                     float* __restrict__ h_final, Shape s, int t) {
+// Step t: grid (ranks, ceil(C/16), pixel tiles), clusters of ranks along
+// x.  Chunk kc of K is channels [KC kc, KC kc + KC) of h_{t-1} at all 9
+// taps; w_tc = [ceil(C/16) column tiles][ceil(C/KC) chunks][stage image]
+// (ops/convlstm.py's tc_stage_images).
+// Blocks an SM: two in f32 (128 registers), three in bf16 (80, no spills;
+// faster than two on an H100: `python -m vad_tpu_torch.tools.tc_variants`
+// times both, PERF.md §7).
+template <typename T, bool STORE_CELL, int NW, bool ROWS>
+__global__ void __launch_bounds__(NW * WG_THREADS, sizeof(T) == 2 ? 3 : 2)
+    convlstm_tc_step(const T* __restrict__ gates_x, const T* __restrict__ w_tc,
+                     const T* __restrict__ h0, float* __restrict__ c_state,
+                     T* __restrict__ h_seq, T* __restrict__ c_seq,
+                     float* __restrict__ h_final, Shape s, int t, const T* halo_top,
+                     const T* halo_bot, size_t top_bstride, size_t bot_bstride) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int M = 64 * NW;
+  constexpr int M = 64 * NW, KC = tc_kc<T>(), PIECE = 16 / sizeof(T);
+  constexpr int B_ELEMS = tc_bbytes<T>() / sizeof(T);
   const int ranks = gridDim.x, rank = static_cast<int>(cluster_rank());
-  const int cb = blockIdx.y * 16, m0 = blockIdx.z * M;
   const int hw = s.H * s.W, pixels = s.B * hw;
-  const int chunks = (s.C + TC_KC - 1) / TC_KC;
+  // The tile's first pixel (raster over the batch) and the end of the
+  // pixels it may hold: the row form's tiles stay in one batch element.
+  const int per_b = (hw + M - 1) / M, tb = ROWS ? blockIdx.z / per_b : 0;
+  const int cb = blockIdx.y * 16;
+  const int m0 = ROWS ? tb * hw + blockIdx.z % per_b * M : blockIdx.z * M;
+  const int end = ROWS ? (tb + 1) * hw : pixels;
+  const int chunks = (s.C + KC - 1) / KC;
   // the conv's input: h0 at t = 0, else h_seq[:, t-1]
-  const float* h_in = t == 0 ? h0 : h_seq + (size_t)(t - 1) * hw * s.C;
+  const T* h_in = t == 0 ? h0 : h_seq + (size_t)(t - 1) * hw * s.C;
   const size_t h_bstride = (size_t)(t == 0 ? 1 : s.T) * hw * s.C;
   const int top = m0 - (s.W + 1);  // the pixel of halo row 0
-  const float* w_tile = w_tc + (size_t)blockIdx.y * chunks * (TC_BBYTES / 4);
+  const T* w_tile = w_tc + (size_t)blockIdx.y * chunks * B_ELEMS;
   const auto copy = [&](int kc, unsigned char* st, uint64_t* bar) {
-    tc_copy_stage<NW>(
+    tc_copy_stage<NW, T>(
         st, s.W,
-        [&](int row, int piece) -> const float* {
-          const int m = top + row, ch = kc * TC_KC + 4 * piece;
-          if (m < 0 || m >= pixels || ch >= s.C) return nullptr;
-          const int b = m / hw;
-          return h_in + b * h_bstride + (size_t)(m - b * hw) * s.C + ch;
+        [&](int row, int piece) -> const T* {
+          const int m = top + row, ch = kc * KC + PIECE * piece;
+          if (ch >= s.C) return nullptr;
+          if constexpr (ROWS) {  // rows -1 .. Hs of batch element tb
+            const int e = m - tb * hw + s.W;
+            if (e < 0 || e >= (s.H + 2) * s.W) return nullptr;
+            const int y = e / s.W - 1, x = e % s.W;
+            if (y < 0)
+              return halo_top != nullptr ? halo_top + tb * top_bstride + (size_t)x * s.C + ch
+                                         : nullptr;
+            if (y >= s.H)
+              return halo_bot != nullptr ? halo_bot + tb * bot_bstride + (size_t)x * s.C + ch
+                                         : nullptr;
+            return h_in + tb * h_bstride + (size_t)(y * s.W + x) * s.C + ch;
+          } else {
+            if (m < 0 || m >= pixels) return nullptr;
+            const int b = m / hw;
+            return h_in + b * h_bstride + (size_t)(m - b * hw) * s.C + ch;
+          }
         },
-        w_tile + (size_t)kc * (TC_BBYTES / 4), bar, h_in);
+        w_tile + (size_t)kc * B_ELEMS, bar, h_in);
   };
   const auto hrow = [&](int tap, int i) -> int {
     const int r = tc_frag_row(i), m = m0 + r, p = m % hw;
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
     const int y = p / s.W + dy, x = p % s.W + dx;
-    if (m >= pixels || y < 0 || y >= s.H || x < 0 || x >= s.W) return -1;
+    // the row form's rows -1 and Hs are halo rows (zeros at the frame's edge)
+    if (m >= end || x < 0 || x >= s.W || (!ROWS && (y < 0 || y >= s.H))) return -1;
     return r + s.W + 1 + dy * s.W + dx;
   };
   float acc[32];
-  tc_gemm<NW>(acc, copy, hrow, rank * chunks / ranks, (rank + 1) * chunks / ranks, s.W, smem);
+  tc_gemm<NW, T>(acc, copy, hrow, rank * chunks / ranks, (rank + 1) * chunks / ranks, s.W, smem);
   float* X = reinterpret_cast<float*>(smem);
   tc_park(acc, X);
   cluster_sync();  // every rank's partial is parked
@@ -338,50 +376,71 @@ __global__ void __launch_bounds__(NW * WG_THREADS, 2)
   for (int e = threadIdx.x; e < (r1 - r0) * 16; e += NW * WG_THREADS) {
     const int rr = r0 + e / 16, j = e % 16;
     const int r = m0 + rr, ch = cb + j;
-    if (r >= pixels || ch >= s.C) continue;
+    if (r >= end || ch >= s.C) continue;
     const int b = r / hw, p = r - b * hw;
     const size_t bt = (size_t)b * s.T + t;
-    const float* gx = gates_x + (bt * hw + p) * (4 * s.C) + ch;
+    const T* gx = gates_x + (bt * hw + p) * (4 * s.C) + ch;
     const float* x = X + rr * TC_LDX + j;
-    const float gi = tc_rank_sum(x + 0 * 16, ranks) + gx[0 * s.C];
-    const float gf = tc_rank_sum(x + 1 * 16, ranks) + gx[1 * s.C];
-    const float gg = tc_rank_sum(x + 2 * 16, ranks) + gx[2 * s.C];
-    const float go = tc_rank_sum(x + 3 * 16, ranks) + gx[3 * s.C];
+    const float gi = tc_rank_sum(x + 0 * 16, ranks) + to_f32(gx[0 * s.C]);
+    const float gf = tc_rank_sum(x + 1 * 16, ranks) + to_f32(gx[1 * s.C]);
+    const float gg = tc_rank_sum(x + 2 * 16, ranks) + to_f32(gx[2 * s.C]);
+    const float go = tc_rank_sum(x + 3 * 16, ranks) + to_f32(gx[3 * s.C]);
     const size_t sidx = (size_t)r * s.C + ch;
-    const float c_new = sigmoid(gf) * c_state[sidx] + sigmoid(gi) * tanhf(gg);
-    const float h_new = sigmoid(go) * tanhf(c_new);
+    float c_new, h_new;
+    if constexpr (sizeof(T) == 2) {  // the hardware tanh, as the resident design's bf16
+      c_new = sigmoid_fast(gf) * c_state[sidx] + sigmoid_fast(gi) * tanh_fast(gg);
+      h_new = sigmoid_fast(go) * tanh_fast(c_new);
+    } else {
+      c_new = sigmoid(gf) * c_state[sidx] + sigmoid(gi) * tanhf(gg);
+      h_new = sigmoid(go) * tanhf(c_new);
+    }
     c_state[sidx] = c_new;
-    h_seq[(bt * hw + p) * s.C + ch] = h_new;
-    if constexpr (STORE_CELL) c_seq[(bt * hw + p) * s.C + ch] = c_new;
+    h_seq[(bt * hw + p) * s.C + ch] = from_f32<T>(h_new);
+    if constexpr (STORE_CELL) c_seq[(bt * hw + p) * s.C + ch] = from_f32<T>(c_new);
     if (t == s.T - 1) h_final[sidx] = h_new;
   }
   cluster_sync();  // the partials are read: the cluster's blocks may exit
 }
 
-template <bool STORE_CELL, int NW>
-int run_tc_nw(const void* gates_x, const void* w_tc, const void* h0, float* c, void* h_seq,
-              void* c_seq, float* h_final, Shape s, int ranks, cudaStream_t stream) {
-  const dim3 grid(ranks, (s.C + 15) / 16, (s.B * s.H * s.W + 64 * NW - 1) / (64 * NW));
+// Step t's launch (the row form's with halo_top / halo_bot, batch strides
+// in elements; else nullptr).
+template <typename T, bool STORE_CELL, int NW, bool ROWS>
+cudaError_t launch_step(const void* gates_x, const void* w_tc, const void* h0, float* c,
+                        void* h_seq, void* c_seq, float* h_final, const Shape& s, int t,
+                        int ranks, cudaStream_t stream, const void* halo_top = nullptr,
+                        const void* halo_bot = nullptr, size_t top_bstride = 0,
+                        size_t bot_bstride = 0) {
+  constexpr int M = 64 * NW;
+  const int tiles = ROWS ? s.B * ((s.H * s.W + M - 1) / M) : (s.B * s.H * s.W + M - 1) / M;
+  return launch(convlstm_tc_step<T, STORE_CELL, NW, ROWS>, dim3(ranks, (s.C + 15) / 16, tiles),
+                NW * WG_THREADS, tc_smem_bytes<T>(NW, s.W), ranks, stream,
+                static_cast<const T*>(gates_x), static_cast<const T*>(w_tc),
+                static_cast<const T*>(h0), c, static_cast<T*>(h_seq), static_cast<T*>(c_seq),
+                h_final, s, t, static_cast<const T*>(halo_top), static_cast<const T*>(halo_bot),
+                top_bstride, bot_bstride);
+}
+
+// Whether the design takes C in T (16-byte pieces of a halo row), `ranks`
+// blocks a cluster and `warpgroups` a block.
+template <typename T> bool takes(const Shape& s, int ranks, int warpgroups) {
+  return s.C % (16 / sizeof(T)) == 0 && ranks >= 1 && ranks <= 8 &&
+         (warpgroups == 1 || warpgroups == 2);
+}
+
+template <typename T, bool STORE_CELL>
+int run_tc(const void* gates_x, const void* w_tc, const void* h0, float* c, void* h_seq,
+           void* c_seq, float* h_final, Shape s, int ranks, int warpgroups, cudaStream_t stream) {
+  if (!takes<T>(s, ranks, warpgroups)) return static_cast<int>(cudaErrorInvalidValue);
   for (int t = 0; t < s.T; ++t) {
     const cudaError_t err =
-        launch(convlstm_tc_step<STORE_CELL, NW>, grid, NW * WG_THREADS, tc_smem_bytes(NW, s.W),
-               ranks, stream, static_cast<const float*>(gates_x), static_cast<const float*>(w_tc),
-               static_cast<const float*>(h0), c, static_cast<float*>(h_seq),
-               static_cast<float*>(c_seq), h_final, s, t);
+        warpgroups == 1
+            ? launch_step<T, STORE_CELL, 1, false>(gates_x, w_tc, h0, c, h_seq, c_seq, h_final,
+                                                   s, t, ranks, stream)
+            : launch_step<T, STORE_CELL, 2, false>(gates_x, w_tc, h0, c, h_seq, c_seq, h_final,
+                                                   s, t, ranks, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
-}
-
-template <bool STORE_CELL>
-int run_tc(const void* gates_x, const void* w_tc, const void* h0, float* c, void* h_seq,
-           void* c_seq, float* h_final, Shape s, int ranks, int warpgroups, cudaStream_t stream) {
-  if (s.C % 4 != 0 || ranks < 1 || ranks > 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (warpgroups == 1)
-    return run_tc_nw<STORE_CELL, 1>(gates_x, w_tc, h0, c, h_seq, c_seq, h_final, s, ranks, stream);
-  if (warpgroups == 2)
-    return run_tc_nw<STORE_CELL, 2>(gates_x, w_tc, h0, c, h_seq, c_seq, h_final, s, ranks, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tc
@@ -411,9 +470,8 @@ int run_t(const void* gates_x, const void* w_h, const void* h0, float* c, void* 
 }
 
 // design 1: resident (bf16 only, the shapes ops/convlstm.py's plan admits);
-// design 2: stepwise_tc (f32 only; w_t holds the split [2][9][4C][C],
-// clusters of `cluster` blocks of `warpgroups`), T launches; design 0:
-// stepwise, T launches.
+// design 2: stepwise_tc (w_t holds Wh's stage images; clusters of `cluster`
+// blocks of `warpgroups`), T launches; design 0: stepwise, T launches.
 template <bool STORE_CELL>
 int run_dtype(const void* gates_x, const void* w_h, const void* w_t, const void* h0, void* c,
               void* h_seq, void* c_seq, void* h_final, Shape s, int is_bf16, int design,
@@ -425,11 +483,11 @@ int run_dtype(const void* gates_x, const void* w_h, const void* w_t, const void*
     if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
     return resident::run_resident<STORE_CELL>(gates_x, w_t, h0, cf, h_seq, c_seq, hf, s, st);
   }
-  if (design == 2) {
-    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
-    return tc::run_tc<STORE_CELL>(gates_x, w_t, h0, cf, h_seq, c_seq, hf, s, cluster, warpgroups,
-                                  st);
-  }
+  if (design == 2)
+    return is_bf16 ? tc::run_tc<__nv_bfloat16, STORE_CELL>(gates_x, w_t, h0, cf, h_seq, c_seq,
+                                                           hf, s, cluster, warpgroups, st)
+                   : tc::run_tc<float, STORE_CELL>(gates_x, w_t, h0, cf, h_seq, c_seq, hf, s,
+                                                   cluster, warpgroups, st);
   if (is_bf16)
     return run_t<__nv_bfloat16, STORE_CELL>(gates_x, w_h, h0, cf, h_seq, c_seq, hf, s, st);
   return run_t<float, STORE_CELL>(gates_x, w_h, h0, cf, h_seq, c_seq, hf, s, st);
@@ -439,9 +497,10 @@ int run_dtype(const void* gates_x, const void* w_h, const void* w_t, const void*
 //
 // Kernel 1 over a frame split in n row shards of Hs rows each (shard i
 // holds rows [i Hs, (i+1) Hs)), each on its own device and stream, in the
-// stepwise design: per step, one launch a shard, whose taps above its
-// first row and below its last read the neighbours' boundary rows of
-// h_{t-1} (h0's at t = 0, then h_seq[:, t-1]'s).  A neighbour on the same
+// stepwise_tc design (the tc namespace's row form) or the stepwise one
+// (GateLoad's halo operand): per step, one launch a shard, whose taps
+// above its first row and below its last read the neighbours' boundary
+// rows of h_{t-1} (h0's at t = 0, then h_seq[:, t-1]'s).  A neighbour on the same
 // device and stream is read in place (the stream orders the steps); any
 // other neighbour's row is copied into the shard's staging buffer
 // ([B, W, C], stage_top / stage_bot non-null) on the shard's stream, after
@@ -452,6 +511,7 @@ namespace rows {
 struct Shard {
   const void* gates_x;  // [B, T, Hs, W, 4C]
   const void* w_h;      // [3, 3, C, 4C], on the shard's device
+  const void* w_t;      // stepwise_tc: Wh's stage images on the shard's device
   const void* h0;       // [B, Hs, W, C], the weights' type
   float* c;             // [B, Hs, W, C] f32, c0 in, c_T out
   void* h_seq;          // [B, T, Hs, W, C]
@@ -499,8 +559,10 @@ inline cudaError_t stage(Shard* sh, int n, int i, const Shape& s, int t, size_t 
   return cudaSuccess;
 }
 
+// design 2: stepwise_tc (clusters of `ranks` blocks of `warpgroups`); else
+// stepwise.
 template <typename T, bool VEC>
-cudaError_t run(Shard* sh, int n, const Shape& s) {
+cudaError_t run(Shard* sh, int n, const Shape& s, int design, int ranks, int warpgroups) {
   const dim3 grid((s.B * s.H * s.W + BM - 1) / BM, (s.C + CG - 1) / CG);
   const size_t esize = sizeof(T);
   for (int t = 0; t < s.T; ++t) {
@@ -528,11 +590,23 @@ cudaError_t run(Shard* sh, int n, const Shape& s) {
               h_prev_row(sh[j], s, t, side == 0 ? s.H - 1 : 0, esize, &bstride[side]));
         }
       }
-      convlstm_step_kernel<T, VEC, false><<<grid, THREADS, 0, sh[i].stream>>>(
-          static_cast<const T*>(sh[i].gates_x), static_cast<const T*>(sh[i].w_h),
-          static_cast<const T*>(sh[i].h0), sh[i].c, static_cast<T*>(sh[i].h_seq), nullptr,
-          sh[i].h_final, s, t, halo[0], halo[1], bstride[0], bstride[1]);
-      err = cudaGetLastError();
+      if (design == 2) {
+        err = warpgroups == 1
+                  ? tc::launch_step<T, false, 1, true>(
+                        sh[i].gates_x, sh[i].w_t, sh[i].h0, sh[i].c, sh[i].h_seq, nullptr,
+                        sh[i].h_final, s, t, ranks, sh[i].stream, halo[0], halo[1], bstride[0],
+                        bstride[1])
+                  : tc::launch_step<T, false, 2, true>(
+                        sh[i].gates_x, sh[i].w_t, sh[i].h0, sh[i].c, sh[i].h_seq, nullptr,
+                        sh[i].h_final, s, t, ranks, sh[i].stream, halo[0], halo[1], bstride[0],
+                        bstride[1]);
+      } else {
+        convlstm_step_kernel<T, VEC, false><<<grid, THREADS, 0, sh[i].stream>>>(
+            static_cast<const T*>(sh[i].gates_x), static_cast<const T*>(sh[i].w_h),
+            static_cast<const T*>(sh[i].h0), sh[i].c, static_cast<T*>(sh[i].h_seq), nullptr,
+            sh[i].h_final, s, t, halo[0], halo[1], bstride[0], bstride[1]);
+        err = cudaGetLastError();
+      }
       if (err != cudaSuccess) return err;
     }
   }
@@ -546,13 +620,13 @@ cudaError_t run(Shard* sh, int n, const Shape& s) {
 extern "C" {
 
 // gates_x [B,T,H,W,4C], w_h [3,3,C,4C], w_t [9,4C,C] (w_h per tap
-// transposed; for design 2 the f32 [2][9][4C][C] of its TF32 big and small
-// terms), h0 [B,H,W,C] and h_seq [B,T,H,W,C] in one type (bf16 when
-// is_bf16, else f32); c [B,H,W,C] f32 holds c0 and is updated in place;
-// h_final [B,H,W,C] f32 receives h_T.  All contiguous.  design 1 launches
-// one kernel (resident; bf16), design 2 T (stepwise_tc; f32, clusters of
-// `cluster` blocks of `warpgroups` warpgroups), design 0 T (stepwise), on
-// `stream`; returns the first launch error, or 0.
+// transposed; for design 2 Wh's stage images, ops/convlstm.py's
+// tc_stage_images), h0 [B,H,W,C] and h_seq [B,T,H,W,C] in one type (bf16
+// when is_bf16, else f32); c [B,H,W,C] f32 holds c0 and is updated in
+// place; h_final [B,H,W,C] f32 receives h_T.  All contiguous.  design 1
+// launches one kernel (resident; bf16), design 2 T (stepwise_tc, clusters
+// of `cluster` blocks of `warpgroups` warpgroups), design 0 T (stepwise),
+// on `stream`; returns the first launch error, or 0.
 int convlstm_serving_forward(const void* gates_x, const void* w_h, const void* w_t,
                              const void* h0, void* c, void* h_seq, void* h_final, int B, int T,
                              int H, int W, int C, int is_bf16, int design, int cluster,
@@ -575,20 +649,27 @@ int convlstm_train_forward(const void* gates_x, const void* w_h, const void* w_t
 // at gates_x[i] [B,T,Hs,W,4C], w_h[i] [3,3,C,4C], h0[i] [B,Hs,W,C] and
 // h_seq[i] [B,T,Hs,W,C] (bf16 when is_bf16, else f32), c[i] and h_final[i]
 // [B,Hs,W,C] f32 (c0 in, c_T out), on device[i], launched on stream[i];
+// w_t[i] Wh's stage images on device[i] (design 2, else unread);
 // stage_top[i] / stage_bot[i] are [B,W,C] staging buffers for a neighbour
 // on another device or stream, nullptr to read the neighbour in place
 // (same device and stream).  All contiguous.  Launches T * n step kernels
-// (stepwise design), restores the current device and returns the first
+// (design 2: stepwise_tc, clusters of `cluster` blocks of `warpgroups`;
+// design 0: stepwise), restores the current device and returns the first
 // error, or 0.
 int convlstm_serving_rows(const void* const* gates_x, const void* const* w_h,
-                          const void* const* h0, void* const* c, void* const* h_seq,
-                          void* const* h_final, void* const* stage_top,
+                          const void* const* w_t, const void* const* h0, void* const* c,
+                          void* const* h_seq, void* const* h_final, void* const* stage_top,
                           void* const* stage_bot, const int* device, void* const* stream, int n,
-                          int B, int T, int Hs, int W, int C, int is_bf16) {
-  if (n < 1 || n > 64) return static_cast<int>(cudaErrorInvalidValue);
+                          int B, int T, int Hs, int W, int C, int is_bf16, int design,
+                          int cluster, int warpgroups) {
+  const Shape s{B, T, Hs, W, C};
+  if (n < 1 || n > 64 || (design != 0 && design != 2)) return static_cast<int>(cudaErrorInvalidValue);
+  if (design == 2 && !(is_bf16 ? tc::takes<__nv_bfloat16>(s, cluster, warpgroups)
+                               : tc::takes<float>(s, cluster, warpgroups)))
+    return static_cast<int>(cudaErrorInvalidValue);
   rows::Shard sh[64];
   for (int i = 0; i < n; ++i)
-    sh[i] = rows::Shard{gates_x[i], w_h[i], h0[i], static_cast<float*>(c[i]), h_seq[i],
+    sh[i] = rows::Shard{gates_x[i], w_h[i], w_t[i], h0[i], static_cast<float*>(c[i]), h_seq[i],
                         static_cast<float*>(h_final[i]), stage_top[i], stage_bot[i], device[i],
                         static_cast<cudaStream_t>(stream[i]), nullptr};
   int current = 0;
@@ -600,13 +681,14 @@ int convlstm_serving_rows(const void* const* gates_x, const void* const* w_h,
     err = cudaSetDevice(sh[j].device);
     if (err == cudaSuccess) err = cudaEventCreateWithFlags(&sh[j].done, cudaEventDisableTiming);
   }
-  const Shape s{B, T, Hs, W, C};
   if (err == cudaSuccess) {
+    const int g = warpgroups;
     if (is_bf16)
-      err = C % 8 == 0 ? rows::run<__nv_bfloat16, true>(sh, n, s)
-                       : rows::run<__nv_bfloat16, false>(sh, n, s);
+      err = C % 8 == 0 ? rows::run<__nv_bfloat16, true>(sh, n, s, design, cluster, g)
+                       : rows::run<__nv_bfloat16, false>(sh, n, s, design, cluster, g);
     else
-      err = C % 8 == 0 ? rows::run<float, true>(sh, n, s) : rows::run<float, false>(sh, n, s);
+      err = C % 8 == 0 ? rows::run<float, true>(sh, n, s, design, cluster, g)
+                       : rows::run<float, false>(sh, n, s, design, cluster, g);
   }
   for (int j = 0; j < n; ++j)
     if (sh[j].done != nullptr) cudaEventDestroy(sh[j].done);  // released once it completes

@@ -10,7 +10,8 @@
 // - the Hopper core (namespace hopper, sm_90a): padded frames staged by
 //   TMA, wgmma on shared-memory descriptors, mbarriers, cluster barriers
 //   and distributed shared memory, the gate GEMM's column layout, and the
-//   f32 tile of the stepwise_tc design (wgmma m64n64k8 on 3xTF32 terms).
+//   tile of the stepwise_tc design (f32: wgmma m64n64k8 on 3xTF32 terms;
+//   bf16: wgmma m64n64k16).
 //
 // 3xTF32.  An f32 operand x is split into two TF32 values, big =
 // rna(x) and small = rna(x - big) (rna: cvt.rna.tf32.f32, round to
@@ -665,61 +666,75 @@ __device__ __forceinline__ void thread_pixels(int (&pix)[2], int W) {
   for (int rr = 0; rr < 2; ++rr) pix[rr] = tile_pixel(wg, 16 * warp + lane / 4 + 8 * rr, W);
 }
 
-// --------------------------------------- the f32 tile (stepwise_tc, 3xTF32)
+// ------------------------------------------- the stepwise_tc tile (f32, bf16)
 //
 // NW warpgroups a block (template, 1 or 2) accumulate a (64 NW) x 64 f32
 // tile of a 3x3 convolution's implicit GEMM: warpgroup g owns pixel rows
 // [64 g, 64 g + 64) of the block's M0 = 64 NW consecutive pixels (raster
 // order over the batch), the 64 columns are the block's.  K runs over
-// chunks of TC_KC input channels, each chunk with all 9 taps (K = 72 a
-// stage), so a stage holds the chunk of every pixel a tap can reach once:
-// the halo rows M0 - (W + 1) .. M0 + 64 NW + W, [rows][TC_LDA] raw f32,
-// where tap (dy, dx) of pixel m reads row m + (dy - 1) W + (dx - 1) (and
-// zero where that pixel leaves the frame).  That reads the input 1 +
-// (2 W + 2) / (64 NW) times a chunk instead of 9.
+// chunks of input channels (TC_KC = 8 in f32, TC_KC_BF16 = 16 in bf16:
+// 32 bytes of each pixel), each chunk with all 9 taps, so a stage holds the
+// chunk of every pixel a tap can reach once: the halo rows M0 - (W + 1) ..
+// M0 + 64 NW + W, [rows][48 bytes] (the chunk's 32 bytes, padded so the
+// fragment reads hit 32 banks), where tap (dy, dx) of pixel m reads row m +
+// (dy - 1) W + (dx - 1) (and zero where that pixel leaves the frame).  That
+// reads the input 1 + (2 W + 2) / (64 NW) times a chunk instead of 9.  The
+// halo rows arrive by cp.async (16 bytes a copy, rows outside the batch
+// zero-filled); B, the weights, sits in shared memory as K-major core
+// matrices (8 rows x 16 bytes; LBO = 1024, the next 16 bytes of K; SBO =
+// 128, the next 8 rows), which the wrapper lays out as each stage's image,
+// [column tile][chunk][9 taps][...], so one thread copies a stage's B whole
+// with cp.async.bulk on an mbarrier.  A comes from registers: each warp
+// reads its fragment (rows 16 warp + lane/4 and + 8) from the halo rows.
+// Stages are double buffered, so the copies of the next chunk run while the
+// tensor cores work on this one.  A block's B serves its NW warpgroups.
 //
-// Per tap and 8 of K, three wgmma m64n64k8 (TF32 in, f32 accumulate), one
-// per term of the 3xTF32 product.  For TF32, wgmma reads a shared-memory
-// operand K-major only (the transpose bits exist only for 16-bit types),
-// so B (the weights, split by the wrapper into big and small planes) sits
-// in shared memory as K-major core matrices, [tap][plane][2 groups of 4]
-// [64 rows][4] (8 rows x 16 bytes a core matrix; LBO = 1024, the next 4
-// of K; SBO = 128, the next 8 rows).  The wrapper lays the split weights
-// out as these stage images, [column tile][chunk][TC_BBYTES], so one
-// thread copies a stage's B whole with cp.async.bulk on an mbarrier.  A
-// comes from registers: each warp reads its m64n64k8 fragment (the
-// mma.sync m16n8k8 .tf32 layout: rows 16 warp + lane/4 and + 8, K lane % 4
-// and + 4) from the halo rows, splits it there and hands big and small to
-// wgmma; the halo rows arrive by cp.async (16 bytes a copy, rows outside
-// the batch zero-filled).  Stages are double buffered, so the copies of
-// the next chunk run while the tensor cores work on this one.  A block's B
-// serves its NW warpgroups.
+// f32 (3xTF32): per tap and 8 of K, three wgmma m64n64k8 (TF32 in, f32
+// accumulate), one per term of the 3xTF32 product.  For TF32, wgmma reads
+// a shared-memory operand K-major only (the transpose bits exist only for
+// 16-bit types), so B (split by the wrapper into big and small planes) is
+// [tap][plane][2 groups of 4][64 rows][4], TC_BBYTES a stage.  A's
+// fragment (the mma.sync m16n8k8 .tf32 layout: K lane % 4 and + 4) is split
+// as it is read.  A stage's products go to a fresh accumulator (its first
+// wgmma with scale-d = 0) that is added to the running sum after the stage
+// (see 3xTF32 above).
 //
-// A stage's products go to a fresh accumulator (its first wgmma with
-// scale-d = 0) that is added to the running sum after the stage (see
-// 3xTF32 above).
-constexpr int TC_KC = 8;                      // input channels (K per tap) of a stage
-constexpr int TC_LDA = TC_KC + 4;             // halo row stride, f32 (fragment reads hit 32 banks)
-constexpr int TC_BTAP = 2 * 64 * TC_KC * 4;   // one tap's two B planes of a stage, 4 KB
+// bf16: per tap one wgmma m64n64k16 (bf16 in, f32 accumulate) into the
+// running sum; B is [tap][2 groups of 8][64 rows][8] bf16, TC_BBYTES_BF16 a
+// stage; A's fragment is the mma.sync m16n8k16 layout (32-bit pairs at K 2
+// (lane % 4) and + 8).
+constexpr int TC_KC = 8;                      // f32 input channels (K per tap) of a stage
+constexpr int TC_KC_BF16 = 16;                // bf16's
+constexpr int TC_LDA = TC_KC + 4;             // halo row stride, f32 (48 bytes)
+constexpr int TC_BTAP = 2 * 64 * TC_KC * 4;   // one tap's two f32 B planes of a stage, 4 KB
 constexpr int TC_BBYTES = 9 * TC_BTAP;        // 36,864
-constexpr int TC_NSTAGE = 2;
+constexpr int TC_BTAP_BF16 = 64 * TC_KC_BF16 * 2;  // one tap's bf16 B, 2 KB
+constexpr int TC_BBYTES_BF16 = 9 * TC_BTAP_BF16;   // 18,432
 constexpr int TC_LDX = 64 + 4;                // the parked partial tile [64 NW][TC_LDX] f32
+template <typename T> __host__ __device__ constexpr int tc_kc() {
+  return sizeof(T) == 4 ? TC_KC : TC_KC_BF16;
+}
+template <typename T> __host__ __device__ constexpr int tc_bbytes() {
+  return sizeof(T) == 4 ? TC_BBYTES : TC_BBYTES_BF16;
+}
+constexpr int TC_NSTAGE = 2;
 __host__ __device__ constexpr int tc_halo_rows(int nw, int W) { return 64 * nw + 2 * W + 2; }
 __host__ __device__ constexpr int tc_a_bytes(int nw, int W) {
   return (tc_halo_rows(nw, W) * TC_LDA * 4 + 127) / 128 * 128;
 }
-__host__ __device__ constexpr int tc_stage_bytes(int nw, int W) {
-  return tc_a_bytes(nw, W) + TC_BBYTES;
+template <typename T = float> __host__ __device__ constexpr int tc_stage_bytes(int nw, int W) {
+  return tc_a_bytes(nw, W) + tc_bbytes<T>();
 }
 // The stages (the parked tile aliases them), then the stages' mbarriers:
-// 89,360 bytes for two warpgroups at W = 16 (two blocks an SM).
-__host__ __device__ constexpr int tc_ring_bytes(int nw, int W) {
-  return TC_NSTAGE * tc_stage_bytes(nw, W) > 64 * nw * TC_LDX * 4
-             ? TC_NSTAGE * tc_stage_bytes(nw, W)
+// 89,360 bytes for two f32 warpgroups at W = 16 (two blocks an SM),
+// 55,568 for two bf16 warpgroups at W = 32 (three).
+template <typename T = float> __host__ __device__ constexpr int tc_ring_bytes(int nw, int W) {
+  return TC_NSTAGE * tc_stage_bytes<T>(nw, W) > 64 * nw * TC_LDX * 4
+             ? TC_NSTAGE * tc_stage_bytes<T>(nw, W)
              : 64 * nw * TC_LDX * 4;
 }
-__host__ __device__ constexpr int tc_smem_bytes(int nw, int W) {
-  return tc_ring_bytes(nw, W) + 8 * TC_NSTAGE;
+template <typename T = float> __host__ __device__ constexpr int tc_smem_bytes(int nw, int W) {
+  return tc_ring_bytes<T>(nw, W) + 8 * TC_NSTAGE;
 }
 
 // `bytes` (a multiple of 16) from global `src` to shared `dst`, one bulk
@@ -750,46 +765,69 @@ __device__ __forceinline__ void mma_tf32(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d += A . B, m64n64k16, A (bf16) from registers, B (bf16, K-major) from
+// shared memory, f32 accumulate.
+__device__ __forceinline__ void mma_bf16_ra(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void tc_fold(float (&acc)[32], const float (&part)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] += part[i];
 }
 
-// A stage's copies: the halo rows' TC_KC channels by every thread (two
-// 16-byte pieces a row; `a_src(row, piece)` gives the source or nullptr
-// for zeros) and B's stage image `b_src` (TC_BBYTES) in one bulk copy by
-// thread 0, completing on `bar`.
-template <int NW, class ASrc>
+// A stage's copies: the halo rows' chunk (tc_kc<T>() channels) by every
+// thread (two 16-byte pieces a row; `a_src(row, piece)` gives the source
+// or nullptr for zeros) and B's stage image `b_src` (tc_bbytes<T>()) in
+// one bulk copy by thread 0, completing on `bar`.
+template <int NW, typename T = float, class ASrc>
 __device__ __forceinline__ void tc_copy_stage(unsigned char* st, int W, const ASrc& a_src,
-                                              const float* b_src, uint64_t* bar,
-                                              const void* any) {
+                                              const T* b_src, uint64_t* bar, const void* any) {
   if (threadIdx.x == 0) {
-    mbar_expect_tx(bar, TC_BBYTES);
-    bulk_copy(st + tc_a_bytes(NW, W), b_src, TC_BBYTES, bar);
+    mbar_expect_tx(bar, tc_bbytes<T>());
+    bulk_copy(st + tc_a_bytes(NW, W), b_src, tc_bbytes<T>(), bar);
   }
   const int rows = tc_halo_rows(NW, W);
   for (int e = threadIdx.x; e < 2 * rows; e += NW * WG_THREADS) {
-    const float* src = a_src(e / 2, e % 2);
-    cp_async16(st + (e / 2) * TC_LDA * 4 + (e % 2) * 16, src != nullptr ? src : any,
-               src != nullptr);
+    const T* src = a_src(e / 2, e % 2);
+    cp_async16(st + (e / 2) * TC_LDA * 4 + (e % 2) * 16,
+               src != nullptr ? static_cast<const void*>(src) : any, src != nullptr);
   }
 }
 
 // acc = the sum over chunks [s0, s1) of this warpgroup's rows of the
-// block's tile, chunk by chunk in order.  `copy(s, stage, bar)` issues
-// chunk s's copies (tc_copy_stage).  `hrow(tap, i)` gives the halo row
-// that tap reads for this thread's fragment row i (0: 16 warp + lane/4 of
-// the warpgroup's rows, 1: that + 8), or -1 for zero.  `smem`:
-// tc_smem_bytes(NW, W).  Ends with every copy and wgmma done and the block
-// synchronized.
-template <int NW, class Copy, class HRow>
+// block's tile, chunk by chunk in order, in T's arithmetic (f32: 3xTF32;
+// bf16).  `copy(s, stage, bar)` issues chunk s's copies (tc_copy_stage).
+// `hrow(tap, i)` gives the halo row that tap reads for this thread's
+// fragment row i (0: 16 warp + lane/4 of the warpgroup's rows, 1: that +
+// 8), or -1 for zero.  `smem`: tc_smem_bytes<T>(NW, W).  Ends with every
+// copy and wgmma done and the block synchronized.
+template <int NW, typename T = float, class Copy, class HRow>
 __device__ __forceinline__ void tc_gemm(float (&acc)[32], const Copy& copy, const HRow& hrow,
                                         int s0, int s1, int W, unsigned char* smem) {
-  const int STAGE = tc_stage_bytes(NW, W);
+  const int STAGE = tc_stage_bytes<T>(NW, W);
   const int q = threadIdx.x % 4;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + tc_ring_bytes(NW, W));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + tc_ring_bytes<T>(NW, W));
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  [[maybe_unused]] int hr[9][2];  // bf16: each tap's halo rows, the same for every chunk
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) hr[tap][i] = hrow(tap, i);
+  }
   if (threadIdx.x == 0)
     for (int b = 0; b < TC_NSTAGE; ++b) mbar_init(&bars[b], 1);
   __syncthreads();
@@ -804,37 +842,59 @@ __device__ __forceinline__ void tc_gemm(float (&acc)[32], const Copy& copy, cons
     if (s + 1 < s1) copy(s + 1, smem + (k + 1) % TC_NSTAGE * STAGE, &bars[(k + 1) % TC_NSTAGE]);
     cp_async_commit();
     const unsigned char* st = smem + k % TC_NSTAGE * STAGE;
-    const float* A = reinterpret_cast<const float*>(st);
     const unsigned char* B = st + tc_a_bytes(NW, W);
-    float part[32];
-    uint32_t ab[2][3][4], as[2][3][4];  // two register sets of three taps' fragments
+    if constexpr (sizeof(T) == 2) {
+      // rows of 48 bytes: 12 words, so a warp's 8 rows x 4 words hit 32 banks
+      const uint32_t* A = reinterpret_cast<const uint32_t*>(st);
+      uint32_t a[9][4];  // each tap's fragment: (row i, K pair q + 4 h) at element i + 2 h
 #pragma unroll
-    for (int g = 0; g < 3; ++g) {  // taps 3g .. 3g + 2
-      if (g == 2) wgmma_wait<1>();  // group 0 is done with register set 0
+      for (int g = 0; g < 3; ++g) {  // taps 3g .. 3g + 2, in flight while the next load
 #pragma unroll
-      for (int tt = 0; tt < 3; ++tt)
+        for (int tap = 3 * g; tap < 3 * g + 3; ++tap)
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = hrow(3 * g + tt, i);
+          for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {  // K lane % 4 and + 4: fragment elements i + 2 h
-            const float v = r >= 0 ? A[r * TC_LDA + q + 4 * h] : 0.0f;
-            split_tf32(v, ab[g % 2][tt][i + 2 * h], as[g % 2][tt][i + 2 * h]);
-          }
-        }
-      wgmma_fence();
+            for (int h = 0; h < 2; ++h)
+              a[tap][i + 2 * h] = hr[tap][i] >= 0 ? A[hr[tap][i] * (TC_LDA) + q + 4 * h] : 0u;
+        wgmma_fence();
 #pragma unroll
-      for (int tt = 0; tt < 3; ++tt) {
-        const unsigned char* bt = B + (3 * g + tt) * TC_BTAP;
-        const uint64_t bb = desc(bt, 1024, 128), bs = desc(bt + TC_BTAP / 2, 1024, 128);
-        mma_tf32(part, as[g % 2][tt], bb, g + tt > 0);
-        mma_tf32(part, ab[g % 2][tt], bs, 1);
-        mma_tf32(part, ab[g % 2][tt], bb, 1);
+        for (int tap = 3 * g; tap < 3 * g + 3; ++tap)
+          mma_bf16_ra(acc, a[tap], desc(B + tap * TC_BTAP_BF16, 1024, 128));
+        wgmma_commit();
       }
-      wgmma_commit();
+      wgmma_wait<0>();
+    } else {
+      const float* A = reinterpret_cast<const float*>(st);
+      float part[32];
+      uint32_t ab[2][3][4], as[2][3][4];  // two register sets of three taps' fragments
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {  // taps 3g .. 3g + 2
+        if (g == 2) wgmma_wait<1>();  // group 0 is done with register set 0
+#pragma unroll
+        for (int tt = 0; tt < 3; ++tt)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = hrow(3 * g + tt, i);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {  // K lane % 4 and + 4: fragment elements i + 2 h
+              const float v = r >= 0 ? A[r * TC_LDA + q + 4 * h] : 0.0f;
+              split_tf32(v, ab[g % 2][tt][i + 2 * h], as[g % 2][tt][i + 2 * h]);
+            }
+          }
+        wgmma_fence();
+#pragma unroll
+        for (int tt = 0; tt < 3; ++tt) {
+          const unsigned char* bt = B + (3 * g + tt) * TC_BTAP;
+          const uint64_t bb = desc(bt, 1024, 128), bs = desc(bt + TC_BTAP / 2, 1024, 128);
+          mma_tf32(part, as[g % 2][tt], bb, g + tt > 0);
+          mma_tf32(part, ab[g % 2][tt], bs, 1);
+          mma_tf32(part, ab[g % 2][tt], bb, 1);
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      tc_fold(acc, part);
     }
-    wgmma_wait<0>();
-    tc_fold(acc, part);
   }
   cp_async_wait<0>();
   __syncthreads();

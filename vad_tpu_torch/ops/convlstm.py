@@ -35,14 +35,16 @@ and type alone:
 - *resident* (bf16 frames of at most 256 pixels in 8x8 tiles: weights and
   the frame stay in shared memory, wgmma and TMA, one launch for kernels 1
   and 2 and four for kernel 3);
-- *stepwise_tc* (f32 with C % 4 == 0, any frame: one launch per step, the
-  step's GEMM on the tensor cores in 3xTF32, every f32 operand split into
-  TF32 big and small terms (``tf32_split``), with its K split across a
-  thread-block cluster where the pixel and channel tiles alone leave SMs
-  idle; kernel 3's other GEMMs in 3xTF32 on mma.sync);
-- *stepwise* (everything else: bf16 frames the resident design refuses,
-  ragged widths; one launch per step on the FMA/WMMA core).  Naming it
-  still runs f32 on FMAs, the design the f32 default replaced.
+- *stepwise_tc* (f32 with C % 4 == 0, any frame; kernels 1 and 2 also in
+  bf16 with C % 8 == 0 where the resident design refuses the frame, such as
+  the 32x32 latent of 512x512 streams: one launch per step, the step's
+  GEMM on the tensor cores with its K split across a thread-block cluster
+  where the pixel and channel tiles alone leave SMs idle; f32 in 3xTF32,
+  every f32 operand split into TF32 big and small terms (``tf32_split``),
+  kernel 3's other GEMMs in 3xTF32 on mma.sync; bf16 on bf16 wgmma);
+- *stepwise* (everything else: kernel 3's bf16 frames the resident design
+  refuses, ragged widths; one launch per step on the FMA/WMMA core).
+  Naming it still runs f32 on FMAs and bf16 on WMMA.
 
 ``convlstm_recurrence`` is the one entry point.  When autograd records
 (grad enabled and an input requires grad) it goes through
@@ -64,7 +66,6 @@ the implementation by the tensors' device: a kernel that fails raises.
 from __future__ import annotations
 
 import ctypes
-import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -73,6 +74,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vad_tpu_torch.ops import _build
+from vad_tpu_torch.ops.weight_cache import WeightCache
 
 State = Tuple[torch.Tensor, torch.Tensor]
 
@@ -83,7 +85,7 @@ _SIGNATURES = {
     "convlstm_serving_forward": [_P] * 7 + [_I] * 9 + [_P],
     "convlstm_train_forward": [_P] * 8 + [_I] * 9 + [_P],
     "convlstm_serving_active_clusters": [_I] * 5,
-    "convlstm_serving_rows": [_P] * 10 + [_I] * 7,
+    "convlstm_serving_rows": [_P] * 11 + [_I] * 10,
 }
 _BWD_SIGNATURES = {
     "convlstm_backward": [_P] * 16 + [_I] * 12 + [_P],
@@ -96,20 +98,30 @@ _NT = 64  # wgmma N: GEMM columns of a resident block
 _STEP_TILE = (64, 128)  # the stepwise core's output tile (pixels, columns)
 _STEP_SMEM = 41_472  # the stepwise core's static shared memory (3-stage ring)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (csrc/convlstm_tiles.cuh)
-# stepwise_tc (convlstm_tiles.cuh's f32 tile): a warpgroup's 64 x 64 output
-# tile, the input channels of a K chunk (all 9 taps), and the largest
-# portable cluster that splits K
-_TC_TILE, _TC_KC, _TC_MAX_CLUSTER = 64, 8, 8
-_TC_STAGE_B = 9 * 2 * 64 * _TC_KC * 4  # a stage's B image: 9 taps x 2 planes x 64 rows x 8
+# stepwise_tc (convlstm_tiles.cuh's tile): a warpgroup's 64 x 64 output
+# tile, the input channels of a K chunk (all 9 taps: 32 bytes a pixel, 8
+# f32 or 16 bf16), and the largest portable cluster that splits K
+_TC_TILE, _TC_KC, _TC_KC_BF16, _TC_MAX_CLUSTER = 64, 8, 16, 8
+_TC_STAGE_B = 9 * 2 * 64 * _TC_KC * 4  # a stage's f32 B image: 9 taps x 2 planes x 64 rows x 8
+_TC_STAGE_B_BF16 = 9 * 64 * _TC_KC_BF16 * 2  # bf16's: 9 taps x 64 rows x 16
 
 
-def _tc_smem(warpgroups: int, wid: int) -> int:
+def _tc_kc(dtype: torch.dtype) -> int:
+    """Input channels of a stepwise_tc K chunk in ``dtype``."""
+    return _TC_KC_BF16 if dtype == torch.bfloat16 else _TC_KC
+
+
+def _tc_stage_b(dtype: torch.dtype) -> int:
+    return _TC_STAGE_B_BF16 if dtype == torch.bfloat16 else _TC_STAGE_B
+
+
+def _tc_smem(warpgroups: int, wid: int, dtype: torch.dtype = torch.float32) -> int:
     """A stepwise_tc block's shared memory (``tc_smem_bytes``): two
-    stages of a K chunk's halo rows (64 per warpgroup + 2W + 2, 8 channels
-    padded to 12 f32) and B's 9 taps x 2 planes x 64 rows x 8 (the parked
-    partial tile aliases them), and the stages' two mbarriers."""
+    stages of a K chunk's halo rows (64 per warpgroup + 2W + 2, 32 bytes
+    padded to 48) and B's stage image (the parked f32 partial tile aliases
+    them), and the stages' two mbarriers."""
     halo = _cdiv((64 * warpgroups + 2 * wid + 2) * 12 * 4, 128) * 128
-    return max(2 * (halo + 9 * 2 * 64 * _TC_KC * 4), 64 * warpgroups * 68 * 4) + 16
+    return max(2 * (halo + _tc_stage_b(dtype)), 64 * warpgroups * 68 * 4) + 16
 
 
 @dataclass(frozen=True)
@@ -124,8 +136,9 @@ class RecurrencePlan:
     wrapper allocates for the call, ``step_blocks`` the blocks that run one
     step of the recurrence (kernel 3: of its reverse loop), ``warpgroups``
     stepwise_tc's warpgroups a block (its tile is 64 pixels a warpgroup),
-    and ``weight_bytes`` stepwise_tc's TF32 split of Wh, made once per
-    weight tensor and version and cached (``tf32_split``)."""
+    and ``weight_bytes`` stepwise_tc's stage images of Wh (f32: its TF32
+    split, ``tf32_split``; bf16: Wh laid out), made once per weight state
+    and cached (``_tc_weights``)."""
 
     kernel: str
     design: str
@@ -189,31 +202,56 @@ def resident_fits(kernel: str, hgt: int, wid: int, ch: int, dtype: torch.dtype) 
     return fits and _resident_smem(kernel, hgt, wid, ch) <= SMEM_LIMIT
 
 
-def tc_fits(ch: int, dtype: torch.dtype, wid: int) -> bool:
-    """Whether the stepwise_tc design takes this width and type: f32 (its
-    3xTF32 terms keep f32's accuracy; bf16 has the resident and stepwise
-    designs), C % 4 == 0 (its operands move in 16-byte groups of 4
-    channels) and frame rows of ``wid`` pixels whose halo fits a block's
-    shared memory.  Any frame height and batch: pixels beyond the last tile
-    and taps outside the frame read zeros."""
-    return dtype == torch.float32 and ch % 4 == 0 and _tc_smem(2, wid) <= SMEM_LIMIT
+def tc_fits(ch: int, dtype: torch.dtype, wid: int, kernel: str = "convlstm_serving") -> bool:
+    """Whether the stepwise_tc design takes ``kernel`` at this width and
+    type: f32 (its 3xTF32 terms keep f32's accuracy) with C % 4 == 0, or,
+    for kernels 1 and 2 (not kernel 3, whose bf16 designs are resident and
+    stepwise), bf16 with C % 8 == 0 (a halo row's 16-byte pieces hold 4 f32
+    or 8 bf16 channels; a last K chunk past C reads zeros); and frame rows
+    of ``wid`` pixels whose halo fits a block's shared memory.  Any frame
+    height and batch: pixels beyond the last tile and taps outside the
+    frame read zeros."""
+    if dtype == torch.float32:
+        fits = ch % 4 == 0
+    else:
+        fits = dtype == torch.bfloat16 and ch % 8 == 0 and kernel != "convlstm_backward"
+    return fits and _tc_smem(2, wid, dtype) <= SMEM_LIMIT
 
 
-def _tc_grid(pixels: int, n_tiles: int, stages: int) -> Tuple[int, int, int]:
+def _tc_grid(b: int, hw: int, n_tiles: int, stages: int,
+             per_batch: bool = False) -> Tuple[int, int, int]:
     """stepwise_tc's step grid: (warpgroups a block, pixel tiles, cluster
-    size).  Two warpgroups (128-pixel tiles: a block's B slice serves both)
-    unless even clusters of 8 would leave SMs idle, then one; the K split
-    is the fewest blocks a cluster (a power of two up to the portable 8,
-    none with fewer than one K stage) that give at least one block per SM."""
-    for nw in (2, 1):
-        m_tiles = _cdiv(pixels, _TC_TILE * nw)
-        if nw == 1 or m_tiles * n_tiles * _TC_MAX_CLUSTER >= NUM_SMS:
-            break
+    size) over ``b`` frames of ``hw`` pixels, the tiles raster over the
+    batch or (``per_batch``, the row form) within each frame.  Two
+    warpgroups (128-pixel tiles: a block's B slice serves both) unless they
+    give no fewer tiles than one, or even clusters of 8 would leave SMs
+    idle; the K split is the fewest blocks a cluster (a power of two up to
+    the portable 8, none with fewer than one K stage) that give at least
+    one block per SM."""
+    def tiles(nw: int) -> int:
+        return b * _cdiv(hw, _TC_TILE * nw) if per_batch else _cdiv(b * hw, _TC_TILE * nw)
+
+    nw = 2 if tiles(2) < tiles(1) and tiles(2) * n_tiles * _TC_MAX_CLUSTER >= NUM_SMS else 1
+    m_tiles = tiles(nw)
     ranks = 1
     while (ranks < _TC_MAX_CLUSTER and m_tiles * n_tiles * ranks < NUM_SMS
            and 2 * ranks <= stages):
         ranks *= 2
     return nw, m_tiles, ranks
+
+
+def _tc_forward_plan(kernel: str, b: int, t: int, hw: int, wid: int, ch: int,
+                     dtype: torch.dtype, shards: int = 1) -> RecurrencePlan:
+    """Kernels 1-2's stepwise_tc plan (the row form's with ``shards`` > 1:
+    ``hw`` is a shard's pixels, tiles within each frame, a launch a shard a
+    step)."""
+    n_tiles, chunks = _cdiv(ch, 16), _cdiv(ch, _tc_kc(dtype))
+    nw, m_tiles, ranks = _tc_grid(b, hw, n_tiles, chunks, per_batch=shards > 1)
+    return RecurrencePlan(kernel, "stepwise_tc", launches=t * shards, cluster=ranks,
+                          smem_bytes=_tc_smem(nw, wid, dtype), scratch_bytes=0,
+                          grids={"step": (ranks, n_tiles, m_tiles)}, shards=shards,
+                          step_blocks=ranks * n_tiles * m_tiles, warpgroups=nw,
+                          weight_bytes=n_tiles * chunks * _tc_stage_b(dtype))
 
 
 def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
@@ -223,50 +261,63 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
     and scratch of ``kernel`` (``"convlstm_serving"``, ``"convlstm_train_forward"``
     or ``"convlstm_backward"``) at ``gates_x [b, t, hgt, wid, 4*ch]`` of
     ``dtype``.  ``design=None`` takes the resident design wherever it fits,
-    else stepwise_tc wherever it fits (``tc_fits``: f32), else the stepwise
-    one; naming a design that does not fit raises.
+    else stepwise_tc wherever it fits (``tc_fits``: f32, and bf16 for
+    kernels 1-2), else the stepwise one; naming a design that does not fit
+    raises.  The choice depends on the shape and type alone.
 
     stepwise_tc's step runs on tiles of 64 or 128 pixels (one or two
     warpgroups, ``_tc_grid``) x 64 columns (kernels 1-2: 16 channels x 4
     gates; kernel 3's reverse loop: 64 output channels), and a cluster of up
-    to 8 blocks splits each tile's K (chunks of 8 channels, or of 8 gate
-    columns for kernel 3, at all 9 taps) until the step has at least one
-    block per SM (``NUM_SMS``): at C=128,
+    to 8 blocks splits each tile's K (chunks of 8 f32 or 16 bf16 channels,
+    or of 8 gate columns for kernel 3, at all 9 taps) until the step has at
+    least one block per SM (``NUM_SMS``): at C=128,
     256 blocks at the serving shape (S=16, 16x16: 32 x 8 tiles of 128),
     256 for kernel 2 at B=8 (16 x 8 x 2), 256 for kernel 1 at B=1
     (``--video``: 4 x 8 tiles of 64 x 8), 256 for kernel 3's loop at B=8
-    (16 x 2 x 8).  Where 8 blocks a tile still fall short the step runs on
-    fewer: kernel 3 at B*H*W <= 256 (64 blocks: 4 x 2 tiles x 8; the
+    (16 x 2 x 8); in bf16 on a 32x32 latent (512x512 frames) 1,024 at S=16
+    (128 x 8 tiles of 128), 512 for kernel 2 at B=8, 256 for kernel 1 at
+    B=1 (8 x 8 x 4).  Where 8 blocks a tile still fall short the step runs
+    on fewer: kernel 3 at B*H*W <= 256 (64 blocks: 4 x 2 tiles x 8; the
     portable cluster holds 8 blocks, and its 64-channel tile halves the
     channel tiles of kernels 1-2) and frames too small for 17 tiles (the
     ragged edge shapes).
 
     ``shards`` > 1 is kernel 1's row form (``convlstm_recurrence_rows``):
-    the ``hgt`` rows split in ``shards`` equal row shards, always stepwise
-    (a resident cluster cannot see a neighbour shard's rows), one launch a
+    the ``hgt`` rows split in ``shards`` equal row shards, one launch a
     shard a step (``t * shards`` a call), each on the grid of its own
-    ``hgt / shards`` rows."""
+    ``hgt / shards`` rows; stepwise_tc wherever ``tc_fits`` (its tiles
+    then stay within one frame, so a tile's halo holds rows -1 .. Hs of
+    its own frame), else stepwise.  The resident design cannot take it: a
+    resident cluster keeps h in its shared memory and cannot see a
+    neighbour shard's rows."""
     if kernel not in _KERNELS:
         raise ValueError(f"unknown recurrence kernel {kernel!r}")
+    if design is not None and design not in _DESIGN_CODES:
+        raise ValueError(f"unknown design {design!r}")
     if shards > 1:
         if kernel != "convlstm_serving":
             raise ValueError(f"only kernel 1 has a row form, not {kernel}")
         if hgt % shards:
             raise ValueError(f"{hgt} rows do not split in {shards} equal shards")
-        if design not in (None, "stepwise"):
-            raise ValueError("the row form is stepwise: the resident design keeps h in one "
-                             "cluster's shared memory and cannot see a neighbour shard")
+        if design == "resident":
+            raise ValueError("the row form is stepwise_tc or stepwise: the resident design keeps "
+                             "h in one cluster's shared memory and cannot see a neighbour shard")
         rows = hgt // shards
+        if design is None:
+            design = "stepwise_tc" if tc_fits(ch, dtype, wid) else "stepwise"
+        elif design == "stepwise_tc" and not tc_fits(ch, dtype, wid):
+            raise ValueError(f"the stepwise_tc design does not take the row form at "
+                             f"B={b} T={t} {rows}x{wid} C={ch} {dtype}")
+        if design == "stepwise_tc":
+            return _tc_forward_plan(kernel, b, t, rows * wid, wid, ch, dtype, shards)
         step = (_cdiv(b * rows * wid, _STEP_TILE[0]), _cdiv(ch, 32))
         return RecurrencePlan(kernel, "stepwise", launches=t * shards, cluster=1,
                               smem_bytes=_STEP_SMEM, scratch_bytes=0, grids={"step": step},
                               shards=shards, step_blocks=step[0] * step[1])
     fits = {"resident": resident_fits(kernel, hgt, wid, ch, dtype),
-            "stepwise_tc": tc_fits(ch, dtype, wid), "stepwise": True}
+            "stepwise_tc": tc_fits(ch, dtype, wid, kernel), "stepwise": True}
     if design is None:
         design = next(d for d in ("resident", "stepwise_tc", "stepwise") if fits[d])
-    elif design not in _DESIGN_CODES:
-        raise ValueError(f"unknown design {design!r}")
     elif not fits[design]:
         raise ValueError(f"the {design} design does not take {kernel} at "
                          f"B={b} T={t} {hgt}x{wid} C={ch} {dtype}")
@@ -279,13 +330,7 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
                                   scratch_bytes=0, grids={"recurrence": (ch // 16, b)},
                                   step_blocks=ch // 16 * b)
         if design == "stepwise_tc":
-            n_tiles = _cdiv(ch, 16)
-            nw, m_tiles, ranks = _tc_grid(b * hw, n_tiles, _cdiv(ch, _TC_KC))
-            return RecurrencePlan(kernel, design, launches=t, cluster=ranks,
-                                  smem_bytes=_tc_smem(nw, wid), scratch_bytes=0,
-                                  grids={"step": (ranks, n_tiles, m_tiles)},
-                                  step_blocks=ranks * n_tiles * m_tiles, warpgroups=nw,
-                                  weight_bytes=n_tiles * _cdiv(ch, _TC_KC) * _TC_STAGE_B)
+            return _tc_forward_plan(kernel, b, t, hw, wid, ch, dtype)
         step = (_cdiv(b * hw, _STEP_TILE[0]), _cdiv(ch, 32))
         return RecurrencePlan(kernel, design, launches=t, cluster=1, smem_bytes=_STEP_SMEM,
                               scratch_bytes=0, grids={"step": step},
@@ -312,8 +357,8 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
     scratch = act_bytes + splits * 9 * ch * four_c * 4
     if design == "stepwise_tc":  # the gate recompute and the reverse loop on the f32 tile
         n_tiles = _cdiv(ch, _TC_TILE)
-        nw, m_tiles, ranks = _tc_grid(b * hw, n_tiles, four_c // _TC_KC)
-        g_nw, g_tiles, g_ranks = _tc_grid(b * t * hw, _cdiv(ch, 16), _cdiv(ch, _TC_KC))
+        nw, m_tiles, ranks = _tc_grid(b, hw, n_tiles, four_c // _TC_KC)
+        g_nw, g_tiles, g_ranks = _tc_grid(b * t, hw, _cdiv(ch, 16), _cdiv(ch, _TC_KC))
         grids.update(step=(ranks, n_tiles, m_tiles), gate=(g_ranks, _cdiv(ch, 16), g_tiles))
         return RecurrencePlan(kernel, design, launches=t + 3, cluster=ranks,
                               smem_bytes=max(_tc_smem(max(nw, g_nw), wid), _STEP_SMEM),
@@ -502,59 +547,60 @@ def tf32_split(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([big, tf32_rna(x.float() - big)])
 
 
-# stepwise_tc's split weights: (id(w_h), layout) -> (weakref to w_h, its
-# version, data pointer and shape, the split); a few entries (one per
-# layer and layout) at a time
-_TC_WEIGHTS: Dict[Tuple[int, str], tuple] = {}
-
-
-def tc_weight_layout(w_h: torch.Tensor, layout: str) -> torch.Tensor:
+def tc_weight_layout(w_h: torch.Tensor, layout: str, kc: int = _TC_KC) -> torch.Tensor:
     """``w_h`` as stepwise_tc's B rows: ``[column tiles, K chunks, 9 taps,
-    64 rows, 8]``, row n of a tile holding its 8 values of the chunk (zeros
-    past C).  ``"fwd"`` (kernels 1-2): tiles of 16 hidden channels, row n =
-    gate n / 16 of channel 16 tile + n % 16 (Wh column gate * C + channel),
-    chunks of 8 input channels; ``"bwd"`` (kernel 3's dh product): tiles
-    of 64 output channels, row n = channel 64 tile + n, chunks of 8 of the
-    4C gate columns."""
+    64 rows, kc]``, row n of a tile holding its ``kc`` values of the chunk
+    (zeros past C).  ``"fwd"`` (kernels 1-2): tiles of 16 hidden channels,
+    row n = gate n / 16 of channel 16 tile + n % 16 (Wh column gate * C +
+    channel), chunks of ``kc`` input channels (8 in f32, 16 in bf16);
+    ``"bwd"`` (kernel 3's dh product, f32): tiles of 64 output channels,
+    row n = channel 64 tile + n, chunks of 8 of the 4C gate columns."""
     ch = w_h.shape[2]
     w9 = w_h.reshape(9, ch, 4 * ch)
-    if layout == "fwd":  # [9, C (K), 4, C (rows)] -> [tiles, chunks, 9, 4, 16, 8]
-        w = F.pad(w9.reshape(9, ch, 4, ch), (0, -ch % 16, 0, 0, 0, -ch % _TC_KC))
-        w = w.reshape(9, -1, _TC_KC, 4, w.shape[-1] // 16, 16)
-        return w.permute(4, 1, 0, 3, 5, 2).reshape(w.shape[4], w.shape[1], 9, 64, _TC_KC)
+    if layout == "fwd":  # [9, C (K), 4, C (rows)] -> [tiles, chunks, 9, 4, 16, kc]
+        w = F.pad(w9.reshape(9, ch, 4, ch), (0, -ch % 16, 0, 0, 0, -ch % kc))
+        w = w.reshape(9, -1, kc, 4, w.shape[-1] // 16, 16)
+        return w.permute(4, 1, 0, 3, 5, 2).reshape(w.shape[4], w.shape[1], 9, 64, kc)
     w = F.pad(w9, (0, 0, 0, -ch % 64))  # [9, C (rows), 4C (K)]
     w = w.reshape(9, -1, 64, 4 * ch // _TC_KC, _TC_KC)
     return w.permute(1, 3, 0, 2, 4)
 
 
 def tc_stage_images(w_h: torch.Tensor, layout: str) -> torch.Tensor:
-    """stepwise_tc's B operand, the TF32 terms of ``w_h`` as the kernels'
-    shared-memory stage images (``convlstm_tiles.cuh``): ``[column tiles, K
-    chunks, 9 taps, 2 planes (big, small), 2 groups of 4, 64 rows, 4]``, so
-    a stage is one contiguous copy."""
+    """stepwise_tc's B operand as the kernels' shared-memory stage images
+    (``convlstm_tiles.cuh``), each stage one contiguous copy.  f32: the
+    TF32 terms of ``w_h``, ``[column tiles, K chunks, 9 taps, 2 planes (big,
+    small), 2 groups of 4, 64 rows, 4]``; bf16 (kernels 1-2, ``"fwd"``):
+    ``w_h`` itself, no split, ``[column tiles, K chunks of 16, 9 taps, 2
+    groups of 8, 64 rows, 8]``."""
+    if w_h.dtype == torch.bfloat16:
+        if layout != "fwd":
+            raise ValueError("stepwise_tc takes bf16 for kernels 1 and 2 only (layout 'fwd')")
+        rows = tc_weight_layout(w_h, layout, _TC_KC_BF16)  # [tiles, chunks, 9, 64, 16]
+        rows = rows.reshape(*rows.shape[:4], 2, 8)  # the 16 of K in two groups of 8
+        return rows.permute(0, 1, 2, 4, 3, 5).contiguous()
     rows = tc_weight_layout(w_h, layout)  # [tiles, chunks, 9, 64, 8]
     split = tf32_split(rows)  # [2, tiles, chunks, 9, 64, 8]
     split = split.reshape(*split.shape[:5], 2, 4)  # the 8 of K in two groups of 4
     return split.permute(1, 2, 3, 0, 5, 4, 6).contiguous()
 
 
-def _tc_weights(w_h: torch.Tensor, layout: str) -> torch.Tensor:
-    """``tc_stage_images`` of ``w_h``, made once per weight tensor and
-    version (Wh is constant over a call's T steps, and a model's weights
-    over many calls)."""
-    key = (id(w_h), layout)
-    # ``p.data = x`` swaps a tensor's storage without moving its version
-    state = (w_h._version, w_h.data_ptr(), tuple(w_h.shape))
-    hit = _TC_WEIGHTS.get(key)
-    if hit is not None and hit[0]() is w_h and hit[1] == state:
-        return hit[2]
-    split = tc_stage_images(w_h.detach(), layout)
-    for k in [k for k, v in _TC_WEIGHTS.items() if v[0]() is None]:
-        del _TC_WEIGHTS[k]
-    if len(_TC_WEIGHTS) >= 16:
-        _TC_WEIGHTS.clear()
-    _TC_WEIGHTS[key] = (weakref.ref(w_h), state, split)
-    return split
+def _stage_images_on(w_h: torch.Tensor, layout: str, device: torch.device) -> torch.Tensor:
+    return tc_stage_images(w_h, layout).to(device)
+
+
+# ``tc_stage_images`` of a weight tensor, per layout and device, made once
+# per weight state (``ops/weight_cache.py``): Wh is constant over a call's T
+# steps, and a model's weights over many calls
+_tc_images = WeightCache(_stage_images_on)
+
+
+def _tc_weights(w_h: torch.Tensor, layout: str,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+    """``tc_stage_images(w_h, layout)`` on ``device`` (``w_h``'s own when
+    None), cached per weight tensor, state, layout and device
+    (``WeightCache``: what it sees and what needs ``drop_weight_caches``)."""
+    return _tc_images(w_h, layout, torch.device(device) if device is not None else w_h.device)
 
 
 def _forward_kernel(gates_x, w_h, h0, c0, with_cell_seq: bool,
@@ -748,13 +794,18 @@ def convlstm_recurrence(
 # ---------------------------------------------------- kernel 1's row form
 
 
-def _weights_per_shard(w_h, gates_x_rows) -> List[torch.Tensor]:
-    """``w_h`` (one tensor, or one per shard) on each shard's device."""
+def _shard_weights(w_h, gates_x_rows) -> List[torch.Tensor]:
+    """``w_h`` (one tensor, or one per shard) for each shard, where it is."""
     if isinstance(w_h, torch.Tensor):
-        return [w_h.to(x.device) for x in gates_x_rows]
+        return [w_h] * len(gates_x_rows)
     if len(w_h) != len(gates_x_rows):
         raise ValueError(f"{len(w_h)} w_h for {len(gates_x_rows)} shards")
-    return [w.to(x.device) for w, x in zip(w_h, gates_x_rows)]
+    return list(w_h)
+
+
+def _weights_per_shard(w_h, gates_x_rows) -> List[torch.Tensor]:
+    """``w_h`` (one tensor, or one per shard) on each shard's device."""
+    return [w.to(x.device) for w, x in zip(_shard_weights(w_h, gates_x_rows), gates_x_rows)]
 
 
 def convlstm_recurrence_rows_ref(
@@ -794,15 +845,19 @@ def convlstm_recurrence_rows_ref(
 def convlstm_recurrence_rows(
     gates_x_rows: Sequence[torch.Tensor], w_h,
     h0_rows: Sequence[torch.Tensor], c0_rows: Sequence[torch.Tensor],
-    staged: bool = False,
+    staged: bool = False, design: Optional[str] = None,
 ) -> Tuple[List[torch.Tensor], List[State]]:
     """Kernel 1's row form; same contract as ``convlstm_recurrence_rows_ref``
     (inference only: nothing is recorded for autograd).
 
     On the card (every shard a CUDA tensor) one call of
-    ``csrc/convlstm_serving.cu``'s ``convlstm_serving_rows``: the stepwise
-    design, ``T * shards`` launches (``recurrence_plan(..., shards=n)``),
-    counted in ``convlstm_recurrence.launches``; a failed launch raises.
+    ``csrc/convlstm_serving.cu``'s ``convlstm_serving_rows``: in the design
+    of ``recurrence_plan(..., shards=n)`` (stepwise_tc wherever it fits,
+    else stepwise; ``design`` names one, and naming one that does not fit
+    raises), ``T * shards`` launches, counted in
+    ``convlstm_recurrence.launches``; a failed launch raises.  stepwise_tc's
+    stage images of Wh are cached per weight tensor and shard device
+    (``_tc_weights``), not made per call.
     Shard i runs on its device's current stream; a neighbour on the same
     device and stream is read in place, any other through a ``[B,W,C]``
     staging copy ordered by an event.  ``staged`` gives every shard a stream
@@ -813,11 +868,11 @@ def convlstm_recurrence_rows(
         return convlstm_recurrence_rows_ref(gates_x_rows, w_h, h0_rows, c0_rows)
     if devices != {"cuda"}:
         raise ValueError(f"convlstm_recurrence_rows: shards on {sorted(devices)}")
-    return _rows_kernel(gates_x_rows, w_h, h0_rows, c0_rows, staged)
+    return _rows_kernel(gates_x_rows, w_h, h0_rows, c0_rows, staged, design)
 
 
 @torch.no_grad()
-def _rows_kernel(gates_x_rows, w_h, h0_rows, c0_rows, staged: bool):
+def _rows_kernel(gates_x_rows, w_h, h0_rows, c0_rows, staged: bool, design: Optional[str]):
     n = len(gates_x_rows)
     if not (n == len(h0_rows) == len(c0_rows)) or n < 1:
         raise ValueError(f"{n} gates_x, {len(h0_rows)} h0 and {len(c0_rows)} c0 shards")
@@ -830,7 +885,11 @@ def _rows_kernel(gates_x_rows, w_h, h0_rows, c0_rows, staged: bool):
         _validate("convlstm_serving_rows", gx, w, h0, c0)
     b, t, rows, wid, four_c = shape
     ch = four_c // 4
-    plan = recurrence_plan("convlstm_serving", b, t, rows * n, wid, ch, dt, shards=n)
+    plan = recurrence_plan("convlstm_serving", b, t, rows * n, wid, ch, dt, design, shards=n)
+    # stepwise_tc's stage images on each shard's device (else unread: Wh)
+    w_t = ([_tc_weights(w, "fwd", x.device)
+            for w, x in zip(_shard_weights(w_h, gates_x_rows), gates_x_rows)]
+           if plan.design == "stepwise_tc" else weights)
     seq_shape = (b, t, rows, wid, ch)
     gx = [x.contiguous() for x in gates_x_rows]
     h0_in = [h.to(dt).contiguous() for h in h0_rows]  # the conv's input at t = 0
@@ -862,11 +921,12 @@ def _rows_kernel(gates_x_rows, w_h, h0_rows, c0_rows, staged: bool):
 
     lib = _build.load(_KERNEL, _SIGNATURES)
     status = lib.convlstm_serving_rows(
-        ptrs(gx), ptrs(weights), ptrs(h0_in), ptrs(c), ptrs(h_seq),
+        ptrs(gx), ptrs(weights), ptrs(w_t), ptrs(h0_in), ptrs(c), ptrs(h_seq),
         ptrs(h_final), ptrs(top), ptrs(bot),
         (ctypes.c_int * n)(*[x.device.index for x in gx]),
         (ctypes.c_void_p * n)(*[s.cuda_stream for s in streams]),
-        n, b, t, rows, wid, ch, int(dt == torch.bfloat16))
+        n, b, t, rows, wid, ch, int(dt == torch.bfloat16), _DESIGN_CODES[plan.design],
+        plan.cluster, plan.warpgroups)
     if staged:
         for x, side in zip(gx, streams):
             torch.cuda.current_stream(x.device).wait_stream(side)

@@ -37,7 +37,6 @@ by one pixel of 127.5 and ``b`` the folded bias:
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import Mapping, Tuple
 
 import numpy as np
@@ -45,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from vad_tpu_torch.ops import _build
+from vad_tpu_torch.ops.weight_cache import WeightCache
 
 IN_SCALE = 1.0 / 127.5
 IN_SHIFT = -1.0
@@ -150,20 +150,10 @@ def weight_terms(weight: torch.Tensor, n_terms: int) -> torch.Tensor:
     return torch.stack(terms).contiguous()
 
 
-# the last split per term count: (weakref to the weight, its version, terms)
-_TERMS_CACHE: dict = {}
-
-
-def _cached_terms(weight: torch.Tensor, n_terms: int) -> torch.Tensor:
-    """``weight_terms`` of a weight already on the card, reused while it is
-    the same tensor at the same version (a serving scorer passes one folded
-    weight every chunk): the split is a chain of small device ops."""
-    hit = _TERMS_CACHE.get(n_terms)
-    if hit is not None and hit[0]() is weight and hit[1] == weight._version:
-        return hit[2]
-    terms = weight_terms(weight, n_terms)
-    _TERMS_CACHE[n_terms] = (weakref.ref(weight), weight._version, terms)
-    return terms
+# ``weight_terms`` of a weight already on the card, reused while the weight
+# is unchanged (``ops/weight_cache.py``: a serving scorer passes one folded
+# weight every chunk, and the split is a chain of small device ops)
+_cached_terms = WeightCache(weight_terms)
 
 
 def fused_first_block_ref(
