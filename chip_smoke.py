@@ -12,11 +12,12 @@ choice, and the FMA design stepwise beside it), at the serving, training
 and ``--video`` (B=1) shapes, with the plan, its blocks per step, the
 launches per call, the clusters that fit, kernel 3's time by part and its
 dWh repeated bit for bit, each line bounded (f32 as 3xTF32 on the tensor
-cores, with the FMA bound beside it); kernels 1 and 2 in bf16 on the 32x32
-latent of 512x512 streams (S=16, B=1, and kernel 2 at B=8) on the bf16
-stepwise_tc tile and on the WMMA stepwise core, each against its plain
-version and against each other, and the bf16 tile at the 256x256 serving
-shape beside resident; stepwise_tc's weight cache across an
+cores, with the FMA bound beside it); kernels 1-3 in bf16 on the 32x32
+latent of 512x512 streams (kernel 1 at S=16 and B=1, kernels 2 and 3 at
+B=8) on the bf16 stepwise_tc tile and on the WMMA stepwise core, each
+against its plain version and against each other (kernel 3 also by part),
+and the bf16 tile at the 256x256 serving and training shapes beside
+resident; stepwise_tc's weight cache across an
 ``Adam(fused=True)`` step and a ``copy_``; kernel 4 with its design and
 time in both dtypes, and kernels 4 and 6 at ragged frames), then drives
 four paths at the default video model's full width:
@@ -31,8 +32,8 @@ four paths at the default video model's full width:
 - training: one ``make_train_step`` step (B=8 windows of T=16 frames,
   256x256) through kernels 2 and 3, compared in f32 and bf16 with the same
   step on the plain versions (loss, every gradient, BatchNorm statistics),
-  and one bf16 step at 512x512 (kernel 2 on the bf16 tile, kernel 3
-  stepwise);
+  and one bf16 step at 512x512 (kernels 2 and 3 on the bf16 tile), each
+  step's launches equal to the plans';
   then ``fit`` for 2 epochs over in-memory orbit windows, its best
   checkpoint scored by ``MultiStreamScorer``; then the train step timed
   (frames/s) and profiled in both precisions;
@@ -161,25 +162,26 @@ BF16_NOISY, BF16_NOISY_VS_PLAIN = 0.1, 0.15
 # contain shorter ones come first.
 PORT_KERNELS = ("recurrence_kernel", "convlstm_step_kernel", "convlstm_tc_step",
                 "first_block_kernel", "gate_all_kernel", "gate_tc", "gate_kernel", "loop_kernel",
-                "dh_tc_step", "step_kernel", "finish_kernel", "dw_kernel_res", "dw_reduce_kernel",
-                "dw_kernel")
+                "dh_tc_step", "step_kernel", "finish_kernel", "finish_tc", "dw_kernel_res",
+                "dw_reduce_kernel", "dw_kernel", "dw_tc")
 # Kernel 3's parts, by device-side name: the gate recompute, the reverse
-# loop and dWh in either design, and the stepwise design's last launch
+# loop and dWh in every design, and the stepwise designs' last launch
 # (dh0 and the sum of the dWh partials).
 BWD_PARTS = {"gate_kernel": "gate", "gate_all_kernel": "gate", "gate_tc": "gate",
              "loop_kernel": "loop", "step_kernel": "loop", "dh_tc_step": "loop",
-             "dw_kernel_res": "dw", "dw_reduce_kernel": "dw", "dw_kernel": "dw",
-             "finish_kernel": "dh0+dw_sum"}
+             "dw_kernel_res": "dw", "dw_reduce_kernel": "dw", "dw_kernel": "dw", "dw_tc": "dw",
+             "finish_kernel": "dh0+dw_sum", "finish_tc": "dh0+dw_sum"}
 PROBE_FRAMES = 128  # kernel 5's pool inputs: B*T of the training step (8 x 16)
 # Ragged recurrence shapes (B, T, H, W, C): C=48 is no multiple of any
 # tile, C=20 of 8 (the plain-load path), 5x7 and 3x9 frames; in bf16, 8x8
 # with C=32 (kernels 1-2 resident in a cluster of 2 with one pixel tile,
-# kernel 3 stepwise), 8x16 with C=64 (all resident, clusters of 4, two
-# tiles) and 8x32 with C=128 (four tiles, but the resident blocks would
-# need 235,536 bytes of shared memory: kernels 1-2 stepwise_tc, kernel 3
-# stepwise); 5x7 with C=48 runs kernels 1-2 on the bf16 tile with a partial
-# pixel tile.  In f32 every shape runs stepwise_tc (clusters of 4-8, partial
-# pixel tiles, C=20 and 48 with ragged last K stages) and stepwise.
+# kernel 3 on the bf16 tile), 8x16 with C=64 (all resident, clusters of 4,
+# two tiles) and 8x32 with C=128 (four tiles, but the resident blocks would
+# need 235,536 bytes of shared memory: kernels 1-3 stepwise_tc); 5x7 with
+# C=48 runs kernels 1-3 on the bf16 tile with a partial pixel tile (kernel
+# 3's dWh on 16-column units past a 7-pixel row).  In f32 every shape runs
+# stepwise_tc (clusters of 4-8, partial pixel tiles, C=20 and 48 with ragged
+# last K stages) and stepwise.
 EDGE_SHAPES = ((3, 3, 5, 7, 48), (2, 4, 3, 9, 20), (3, 2, 8, 8, 32), (2, 3, 8, 16, 64),
                (2, 3, 8, 32, 128))
 # Ragged frames for kernels 4 and 6 (F, H, W, 3): rows of 150 and 810
@@ -350,7 +352,7 @@ def design_fits(kernel: str, shape, dtype, design: str) -> bool:
 
     b, t, hgt, wid, c = shape
     return {"resident": resident_fits(kernel, hgt, wid, c, dtype),
-            "stepwise_tc": tc_fits(c, dtype, wid, kernel)}.get(design, True)
+            "stepwise_tc": tc_fits(c, dtype, wid)}.get(design, True)
 
 
 def designs(kernel: str, shape, dtype) -> list:
@@ -600,13 +602,10 @@ def phase_edge_shapes() -> None:
                               "max_abs_err": rec["max_abs_err"],
                               "ok": ok and max(smem.values()) <= SMEM_LIMIT})
     # a frame of four tiles whose resident blocks would not fit: the plan's
-    # own choice must be stepwise_tc for kernels 1-2 and stepwise for kernel 3
-    over = [k for k, want in (("convlstm_serving", "stepwise_tc"),
-                              ("convlstm_train_forward", "stepwise_tc"),
-                              ("convlstm_backward", "stepwise"))
-            if recurrence_plan(k, *EDGE_SHAPES[-1], torch.bfloat16).design != want]
-    require(not over, f"8x32 C=128 bf16 takes stepwise_tc (kernels 1-2) or stepwise "
-                      f"(kernel 3), not resident: {over}")
+    # own choice must be stepwise_tc for kernels 1-3
+    over = [k for k in ("convlstm_serving", "convlstm_train_forward", "convlstm_backward")
+            if recurrence_plan(k, *EDGE_SHAPES[-1], torch.bfloat16).design != "stepwise_tc"]
+    require(not over, f"8x32 C=128 bf16 takes stepwise_tc, not resident: {over}")
     for frames in EDGE_FRAMES:
         u8 = torch.randint(0, 256, frames, generator=g, device="cuda", dtype=torch.uint8)
         w = torch.randn((32, 3, 3, 3), generator=g, device="cuda") * 0.01
@@ -953,6 +952,20 @@ def phase_main_path_512() -> dict:
 # ------------------------------------------------------------- training
 
 
+def bwd_parts(prof: dict) -> dict:
+    """Kernel 3's device ms a call by part (``BWD_PARTS``) from a
+    ``device_profile`` of whole calls: per launch times the launches a call
+    makes (the profiler can miss the first launches of its window); the
+    stepwise loops launch once a step, the rest once."""
+    parts = {}
+    for name, r in prof["port_kernels"].items():
+        per_launch = r["ms_per_call"] / r["calls_per_call"]
+        part = BWD_PARTS[name]
+        parts[part] = (parts.get(part, 0.0) + per_launch
+                       * (T if name in ("step_kernel", "dh_tc_step") else 1))
+    return parts
+
+
 def train_kernel_counters() -> dict:
     from vad_tpu_torch.ops import convlstm, encoder_fused
 
@@ -1055,7 +1068,8 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
     """Kernels 2 and 3 at the training shape (B=8, T=16, 16x16, C=128),
     f32 (TF32 off) and bf16, and in f32 at the ``--video`` shape (B=1), in
     every design their plans can choose there (f32: stepwise_tc, and
-    stepwise forced; bf16: resident, and stepwise forced): checked, timed,
+    stepwise forced; bf16: resident, and the bf16 stepwise_tc tile and
+    stepwise forced): checked, timed,
     bounded, and kernel 3 timed by part (gate recompute, reverse loop, dWh)
     from a device profile of three calls."""
     import torch
@@ -1066,6 +1080,7 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
     lat, c = IMAGE // 16, 128
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     out, f32 = {}, {"convlstm_train_forward": {}, "convlstm_backward": {}}
+    bf16 = {"convlstm_train_forward": {}, "convlstm_backward": {}}  # every bf16 design
     for b, label, dtype, bar in ((B_TRAIN, "f32", torch.float32, F32_BAR),
                                  (B_TRAIN, "bf16", torch.bfloat16, BF16_BAR),
                                  (B_VIDEO, "f32", torch.float32, F32_BAR)):
@@ -1112,18 +1127,14 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
                 if kname == "convlstm_backward":
                     with no_tf32():
                         prof = device_profile(lambda i: kernel(), n=3, unit="call")
-                    # per launch times the launches a call makes (the
-                    # profiler can miss the first launches of its window);
-                    # the stepwise loops launch once a step, the rest once
-                    parts = {}
-                    for name, r in prof["port_kernels"].items():
-                        per_launch = r["ms_per_call"] / r["calls_per_call"]
-                        part = BWD_PARTS[name]
-                        parts[part] = (parts.get(part, 0.0) + per_launch
-                                       * (T if name in ("step_kernel", "dh_tc_step") else 1))
-                    krec["ms_by_part"] = parts
+                    krec["ms_by_part"] = bwd_parts(prof)
                     krec["profile"] = prof["port_kernels"]
                 emit(bounded(krec, f"{kname} {label} {plan.design} at B={b}"))
+                if label == "bf16":  # resident, and the bf16 tile and WMMA core beside it
+                    bf16[kname][plan.design] = {k: krec[k] for k in (
+                        "launches_per_call", "max_abs_err", "ms", "bound_ms", "of_bound",
+                        "tflops")}
+                    bf16[kname][plan.design]["ms_by_part"] = krec.get("ms_by_part")
                 if label == "bf16" and plain_ms is not None:
                     out[kname] = krec
                 elif label == "f32":  # both f32 designs at both shapes, for the kernels line
@@ -1137,6 +1148,7 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
                         f"and autograd within {bar}, launches as planned, dWh deterministic")
     for kname, rec in f32.items():
         out[kname]["f32"] = rec
+        out[kname]["bf16_designs"] = bf16[kname]
     return out
 
 
@@ -1145,6 +1157,8 @@ def phase_train_kernels(peak_flops: float, peak_bw: float, f32_flops: float) -> 
 # S=16 and at the --video B=1, kernel 2 at B=8 (B, T, H, W, C).
 LARGE_SHAPES = {"convlstm_serving": ((S, T, 32, 32, 128), (B_VIDEO, T, 32, 32, 128)),
                 "convlstm_train_forward": ((B_TRAIN, T, 32, 32, 128),)}
+# Kernel 3 in bf16 there: the backward of the 512x512 train step (B=8)
+LARGE_BACKWARD = (B_TRAIN, T, 32, 32, 128)
 
 
 def phase_large_frames(peak_flops: float, peak_bw: float) -> dict:
@@ -1220,7 +1234,84 @@ def phase_large_frames(peak_flops: float, peak_bw: float) -> dict:
             require(all(r["ok"] for r in between.values()),
                     f"{kname} bf16 at {shape}: stepwise_tc against stepwise within {BF16_BAR}")
             out.setdefault(kname, {})[f"B={b} 32x32"] = recs
+    out["convlstm_backward"] = {f"B={LARGE_BACKWARD[0]} 32x32": check_large_backward(
+        g, peak_flops, peak_bw)}
     return out
+
+
+def check_large_backward(g, peak_flops: float, peak_bw: float) -> dict:
+    """Kernel 3 in bf16 at ``LARGE_BACKWARD`` in every design its plan can
+    choose there: stepwise_tc (the bf16 tile, the plan's choice) and PR 1's
+    WMMA core (stepwise) forced; each against ``convlstm_backward_ref`` at
+    the bf16 bar (``agree``, dWh as a long sum), with its launches equal to
+    the plan's and its dWh equal bit for bit over two calls; timed, bounded
+    (``of_bound`` <= 1) and timed by part (gate, loop, dWh, dh0 + the split
+    sum) from a device profile; then the two designs against each other (a
+    ``kernel_designs`` line).  Returns each design's summary."""
+    import torch
+
+    from vad_tpu_torch.ops import convlstm as cl
+    from vad_tpu_torch.ops.convlstm import (
+        convlstm_backward_ref, convlstm_forward_ref, recurrence_plan,
+    )
+
+    shape, dtype = LARGE_BACKWARD, torch.bfloat16
+    b, t, hgt, wid, c = shape
+    rnd = lambda *dims, scale=1.0: torch.randn(dims, generator=g, device="cuda") * scale  # noqa
+    gx = rnd(b, t, hgt, wid, 4 * c, scale=0.5).to(dtype)
+    wh = rnd(3, 3, c, 4 * c, scale=0.05).to(dtype)
+    h0, c0 = rnd(b, hgt, wid, c, scale=0.1), rnd(b, hgt, wid, c, scale=0.1)
+    hs, cs, _ = convlstm_forward_ref(gx, wh, h0, c0, with_cell_seq=True)
+    args = (gx, wh, h0, c0, hs, cs, rnd(b, t, hgt, wid, c).to(dtype), rnd(b, hgt, wid, c),
+            rnd(b, hgt, wid, c))
+    ref = convlstm_backward_ref(*args)
+    plain_ms = time_ms(lambda: convlstm_backward_ref(*args), iters=3, warmup=1)
+    e, seq = gx.element_size(), b * t * hgt * wid * c
+    state, w_bytes = b * hgt * wid * c * 4, 9 * c * 4 * c * e
+    flops = 3 * 2 * seq * 9 * c * 4  # the gate recompute, the dh product, dWh
+    # gates_x, h_seq, c_seq, dh_seq, Wh, h0, c0, dhf, dcf in; dgates_x, dWh, dh0, dc0 out
+    nbytes = 2 * seq * 4 * e + 3 * seq * e + 2 * w_bytes + 6 * state
+    names = ("dgates_x", "dw_h", "dh0", "dc0")
+    got, recs = {}, {}
+    for design in designs("convlstm_backward", shape, dtype):
+        plan = recurrence_plan("convlstm_backward", *shape, dtype, design)
+
+        def kernel(p=plan):
+            return cl._backward_kernel(*args, plan=p)
+
+        cl.convlstm_backward.launches = 0
+        got[design] = kernel()
+        repeat = bool(torch.equal(got[design][1], kernel()[1]))
+        per_call = cl.convlstm_backward.launches // 2
+        torch.cuda.synchronize()
+        cmp = {n: agree(a, r, is_sum=n == "dw_h") for n, a, r in zip(names, got[design], ref)}
+        prof = device_profile(lambda i: kernel(), n=2, unit="call")
+        rec = {"phase": "kernel_check", "kernel": "convlstm_backward", "dtype": "bf16",
+               "shape": list(shape), "design": design,
+               "plan": plan_record("convlstm_backward", shape, dtype, design),
+               "launches_per_call": per_call, "vs_plain": cmp, "dw_h_bitwise_repeat": repeat,
+               "max_abs_err": max(r["max_abs_err"] for r in cmp.values()),
+               "bar": BF16_BAR, "ms": time_ms(kernel, iters=10), "plain_ms": plain_ms,
+               "library_ms": None, "flops": flops, "bytes": nbytes,
+               "ms_by_part": bwd_parts(prof), "profile": prof["port_kernels"],
+               **recurrence_bound("bf16", flops, nbytes, peak_flops, peak_bw, 0.0)}
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["ok"] = all(r["ok"] for r in cmp.values()) and per_call == plan.launches and repeat
+        emit(bounded(rec, f"convlstm_backward bf16 {design} at {shape}"))
+        require(rec["ok"], f"convlstm_backward bf16 {design} at {shape} vs its plain version "
+                           f"within {BF16_BAR}, {per_call} launches as planned ({plan.launches}), "
+                           f"dWh deterministic")
+        recs[design] = {k: rec[k] for k in (
+            "launches_per_call", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "of_bound", "tflops", "library_ms", "ms_by_part")}
+        recs[design]["step_blocks"] = plan.step_blocks
+    between = {n: agree(a, r, is_sum=n == "dw_h")
+               for n, a, r in zip(names, got["stepwise_tc"], got["stepwise"])}
+    emit({"phase": "kernel_designs", "kernel": "convlstm_backward", "shape": list(shape),
+          "stepwise_tc_vs_stepwise": between})
+    require(all(r["ok"] for r in between.values()),
+            f"convlstm_backward bf16 at {shape}: stepwise_tc against stepwise within {BF16_BAR}")
+    return recs
 
 
 def phase_weight_cache() -> dict:
@@ -1331,7 +1422,7 @@ def judge_train_step(test: dict, ref: dict, exact: dict, label: str,
     }
 
 
-def phase_train_step_compare(image: int = IMAGE, judged=("f32", "bf16")) -> None:
+def phase_train_step_compare(image: int = IMAGE, judged=("f32", "bf16")) -> dict:
     """One full-width ``make_train_step`` step (B=8, T=16, ``image``² frames,
     the default model from ``init_weights(seed)``) through kernels 2 and 3,
     against the same step from the same weights on the plain versions:
@@ -1348,7 +1439,9 @@ def phase_train_step_compare(image: int = IMAGE, judged=("f32", "bf16")) -> None
     encoder layers, so a bf16 gradient whose plain step is at least
     ``BF16_NOISY`` from the f32 step passes when it is no further from the
     plain f32 step than the plain bf16 step is (x1.25 + 0.005) and within
-    ``BF16_NOISY_VS_PLAIN`` of the plain bf16 step."""
+    ``BF16_NOISY_VS_PLAIN`` of the plain bf16 step.  Kernels 2 and 3 must
+    launch what their plans say, once a ConvLSTM layer.  Returns each
+    judged precision's launches."""
     import torch
 
     from vad_tpu_torch.core.config import VideoAEConfig
@@ -1401,17 +1494,24 @@ def phase_train_step_compare(image: int = IMAGE, judged=("f32", "bf16")) -> None
                 and pl["launches"]["convlstm_backward"] == 0,
                 f"{label} plain step launched no recurrence kernel: {pl['launches']}")
         require(not zero_grads, f"{label}: every parameter got a non-zero gradient")
-    plans = {label: {k: p.design for k, p in train_plans(
-        (B_TRAIN, T, image // 16, image // 16, cfg.lstm_hidden_dim),
-        torch.bfloat16 if label == "bf16" else torch.float32).items()} for label in judged}
+    shape = (B_TRAIN, T, image // 16, image // 16, cfg.lstm_hidden_dim)
+    plans = {label: train_plans(shape, torch.bfloat16 if label == "bf16" else torch.float32)
+             for label in judged}
+    for label, kplans in plans.items():  # one call of kernels 2 and 3 a ConvLSTM layer
+        want = {k: cfg.lstm_layers * p.launches for k, p in kplans.items()}
+        got = {k: results[label]["launches"][k] for k in want}
+        require(got == want, f"{label} train step at {image}²: launches {got}, plans {want}")
     emit({"phase": "train_step_compare" if image == IMAGE else f"train_step_compare_{image}",
-          "batch": [B_TRAIN, T, image, image, 3], "designs": plans,
+          "batch": [B_TRAIN, T, image, image, 3],
+          "designs": {label: {k: p.design for k, p in kplans.items()}
+                      for label, kplans in plans.items()},
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "bars": {"f32": TRAIN_BARS["f32"], "bf16": TRAIN_BARS["bf16"][0],
                    "bf16_noise_floor_from": BF16_NOISY,
                    "bf16_noisy_vs_plain": BF16_NOISY_VS_PLAIN}, **results})
     require(all(not r["failed"] for r in results.values()),
             f"train step through the kernels vs the plain versions within {TRAIN_BARS}")
+    return {label: r["launches"] for label, r in results.items()}
 
 
 class WindowSet:
@@ -4050,7 +4150,7 @@ def main() -> int:
     launches = phase_main_path()
     high_res = phase_main_path_512()
     phase_train_step_compare()
-    phase_train_step_compare(HIGH_RES, judged=("bf16",))
+    train_512 = phase_train_step_compare(HIGH_RES, judged=("bf16",))["bf16"]
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, best_ckpt, test_ds = phase_train(tmp)
         evaluation = phase_eval(best_ckpt, test_ds, card)
@@ -4124,6 +4224,9 @@ def main() -> int:
         if kname in ("convlstm_train_forward", "convlstm_backward"):  # the profiled CLI run
             kernels[-1]["profiling_launches"] = profiling["launches"][kname]
             kernels[-1]["f32"] = rec["f32"]  # stepwise_tc and stepwise at B=8
+            kernels[-1]["bf16_designs_16x16"] = rec["bf16_designs"]  # resident, and the others
+            # the 512x512 bf16 train step (train_step_compare_512): the bf16 tile
+            kernels[-1]["train_512_launches"] = train_512[kname]
         if kname in accuracy["launches"]:  # train, evaluate and --video-dir of a real model
             kernels[-1]["accuracy_launches"] = accuracy["launches"][kname]
         if kname in scaling["launches"]:  # each of the two gloo ranks' train steps

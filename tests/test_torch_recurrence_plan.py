@@ -50,11 +50,11 @@ def expected_design(kernel, shape, dtype):
     fits = fits and resident_bytes(kernel, h, w, c) <= SMEM_LIMIT
     if fits:
         return "resident"
-    # f32 with C % 4 == 0 runs on the tensor cores in 3xTF32; kernels 1-2's
-    # bf16 with C % 8 == 0 on bf16 wgmma
+    # f32 with C % 4 == 0 runs on the tensor cores in 3xTF32; bf16 with C %
+    # 8 == 0 on bf16 wgmma (every kernel: kernel 3's since PR 17)
     if dtype == F32 and c % 4 == 0:
         return "stepwise_tc"
-    return "stepwise_tc" if kernel != "convlstm_backward" and c % 8 == 0 else "stepwise"
+    return "stepwise_tc" if c % 8 == 0 else "stepwise"
 
 
 # Frames of four 8x8 tiles in a row: at C=128 the resident blocks need
@@ -138,8 +138,14 @@ def test_backward_plan_covers_every_frame(shape):
     for dtype in (BF16, F32):
         plan = recurrence_plan("convlstm_backward", b, t, h, w, c, dtype)
         assert plan.launches <= t + 3
-        # every K split has work: frames (resident) or 64-byte stages of pixels
-        units = b * t if plan.design == "resident" else -(-b * t * h * w * dtype.itemsize // 64)
+        # every K split has work: frames (resident), bf16 stepwise_tc's units
+        # of up to 128 pixels (R rows x SW columns, SW = W rounded up to 16,
+        # at most 64, R = 128 / SW) or 64-byte stages of pixels
+        seg = min(-(-w // 16) * 16, 64)
+        units = (b * t if plan.design == "resident"
+                 else b * t * -(-h // (128 // seg)) * -(-w // seg)
+                 if plan.design == "stepwise_tc" and dtype == BF16
+                 else -(-b * t * h * w * dtype.itemsize // 64))
         splits = plan.dw_splits
         per = -(-units // splits)
         assert 1 <= splits <= units and (splits - 1) * per < units
@@ -168,13 +174,13 @@ def test_unknown_kernel_or_design_raises():
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_resident_plan_over_the_shared_memory_limit_goes_stepwise(kernel, shape):
     """Four 8x8 tiles pass the tile rule, but C=128's planes and Wh slice
-    need 235,536 bytes a block: kernels 1-2 take the stepwise_tc design,
-    kernel 3 the stepwise one, and naming the resident one raises."""
+    need 235,536 bytes a block: kernels 1-3 take the stepwise_tc design
+    (kernel 3 since PR 17; before, the stepwise one), and naming the
+    resident one raises."""
     b, t, h, w, c = shape
     assert resident_bytes(kernel, h, w, c) >= 235_520 > SMEM_LIMIT
     plan = recurrence_plan(kernel, b, t, h, w, c, BF16)
-    want = "stepwise" if kernel == "convlstm_backward" else "stepwise_tc"
-    assert plan.design == want and plan.smem_bytes <= SMEM_LIMIT
+    assert plan.design == "stepwise_tc" and plan.smem_bytes <= SMEM_LIMIT
     assert not resident_fits(kernel, h, w, c, BF16)
     with pytest.raises(ValueError, match="does not take"):
         recurrence_plan(kernel, b, t, h, w, c, BF16, design="resident")
@@ -192,19 +198,20 @@ def test_resident_plan_just_under_the_limit(kernel, shape):
 
 
 def test_edge_plans_mix_designs():
-    """C=32 on 8x8: kernels 1-2 resident in clusters of 2, kernel 3 stepwise
-    (its dh product takes 64 output channels a block); C=64 on 8x16: all
-    resident in clusters of 4."""
+    """C=32 on 8x8: kernels 1-2 resident in clusters of 2, kernel 3 on the
+    bf16 stepwise_tc tile (its resident dh product takes 64 output channels
+    a block; before PR 17 it ran stepwise); C=64 on 8x16: all resident in
+    clusters of 4."""
     small, wide = EDGE[2], EDGE[3]
     assert recurrence_plan("convlstm_serving", *small, BF16).cluster == 2
-    assert recurrence_plan("convlstm_backward", *small, BF16).design == "stepwise"
+    assert recurrence_plan("convlstm_backward", *small, BF16).design == "stepwise_tc"
     for kernel in KERNELS:
         plan = recurrence_plan(kernel, *wide, BF16)
         assert (plan.design, plan.cluster) == ("resident", 4)
 
 
-@pytest.mark.parametrize("shape", ((2, 3, 16, 16, 128), EDGE[3], EDGE[0]),
-                         ids=("16x16", "8x16", "5x7"))
+@pytest.mark.parametrize("shape", ((2, 3, 16, 16, 128), EDGE[3], EDGE[0], (2, 3, 24, 24, 16)),
+                         ids=("16x16", "8x16", "5x7", "24x24"))
 @pytest.mark.parametrize("dtype", (BF16, F32), ids=("bf16", "f32"))
 def test_cpu_wrappers_count_no_launch(shape, dtype):
     b, t, h, w, c = shape

@@ -499,12 +499,10 @@ def test_stepwise_tc_grids_at_the_slice_shapes():
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_naming_stepwise_tc_where_it_does_not_fit_raises(kernel):
-    # bf16 stepwise_tc is kernels 1-2's (C % 8 == 0), not kernel 3's
-    if kernel == "convlstm_backward":
-        with pytest.raises(ValueError, match="stepwise_tc design does not take"):
-            recurrence_plan(kernel, *TRAINING, BF16, design="stepwise_tc")
-    else:
-        assert recurrence_plan(kernel, *TRAINING, BF16, design="stepwise_tc").launches == 16
+    # bf16 stepwise_tc takes every kernel with C % 8 == 0 (kernel 3's since
+    # PR 17): T launches for kernels 1-2, T + 3 for kernel 3
+    launches = 19 if kernel == "convlstm_backward" else 16
+    assert recurrence_plan(kernel, *TRAINING, BF16, design="stepwise_tc").launches == launches
     with pytest.raises(ValueError, match="stepwise_tc design does not take"):
         recurrence_plan(kernel, 2, 3, 8, 8, 20, BF16, design="stepwise_tc")
     with pytest.raises(ValueError, match="stepwise_tc design does not take"):
@@ -512,7 +510,7 @@ def test_naming_stepwise_tc_where_it_does_not_fit_raises(kernel):
     # C % 4 != 0 in f32 takes the FMA design
     assert recurrence_plan(kernel, 2, 3, 8, 8, 30, F32T).design == "stepwise"
     assert not tc_fits(30, F32T, 8) and not tc_fits(20, BF16, 8)
-    assert tc_fits(128, BF16, 8) and not tc_fits(128, BF16, 8, "convlstm_backward")
+    assert tc_fits(128, BF16, 8)
 
 
 def test_row_form_refuses_stepwise_tc():

@@ -293,8 +293,7 @@ def test_bf16_stage_images_bit_for_bit():
     ok = (chan < c) & (cin < c)
     want = np.where(ok, w9[tap, np.minimum(cin, c - 1), n // 16 * c + np.minimum(chan, c - 1)], 0)
     np.testing.assert_array_equal(img.contiguous().view(torch.int16).numpy(), want)
-    with pytest.raises(ValueError, match="kernels 1 and 2"):
-        tc_stage_images(wh, "bwd")
+    assert tc_stage_images(wh, "bwd").shape == (1, 6, 9, 2, 64, 8)  # kernel 3's (PR 17)
 
 
 @pytest.mark.parametrize("shards", (2, 4))
@@ -320,7 +319,8 @@ def test_row_form_halo_rule_equals_unsplit(shape, shards):
 def test_plan_takes_stepwise_tc_at_512(shape):
     """A 32x32 latent (512x512 streams) in bf16: kernels 1 and 2 on the bf16
     tile (1,024 blocks a step at S=16: 128 x 8 tiles of 128 pixels; 512 at
-    B=8; clusters of 4 at B=1 for 256), kernel 3 stepwise as before."""
+    B=8; clusters of 4 at B=1 for 256), and kernel 3 on it too (since PR
+    17), with T + 3 launches."""
     grids = {16: (1, 8, 128), 8: (1, 8, 64), 1: (4, 8, 8)}
     for kernel in ("convlstm_serving", "convlstm_train_forward"):
         plan = recurrence_plan(kernel, *shape, BF16)
@@ -328,13 +328,15 @@ def test_plan_takes_stepwise_tc_at_512(shape):
         assert plan.grids["step"] == grids[shape[0]] and plan.cluster == grids[shape[0]][0]
         assert plan.weight_bytes == 8 * 8 * 18_432 and plan.smem_bytes <= convlstm.SMEM_LIMIT
         assert recurrence_plan(kernel, *shape, BF16, design="stepwise").design == "stepwise"
-    assert recurrence_plan("convlstm_backward", *shape, BF16).design == "stepwise"
+    back = recurrence_plan("convlstm_backward", *shape, BF16)
+    assert (back.design, back.launches) == ("stepwise_tc", shape[1] + 3)
 
 
 def test_plan_keeps_the_other_choices():
     """16x16 at S=16 stays resident in bf16 (and stepwise_tc in f32); a
     ragged C (not a multiple of 8) stays stepwise; naming the bf16 tile at
-    16x16 runs it; kernel 3's bf16 never takes it."""
+    16x16 runs it; kernel 3's bf16 takes it wherever kernels 1-2's does
+    (since PR 17), named at 16x16 too."""
     serving = (16, 16, 16, 16, 128)
     for kernel in ("convlstm_serving", "convlstm_train_forward", "convlstm_backward"):
         assert recurrence_plan(kernel, *serving, BF16).design == "resident"
@@ -343,9 +345,10 @@ def test_plan_keeps_the_other_choices():
     forced = recurrence_plan("convlstm_serving", *serving, BF16, design="stepwise_tc")
     assert forced.grids["step"] == (1, 8, 32) and forced.launches == 16
     assert tc_fits(24, BF16, 32) and not tc_fits(20, BF16, 32)
-    assert not tc_fits(128, BF16, 32, "convlstm_backward")
+    back = recurrence_plan("convlstm_backward", 8, 16, 16, 16, 128, BF16, design="stepwise_tc")
+    assert back.grids["step"] == (8, 2, 16) and back.launches == 19
     with pytest.raises(ValueError, match="stepwise_tc design does not take"):
-        recurrence_plan("convlstm_backward", 8, 16, 32, 32, 128, BF16, design="stepwise_tc")
+        recurrence_plan("convlstm_backward", 8, 16, 32, 32, 20, BF16, design="stepwise_tc")
 
 
 def test_cpu_row_wrapper_names_a_design():

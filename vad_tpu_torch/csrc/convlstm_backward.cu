@@ -45,16 +45,21 @@
 //       its frames (h_{t-1} and dgates by TMA; both operands MN-major),
 //       and writes an f32 partial; a second pass sums the partials in
 //       split order.  No atomics: the sum is deterministic.
-// Stepwise_tc (f32, C % 4 == 0): the stepwise design's T + 3 launches,
-//   with every GEMM on the tensor cores in 3xTF32 (convlstm_tiles.cuh):
-//   the gate recompute and the per-step dh product on the wgmma f32 tile
-//   over grids that fill the card (the `tc` namespace below), and dWh and
-//   dh0 on the cp.async ring's mma.sync path (staged as the stepwise design
-//   stages them; dWh's operands are both pixel-major in device memory,
-//   where wgmma's TF32 form would need them K-major, and dh0 is one
-//   product of T + 1).
-// Stepwise (bf16 shapes the resident design does not take; f32 when
-//   named or C % 4 != 0): T + 3
+// Stepwise_tc (f32 with C % 4 == 0; bf16 with C % 8 == 0 where the
+//   resident design refuses the frame, such as the 32x32 latent of 512x512
+//   frames): the stepwise design's T + 3 launches with every GEMM on the
+//   tensor cores (convlstm_tiles.cuh): the gate recompute and the per-step
+//   dh product on the wgmma tile over grids that fill the card (the `tc`
+//   namespace below).  f32 in 3xTF32, dWh and dh0 on the cp.async ring's
+//   mma.sync path (staged as the stepwise design stages them; dWh's
+//   operands are both pixel-major in device memory, where wgmma's TF32 form
+//   would need them K-major, and dh0 is one product of T + 1).  bf16 on
+//   bf16 wgmma throughout: dWh reads both operands MN-major (tc::dw_tc,
+//   units of 128 pixels through a cp.async ring, its K split into f32
+//   partials), and the last launch (tc::finish_tc) runs dh0 on the reverse
+//   loop's tile and sums dWh's partials in split order.
+// Stepwise (bf16 with C % 8 != 0 beyond the resident frames; either type
+//   when named; f32 with C % 4 != 0): T + 3
 //   launches on the cp.async / WMMA / FMA core: the same gate launch over
 //   all frames (gate_all_kernel); per step t one launch (step_kernel)
 //   computing dh_t = correlation of dgates[t+1] for a 64-pixel x
@@ -72,11 +77,15 @@
 // FMA cores at 67 TFLOP/s).  The activations scratch adds 2 x 67 MB of
 // traffic.
 //
+// bf16 on a 32x32 latent (B=8, T=16, C=128): 3 x 154.6 = 463.8 GFLOP ->
+// 0.469 ms at 989 TFLOP/s; the tensor cores bound it too.
+//
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
 // §6), training shape: bf16 resident 0.735 ms per call, 4 launches (158
 // TFLOP/s; parts: loop 0.31, dWh 0.20, gate 0.17 ms); bf16 stepwise 2.92
 // ms; f32 stepwise 10.10 ms, 19 launches (11.5 TFLOP/s against 67).  f32
-// stepwise_tc by part beside stepwise, from one run: PERF.md §6.
+// stepwise_tc, and bf16 stepwise_tc at 32x32, by part beside stepwise,
+// from one run: PERF.md §6.
 // What holds the resident loop above its bound: three cluster barriers a
 // step and a GEMM of one gate at a time (M = H*W, N = 64, K = 9C).
 
@@ -723,67 +732,90 @@ __global__ void __launch_bounds__(THREADS)
 
 // ================================================= stepwise_tc design
 //
-// Step t of the reverse loop (f32): dh_t = the correlation of dgates[t+1]
-// with Wh's taps reversed, a GEMM of M = B*H*W pixels, N = C channels, K =
-// 9 taps x 4C (4,608 at C = 128), then dgates[t] and dc for the same
-// pixels and channels.  A block owns 64 NW pixels (NW = 1 or 2
-// warpgroups, from the plan) x 64 channels; at B = 8 that is 16 x 2 tiles
-// of 128 pixels, so a cluster of `ranks` blocks (gridDim.x, from the plan)
-// splits K's 4C/8 chunks (8 gate columns at all 9 taps each), parks its
-// f32 partials and sums them in rank order through distributed shared
-// memory, block `rank` taking rows [64 NW rank / ranks, 64 NW (rank + 1) /
-// ranks) of the tile for the sum and the elementwise epilogue (the
-// stepwise design's).  A is dgates_x[:, t+1] (f32, read once a chunk with
-// its halo rows and split as it is read); B is Wh (a row per output
-// channel, K-major for this product) split by the wrapper into TF32 big and
-// small planes and laid out as each channel tile's stage images.
+// Step t of the reverse loop: dh_t = the correlation of dgates[t+1] with
+// Wh's taps reversed, a GEMM of M = B*H*W pixels, N = C channels, K = 9
+// taps x 4C (4,608 at C = 128), then dgates[t] and dc for the same pixels
+// and channels.  A block owns 64 NW pixels (NW = 1 or 2 warpgroups, from
+// the plan) x 64 channels; at B = 8 and 16x16 that is 16 x 2 tiles of 128
+// pixels (32x32: 64 x 2), so a cluster of `ranks` blocks (gridDim.x, from
+// the plan) splits K's chunks (TC_KC = 8 gate columns in f32, TC_KC_BF16 =
+// 16 in bf16, at all 9 taps each), parks its f32 partials and sums them in
+// rank order through distributed shared memory, block `rank` taking rows
+// [64 NW rank / ranks, 64 NW (rank + 1) / ranks) of the tile for the sum and
+// the elementwise epilogue (the stepwise design's, f32 carries).  A is
+// dgates_x[:, t+1], read once a chunk with its halo rows: f32, split into
+// TF32 terms as it is read; bf16, the stored bf16 dgates (the port's bf16
+// designs read dgates back in the gates' type, where JAX's kernel forms dh
+// and dWh from its f32 dgates: inside the bf16 bar, ROADMAP Queue 3 "by
+// design").  B is Wh (a row per output channel, K-major for this product)
+// laid out by the wrapper as each channel tile's stage images: f32 as TF32
+// big and small planes, bf16 as Wh itself.
+//
+// bf16 also runs dWh here (dw_tc: both operands pixel-major, which bf16
+// wgmma reads MN-major from shared memory) and dh0 with the split sum of
+// dWh's partials (finish_tc: the reverse loop's tile over dgates[0]); f32
+// keeps both on the cp.async ring's mma.sync path.
 namespace tc {
 using namespace hopper;
 
+// This block's partial of the dh product over `dg` (dgates of one step,
+// batch element b at b * bstride elements), parked in the block's shared
+// memory as [64 NW][TC_LDX] f32.  Chunk kc of K is gate columns [KC kc, KC
+// kc + KC) at all 9 taps (reversed); w_tc = [ceil(C/64) channel tiles][4C /
+// KC chunks][stage image]; the block's cluster rank takes its share of the
+// chunks.
+template <typename T, int NW>
+__device__ __forceinline__ void dh_partial(const T* w_tc, const T* dg, size_t bstride,
+                                           const Shape& s, int m0, int rank, int ranks,
+                                           unsigned char* smem) {
+  constexpr int KC = tc_kc<T>(), PIECE = 16 / sizeof(T);
+  constexpr int B_ELEMS = tc_bbytes<T>() / sizeof(T);
+  const int hw = s.H * s.W, pixels = s.B * hw, four_c = 4 * s.C;
+  const int chunks = four_c / KC;
+  const int top = m0 - (s.W + 1);
+  const T* w_tile = w_tc + (size_t)blockIdx.y * chunks * B_ELEMS;
+  const auto copy = [&](int kc, unsigned char* st, uint64_t* bar) {
+    tc_copy_stage<NW, T>(
+        st, s.W,
+        [&](int row, int piece) -> const T* {
+          const int m = top + row, n = kc * KC + PIECE * piece;
+          if (m < 0 || m >= pixels) return nullptr;
+          const int b = m / hw;
+          return dg + b * bstride + (size_t)(m - b * hw) * four_c + n;
+        },
+        w_tile + (size_t)kc * B_ELEMS, bar, dg);
+  };
+  const auto hrow = [&](int tap, int i) -> int {
+    const int r = tc_frag_row(i), m = m0 + r, p = m % hw;
+    const int dy = 1 - tap / 3, dx = 1 - tap % 3;  // the reversed tap's source
+    const int y = p / s.W + dy, x = p % s.W + dx;
+    if (m >= pixels || y < 0 || y >= s.H || x < 0 || x >= s.W) return -1;
+    return r + s.W + 1 + dy * s.W + dx;
+  };
+  float acc[32];
+  tc_gemm<NW, T>(acc, copy, hrow, rank * chunks / ranks, (rank + 1) * chunks / ranks, s.W, smem);
+  tc_park(acc, reinterpret_cast<float*>(smem));
+}
+
 // Step t: grid (ranks, ceil(C/64), ceil(B*H*W/(64 NW))), clusters of ranks
-// along x.  At t = T-1 dh is dh_init (no GEMM).  Chunk kc of K is gate
-// columns [8 kc, 8 kc + 8) of dgates[t+1] at all 9 taps (reversed); w_tc =
-// [ceil(C/64) channel tiles][4C/8 chunks][TC_BBYTES] stage images.
-template <int NW>
-__global__ void __launch_bounds__(NW * WG_THREADS, 2)
-    dh_tc_step(const float* __restrict__ w_tc, const float* __restrict__ act,
-               const float* __restrict__ c_seq, const float* __restrict__ c0,
-               const float* __restrict__ dh_seq, const float* __restrict__ dh_init,
-               float* __restrict__ dc_carry, float* __restrict__ dgates_x, Shape s, int t) {
+// along x.  At t = T-1 dh is dh_init (no GEMM).  Blocks an SM: two in f32,
+// three in bf16 (as kernels 1-2's step).
+template <typename T, int NW>
+__global__ void __launch_bounds__(NW * WG_THREADS, sizeof(T) == 2 ? 3 : 2)
+    dh_tc_step(const T* __restrict__ w_tc, const float* __restrict__ act,
+               const T* __restrict__ c_seq, const float* __restrict__ c0,
+               const T* __restrict__ dh_seq, const float* __restrict__ dh_init,
+               float* __restrict__ dc_carry, T* __restrict__ dgates_x, Shape s, int t) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int M = 64 * NW;
   const int ranks = gridDim.x, rank = static_cast<int>(cluster_rank());
   const int cb = blockIdx.y * 64, m0 = blockIdx.z * M;
   const int hw = s.H * s.W, pixels = s.B * hw, four_c = 4 * s.C;
   const bool gemm = t < s.T - 1;
-  float* X = reinterpret_cast<float*>(smem);
-  if (gemm) {
-    const int chunks = four_c / TC_KC;
-    const float* dg = dgates_x + (size_t)(t + 1) * hw * four_c;  // dgates[t+1]
-    const int top = m0 - (s.W + 1);
-    const float* w_tile = w_tc + (size_t)blockIdx.y * chunks * (TC_BBYTES / 4);
-    const auto copy = [&](int kc, unsigned char* st, uint64_t* bar) {
-      tc_copy_stage<NW>(
-          st, s.W,
-          [&](int row, int piece) -> const float* {
-            const int m = top + row, n = kc * TC_KC + 4 * piece;
-            if (m < 0 || m >= pixels) return nullptr;
-            const int b = m / hw;
-            return dg + ((size_t)b * s.T * hw + (m - b * hw)) * four_c + n;
-          },
-          w_tile + (size_t)kc * (TC_BBYTES / 4), bar, dg);
-    };
-    const auto hrow = [&](int tap, int i) -> int {
-      const int r = tc_frag_row(i), m = m0 + r, p = m % hw;
-      const int dy = 1 - tap / 3, dx = 1 - tap % 3;  // the reversed tap's source
-      const int y = p / s.W + dy, x = p % s.W + dx;
-      if (m >= pixels || y < 0 || y >= s.H || x < 0 || x >= s.W) return -1;
-      return r + s.W + 1 + dy * s.W + dx;
-    };
-    float acc[32];
-    tc_gemm<NW>(acc, copy, hrow, rank * chunks / ranks, (rank + 1) * chunks / ranks, s.W, smem);
-    tc_park(acc, X);
-  }
+  const float* X = reinterpret_cast<const float*>(smem);
+  if (gemm)  // dgates[t+1]
+    dh_partial<T, NW>(w_tc, dgates_x + (size_t)(t + 1) * hw * four_c, (size_t)s.T * hw * four_c,
+                      s, m0, rank, ranks, smem);
   cluster_sync();  // every rank's partial is parked
 
   const int r0 = rank * M / ranks, r1 = (rank + 1) * M / ranks;
@@ -796,46 +828,51 @@ __global__ void __launch_bounds__(NW * WG_THREADS, 2)
     const size_t sidx = (size_t)r * s.C + ch, cidx = cell * s.C + ch;
     const float* a = act + cell * 4 * s.C + ch;
     const float dh = gemm ? tc_rank_sum(X + rr * TC_LDX + j, ranks) : dh_init[sidx];
-    const float cp = t == 0 ? c0[sidx] : c_seq[cidx - (size_t)hw * s.C];
-    const GateGrad gg = gate_grad(a[0], a[s.C], a[2 * s.C], a[3 * s.C], tanhf(c_seq[cidx]), cp,
-                                  dh_seq[cidx] + dh, dc_carry[sidx]);
-    float* dgo = dgates_x + cell * 4 * s.C + ch;
-    dgo[0] = gg.di, dgo[s.C] = gg.df, dgo[2 * s.C] = gg.dg, dgo[3 * s.C] = gg.do_;
+    const float cp = t == 0 ? c0[sidx] : to_f32(c_seq[cidx - (size_t)hw * s.C]);
+    const float ct = to_f32(c_seq[cidx]);
+    // bf16: the hardware tanh, as the resident design's loop
+    const float tanh_ct = sizeof(T) == 2 ? tanh_fast(ct) : tanhf(ct);
+    const GateGrad gg = gate_grad(a[0], a[s.C], a[2 * s.C], a[3 * s.C], tanh_ct, cp,
+                                  to_f32(dh_seq[cidx]) + dh, dc_carry[sidx]);
+    T* dgo = dgates_x + cell * 4 * s.C + ch;
+    dgo[0] = from_f32<T>(gg.di), dgo[s.C] = from_f32<T>(gg.df);
+    dgo[2 * s.C] = from_f32<T>(gg.dg), dgo[3 * s.C] = from_f32<T>(gg.do_);
     dc_carry[sidx] = gg.dc;
   }
   cluster_sync();  // the partials are read: the cluster's blocks may exit
 }
 
-// The gate recompute over every frame (f32): act = the activations of
-// gates_x + conv3x3(h_{t-1}, Wh) for M = B*T*H*W pixels in (b, t, pixel)
-// order, h_{t-1} from h0 (t = 0) or h_seq; kernel 1's GEMM on the same
-// tile and stage images (w_fwd = [ceil(C/16)][ceil(C/8)][TC_BBYTES]).
+// The gate recompute over every frame: act = the activations of gates_x +
+// conv3x3(h_{t-1}, Wh) for M = B*T*H*W pixels in (b, t, pixel) order,
+// h_{t-1} from h0 (t = 0) or h_seq; kernel 1's GEMM on the same tile and
+// stage images (w_fwd = [ceil(C/16)][ceil(C/KC)][stage image]), f32 out.
 // Grid (ranks, ceil(C/16), ceil(M/(64 NW))), clusters of ranks along x.
-template <int NW>
-__global__ void __launch_bounds__(NW * WG_THREADS, 2)
-    gate_tc(const float* __restrict__ gates_x, const float* __restrict__ w_fwd,
-            const float* __restrict__ h0, const float* __restrict__ h_seq,
-            float* __restrict__ act, Shape s) {
+template <typename T, int NW>
+__global__ void __launch_bounds__(NW * WG_THREADS, sizeof(T) == 2 ? 3 : 2)
+    gate_tc(const T* __restrict__ gates_x, const T* __restrict__ w_fwd,
+            const T* __restrict__ h0, const T* __restrict__ h_seq, float* __restrict__ act,
+            Shape s) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int M = 64 * NW;
+  constexpr int M = 64 * NW, KC = tc_kc<T>(), PIECE = 16 / sizeof(T);
+  constexpr int B_ELEMS = tc_bbytes<T>() / sizeof(T);
   const int ranks = gridDim.x, rank = static_cast<int>(cluster_rank());
   const int cb = blockIdx.y * 16, m0 = blockIdx.z * M;
   const int hw = s.H * s.W, rows = s.B * s.T * hw;
-  const int chunks = (s.C + TC_KC - 1) / TC_KC;
+  const int chunks = (s.C + KC - 1) / KC;
   const int top = m0 - (s.W + 1);
-  const float* w_tile = w_fwd + (size_t)blockIdx.y * chunks * (TC_BBYTES / 4);
+  const T* w_tile = w_fwd + (size_t)blockIdx.y * chunks * B_ELEMS;
   const auto copy = [&](int kc, unsigned char* st, uint64_t* bar) {
-    tc_copy_stage<NW>(
+    tc_copy_stage<NW, T>(
         st, s.W,
-        [&](int row, int piece) -> const float* {
-          const int m = top + row, ch = kc * TC_KC + 4 * piece;
+        [&](int row, int piece) -> const T* {
+          const int m = top + row, ch = kc * KC + PIECE * piece;
           if (m < 0 || m >= rows || ch >= s.C) return nullptr;
           const int f = m / hw, p = m - f * hw;  // frame f = (b, t)
-          const float* frame =
+          const T* frame =
               f % s.T == 0 ? h0 + (size_t)(f / s.T) * hw * s.C : h_seq + (size_t)(f - 1) * hw * s.C;
           return frame + (size_t)p * s.C + ch;
         },
-        w_tile + (size_t)kc * (TC_BBYTES / 4), bar, h0);
+        w_tile + (size_t)kc * B_ELEMS, bar, h0);
   };
   const auto hrow = [&](int tap, int i) -> int {
     const int r = tc_frag_row(i), m = m0 + r, p = m % hw;
@@ -845,7 +882,7 @@ __global__ void __launch_bounds__(NW * WG_THREADS, 2)
     return r + s.W + 1 + dy * s.W + dx;
   };
   float acc[32];
-  tc_gemm<NW>(acc, copy, hrow, rank * chunks / ranks, (rank + 1) * chunks / ranks, s.W, smem);
+  tc_gemm<NW, T>(acc, copy, hrow, rank * chunks / ranks, (rank + 1) * chunks / ranks, s.W, smem);
   float* X = reinterpret_cast<float*>(smem);
   tc_park(acc, X);
   cluster_sync();  // every rank's partial is parked
@@ -858,36 +895,230 @@ __global__ void __launch_bounds__(NW * WG_THREADS, 2)
 #pragma unroll
     for (int G = 0; G < 4; ++G) {
       const size_t o = (size_t)r * 4 * s.C + G * s.C + ch;
-      const float v = tc_rank_sum(X + rr * TC_LDX + G * 16 + j, ranks) + gates_x[o];
-      act[o] = G == 2 ? tanhf(v) : sigmoid(v);
+      const float v = tc_rank_sum(X + rr * TC_LDX + G * 16 + j, ranks) + to_f32(gates_x[o]);
+      if constexpr (sizeof(T) == 2)  // the hardware tanh, as kernels 1-2's bf16 step
+        act[o] = G == 2 ? tanh_fast(v) : sigmoid_fast(v);
+      else
+        act[o] = G == 2 ? tanhf(v) : sigmoid(v);
     }
   }
   cluster_sync();  // the partials are read: the cluster's blocks may exit
 }
 
-template <int NW>
+// The last launch (bf16): blocks with blockIdx.z < m_tiles compute dh0, the
+// dh product over dgates[0] on the reverse loop's tile and grid, into
+// dh_carry; the clusters past them sum dWh's `splits` partials in split
+// order (whole clusters, so none of them waits at a cluster barrier).
+template <typename T, int NW>
+__global__ void __launch_bounds__(NW * WG_THREADS, sizeof(T) == 2 ? 3 : 2)
+    finish_tc(const T* __restrict__ w_tc, const T* __restrict__ dgates_x,
+              float* __restrict__ dh_carry, const float* __restrict__ part,
+              float* __restrict__ dw, Shape s, int m_tiles, int splits) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int z = blockIdx.z;
+  if (z >= m_tiles) {
+    const size_t n = (size_t)9 * s.C * 4 * s.C;
+    const size_t blocks = (size_t)(gridDim.z - m_tiles) * gridDim.y * gridDim.x;
+    const size_t blk = ((size_t)(z - m_tiles) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    for (size_t i = blk * blockDim.x + threadIdx.x; i < n; i += blocks * blockDim.x)
+      reduce_splits(part, dw, i, n, splits);
+    return;
+  }
+  constexpr int M = 64 * NW;
+  const int ranks = gridDim.x, rank = static_cast<int>(cluster_rank());
+  const int cb = blockIdx.y * 64, m0 = z * M;
+  const int hw = s.H * s.W, pixels = s.B * hw;
+  dh_partial<T, NW>(w_tc, dgates_x, (size_t)s.T * hw * 4 * s.C, s, m0, rank, ranks, smem);
+  cluster_sync();  // every rank's partial is parked
+  const float* X = reinterpret_cast<const float*>(smem);
+  const int r0 = rank * M / ranks, r1 = (rank + 1) * M / ranks;
+  for (int e = threadIdx.x; e < (r1 - r0) * 64; e += NW * WG_THREADS) {
+    const int rr = r0 + e / 64, j = e % 64;
+    const int r = m0 + rr, ch = cb + j;
+    if (r < pixels && ch < s.C)
+      dh_carry[(size_t)r * s.C + ch] = tc_rank_sum(X + rr * TC_LDX + j, ranks);
+  }
+  cluster_sync();  // the partials are read: the cluster's blocks may exit
+}
+
+// ------------------------------------------------------------ dWh (bf16)
+//
+// dWh[(tap, c), n] = sum over every pixel m of every step of h_{t-1}[m
+// shifted by the tap][c] . dgates[m][n]: K = B*T*H*W pixels, both operands
+// pixel-major in device memory, so each is MN-major for wgmma (bf16 reads
+// the transposed forms from shared memory).  A block owns one tap row dy,
+// 64 MT input channels and 64 gate columns; its three warpgroups are the
+// row's three taps dx, each with MT m64n64 accumulators (the resident
+// design's dw_kernel_res, whose whole-frame staging fits no 32x32 frame).
+// K walks units of R image rows x SW columns of one frame (SW = W rounded
+// up to 16, at most 64; R = 128 / SW): the unit's h rows y + dy - 1 padded
+// by a column each side and its dgates, as 8-channel planes ([R][SW + 2]
+// and [R][SW] pixels of 16 bytes, plus 16 bytes so that neighbouring
+// planes' copies take other banks), arrive by cp.async (zeros outside the
+// frame, past C or 4C and past W) through a 3-stage ring.  Tap dx of
+// pixel x reads padded column x + dx, so a 16-pixel K step is one plain
+// descriptor (LBO 128: the next 8 pixels; SBO a plane: the next 8 channels
+// or columns).  The units split over gridDim.y = `splits` runs of `per`;
+// each split writes its f32 partial, summed in split order by finish_tc
+// (no atomics: the same bits every call).
+constexpr int DW_THREADS = 3 * WG_THREADS;
+constexpr int DW_NSTAGE = 3;
+__host__ __device__ constexpr int dw_seg(int W) {
+  return (W + 15) / 16 * 16 < 64 ? (W + 15) / 16 * 16 : 64;
+}
+__host__ __device__ constexpr int dw_rows(int W) { return 128 / dw_seg(W); }
+__host__ __device__ constexpr int dw_h_plane(int W) {
+  return dw_rows(W) * (dw_seg(W) + 2) * 16 + 16;
+}
+__host__ __device__ constexpr int dw_g_plane(int W) { return dw_rows(W) * dw_seg(W) * 16 + 16; }
+template <int MT> __host__ __device__ constexpr int dw_stage_bytes(int W) {
+  return (8 * MT * dw_h_plane(W) + 8 * dw_g_plane(W) + 127) / 128 * 128;
+}
+template <int MT> __host__ __device__ constexpr int dw_smem(int W) {
+  return DW_NSTAGE * dw_stage_bytes<MT>(W);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    dw_tc(const bf16* __restrict__ h0, const bf16* __restrict__ h_seq,
+          const bf16* __restrict__ dgates_x, float* __restrict__ part, Shape s, int per) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int W = s.W, SW = dw_seg(W), R = dw_rows(W);
+  const int PH = dw_h_plane(W), PG = dw_g_plane(W), STAGE = dw_stage_bytes<MT>(W);
+  const int hw = s.H * W, four_c = 4 * s.C;
+  const int n_tiles = (four_c + 63) / 64, c_tiles = (s.C + 64 * MT - 1) / (64 * MT);
+  const int nt = blockIdx.x % n_tiles, ct = blockIdx.x / n_tiles % c_tiles;
+  const int dy = blockIdx.x / (n_tiles * c_tiles), dx = threadIdx.x / WG_THREADS;
+  const int c_base = ct * 64 * MT, n_base = nt * 64;
+  const int groups = (s.H + R - 1) / R, segs = (W + SW - 1) / SW;
+  const int units = s.B * s.T * groups * segs;
+  const int u0 = blockIdx.y * per, u1 = min(u0 + per, units);
+  const int h_pieces = 8 * MT * R * (SW + 2), pieces = h_pieces + 8 * R * SW;
+
+  // Unit u (frame f, row group, column segment) into the stage at st.
+  const auto load = [&](int u, unsigned char* st) {
+    const int f = u / (groups * segs), rem = u - f * (groups * segs);
+    const int y0 = rem / segs * R, x0 = rem % segs * SW;
+    const bf16* hf = f % s.T == 0 ? h0 + (size_t)(f / s.T) * hw * s.C
+                                  : h_seq + (size_t)(f - 1) * hw * s.C;  // h_{t-1}
+    const bf16* gf = dgates_x + (size_t)f * hw * four_c;
+    for (int e = threadIdx.x; e < pieces; e += DW_THREADS) {
+      if (e < h_pieces) {  // plane j (8 channels) of padded pixel px: j fastest
+        const int j = e % (8 * MT), px = e / (8 * MT);
+        const int r = px / (SW + 2), x = x0 + px % (SW + 2) - 1, y = y0 + r + dy - 1;
+        const int ch = c_base + 8 * j;
+        const bool ok = y >= 0 && y < s.H && x >= 0 && x < W && ch < s.C;
+        cp_async16(st + j * PH + px * 16, ok ? hf + ((size_t)y * W + x) * s.C + ch : hf, ok);
+      } else {  // plane j (8 gate columns) of pixel px
+        const int q = e - h_pieces, j = q % 8, px = q / 8;
+        const int y = y0 + px / SW, x = x0 + px % SW, n = n_base + 8 * j;
+        const bool ok = y < s.H && x < W && n < four_c;
+        cp_async16(st + 8 * MT * PH + j * PG + px * 16,
+                   ok ? gf + ((size_t)y * W + x) * four_c + n : gf, ok);
+      }
+    }
+  };
+
+  float acc[MT][32];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < DW_NSTAGE - 1; ++k) {
+    if (u0 + k < u1) load(u0 + k, smem + k * STAGE);
+    cp_async_commit();
+  }
+  for (int u = u0, k = 0; u < u1; ++u, ++k) {
+    cp_async_wait<DW_NSTAGE - 2>();
+    fence_async();    // this thread's copies, visible to wgmma
+    wgmma_wait<0>();  // the last unit's products are done with their stage
+    __syncthreads();  // unit u is in; every warpgroup is done with the stage refilled next
+    if (u + DW_NSTAGE - 1 < u1)
+      load(u + DW_NSTAGE - 1, smem + (k + DW_NSTAGE - 1) % DW_NSTAGE * STAGE);
+    cp_async_commit();
+    const unsigned char* st = smem + k % DW_NSTAGE * STAGE;
+    const unsigned char* g = st + 8 * MT * PH;
+    wgmma_fence();
+    for (int r = 0; r < R; ++r)
+      for (int x = 0; x < SW; x += 16) {
+        const uint64_t db = desc(g + (r * SW + x) * 16, 128, PG);
+        const unsigned char* a = st + (r * (SW + 2) + x + dx) * 16;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma<1, 1>(acc[mt], desc(a + mt * 8 * PH, 128, PH), db);
+      }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+
+  float* out = part + (size_t)blockIdx.y * 9 * s.C * four_c;
+  const int tap = dy * 3 + dx, warp = threadIdx.x % WG_THREADS / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int c = c_base + mt * 64 + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+      const int n = n_base + 8 * (i / 4) + 2 * (lane % 4);
+      if (c < s.C && n < four_c)
+        *reinterpret_cast<float2*>(out + ((size_t)tap * s.C + c) * four_c + n) =
+            make_float2(acc[mt][i], acc[mt][i + 1]);
+    }
+}
+
+template <typename T, int NW>
 cudaError_t launch_gate(const void* gates_x, const void* w_fwd, const void* h0, const void* h_seq,
                         float* act, Shape s, int ranks, cudaStream_t stream) {
   const dim3 grid(ranks, (s.C + 15) / 16, (s.B * s.T * s.H * s.W + 64 * NW - 1) / (64 * NW));
-  return launch(gate_tc<NW>, grid, NW * WG_THREADS, tc_smem_bytes(NW, s.W), ranks, stream,
-                static_cast<const float*>(gates_x), static_cast<const float*>(w_fwd),
-                static_cast<const float*>(h0), static_cast<const float*>(h_seq), act, s);
+  return launch(gate_tc<T, NW>, grid, NW * WG_THREADS, tc_smem_bytes<T>(NW, s.W), ranks, stream,
+                static_cast<const T*>(gates_x), static_cast<const T*>(w_fwd),
+                static_cast<const T*>(h0), static_cast<const T*>(h_seq), act, s);
 }
 
-template <int NW>
+template <typename T, int NW>
 cudaError_t launch_dh_steps(const void* w_tc, const float* act, const void* c_seq, const void* c0,
                             const void* dh_seq, const float* dh_init, float* dc_carry,
-                            float* dgates_x, Shape s, int ranks, cudaStream_t stream) {
+                            void* dgates_x, Shape s, int ranks, cudaStream_t stream) {
   const dim3 grid(ranks, (s.C + 63) / 64, (s.B * s.H * s.W + 64 * NW - 1) / (64 * NW));
   for (int t = s.T - 1; t >= 0; --t) {
     const cudaError_t err = launch(
-        dh_tc_step<NW>, grid, NW * WG_THREADS, tc_smem_bytes(NW, s.W), ranks, stream,
-        static_cast<const float*>(w_tc), act, static_cast<const float*>(c_seq),
-        static_cast<const float*>(c0), static_cast<const float*>(dh_seq), dh_init, dc_carry,
-        dgates_x, s, t);
+        dh_tc_step<T, NW>, grid, NW * WG_THREADS, tc_smem_bytes<T>(NW, s.W), ranks, stream,
+        static_cast<const T*>(w_tc), act, static_cast<const T*>(c_seq),
+        static_cast<const float*>(c0), static_cast<const T*>(dh_seq), dh_init, dc_carry,
+        static_cast<T*>(dgates_x), s, t);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// dWh's units: B*T frames x row groups x column segments.
+inline int dw_units(const Shape& s) {
+  return s.B * s.T * ((s.H + dw_rows(s.W) - 1) / dw_rows(s.W)) *
+         ((s.W + dw_seg(s.W) - 1) / dw_seg(s.W));
+}
+
+template <int MT>
+cudaError_t launch_dw(const void* h0, const void* h_seq, const void* dgates_x, float* part,
+                      Shape s, int splits, cudaStream_t stream) {
+  const int per = (dw_units(s) + splits - 1) / splits;
+  const int blocks = 3 * ((s.C + 64 * MT - 1) / (64 * MT)) * ((4 * s.C + 63) / 64);
+  return launch(dw_tc<MT>, dim3(blocks, splits), DW_THREADS, dw_smem<MT>(s.W), 1, stream,
+                static_cast<const bf16*>(h0), static_cast<const bf16*>(h_seq),
+                static_cast<const bf16*>(dgates_x), part, s, per);
+}
+
+// finish_tc's grid: the reverse loop's, with z planes of split-sum
+// clusters past its pixel tiles (about 8 dWh elements a thread).
+template <typename T, int NW>
+cudaError_t launch_finish(const void* w_tc, const void* dgates_x, float* dh_carry,
+                          const float* part, float* dw, Shape s, int ranks, int splits,
+                          cudaStream_t stream) {
+  const int m_tiles = (s.B * s.H * s.W + 64 * NW - 1) / (64 * NW), n_tiles = (s.C + 63) / 64;
+  const int n = 9 * s.C * 4 * s.C, per_plane = 8 * ranks * n_tiles * NW * WG_THREADS;
+  const dim3 grid(ranks, n_tiles, m_tiles + (n + per_plane - 1) / per_plane);
+  return launch(finish_tc<T, NW>, grid, NW * WG_THREADS, tc_smem_bytes<T>(NW, s.W), ranks, stream,
+                static_cast<const T*>(w_tc), static_cast<const T*>(dgates_x), dh_carry, part, dw,
+                s, m_tiles, splits);
 }
 
 }  // namespace tc
@@ -897,8 +1128,8 @@ cudaError_t launch_dh_steps(const void* w_tc, const float* act, const void* c_se
 struct Args {
   const void *gates_x, *w_h, *w_t, *h0, *c0, *h_seq, *c_seq, *dh_seq;
   void *dh_carry, *dc_carry, *dgates_x, *dw, *act, *part;
-  const void* w_tc;      // stepwise_tc: the reverse loop's stage images of Wh's TF32 terms
-  const void* w_tc_fwd;  // stepwise_tc: the gate recompute's (kernel 1's layout)
+  const void* w_tc;      // stepwise_tc: the reverse loop's stage images of Wh ("bwd")
+  const void* w_tc_fwd;  // stepwise_tc: the gate recompute's (kernel 1's layout, "fwd")
 };
 
 #define RETURN_IF_ERROR(expr)                                    \
@@ -954,30 +1185,39 @@ int run_stepwise(const Args& a, Shape s, int splits, cudaStream_t stream) {
   return launch_dw_finish<T, VEC, false>(a, s, splits, stream);
 }
 
-// The stepwise launches in f32 with every GEMM in 3xTF32: the gate
-// recompute on the wgmma tile (clusters of `gate_ranks` blocks of
-// `gate_warpgroups`), the reverse loop's steps on it too (`ranks`,
-// `warpgroups`), dWh and the last launch (dh0) on the ring's mma.sync path.
-template <bool VEC>
+// The stepwise_tc launches, T + 3 in both types: the gate recompute on
+// the wgmma tile (clusters of `gate_ranks` blocks of `gate_warpgroups`),
+// the reverse loop's steps on it too (`ranks`, `warpgroups`), dWh, and the
+// last launch (dh0 and the split sum of dWh's partials).  f32 (3xTF32):
+// dWh and the last launch on the ring's mma.sync path.  bf16: dWh on
+// bf16 wgmma (dw_tc, 64 MT input channels a block), the last launch on
+// the reverse loop's tile (finish_tc).
+template <typename T, bool VEC>
 int run_stepwise_tc(const Args& a, Shape s, int splits, int ranks, int warpgroups,
                     int gate_ranks, int gate_warpgroups, cudaStream_t stream) {
   const auto bad = [](int r, int nw) { return r < 1 || r > 8 || nw < 1 || nw > 2; };
-  if (s.C % 4 != 0 || bad(ranks, warpgroups) || bad(gate_ranks, gate_warpgroups))
+  if (s.C % (16 / sizeof(T)) != 0 || bad(ranks, warpgroups) || bad(gate_ranks, gate_warpgroups) ||
+      splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* act = static_cast<float*>(a.act);
-  RETURN_IF_ERROR(gate_warpgroups == 1
-                      ? tc::launch_gate<1>(a.gates_x, a.w_tc_fwd, a.h0, a.h_seq, act, s,
-                                           gate_ranks, stream)
-                      : tc::launch_gate<2>(a.gates_x, a.w_tc_fwd, a.h0, a.h_seq, act, s,
-                                           gate_ranks, stream));
   auto* dh = static_cast<float*>(a.dh_carry);
   auto* dc = static_cast<float*>(a.dc_carry);
-  auto* dg = static_cast<float*>(a.dgates_x);
-  RETURN_IF_ERROR(warpgroups == 1 ? tc::launch_dh_steps<1>(a.w_tc, act, a.c_seq, a.c0, a.dh_seq,
-                                                           dh, dc, dg, s, ranks, stream)
-                                  : tc::launch_dh_steps<2>(a.w_tc, act, a.c_seq, a.c0, a.dh_seq,
-                                                           dh, dc, dg, s, ranks, stream));
-  return launch_dw_finish<float, VEC, true>(a, s, splits, stream);
+  const auto gate = gate_warpgroups == 1 ? &tc::launch_gate<T, 1> : &tc::launch_gate<T, 2>;
+  RETURN_IF_ERROR(gate(a.gates_x, a.w_tc_fwd, a.h0, a.h_seq, act, s, gate_ranks, stream));
+  const auto steps = warpgroups == 1 ? &tc::launch_dh_steps<T, 1> : &tc::launch_dh_steps<T, 2>;
+  RETURN_IF_ERROR(steps(a.w_tc, act, a.c_seq, a.c0, a.dh_seq, dh, dc, a.dgates_x, s, ranks,
+                        stream));
+  if constexpr (sizeof(T) == 4) {
+    return launch_dw_finish<float, VEC, true>(a, s, splits, stream);
+  } else {
+    auto* part = static_cast<float*>(a.part);
+    const auto dw = s.C > 64 ? &tc::launch_dw<2> : &tc::launch_dw<1>;
+    RETURN_IF_ERROR(dw(a.h0, a.h_seq, a.dgates_x, part, s, splits, stream));
+    const auto finish = warpgroups == 1 ? &tc::launch_finish<T, 1> : &tc::launch_finish<T, 2>;
+    RETURN_IF_ERROR(finish(a.w_tc, a.dgates_x, dh, part, static_cast<float*>(a.dw), s, ranks,
+                           splits, stream));
+    return 0;
+  }
 }
 
 template <typename T>
@@ -1036,12 +1276,13 @@ extern "C" {
 // states' cotangents on entry and dh0, dc0 on return; dw [3,3,C,4C] f32
 // receives dWh.  act [B,T,H,W,4C] f32 is scratch; part [splits,9C,4C] f32
 // is scratch of the dWh split sum.  w_tc, w_tc_fwd: design 2's stage images
-// of w_h's TF32 big and small terms for the reverse loop and for the gate
-// recompute (ops/convlstm.py's tc_stage_images "bwd" and "fwd"; unread by
-// the other designs).  All contiguous.  design 1 (resident, bf16)
-// launches 4 kernels, design 2 (stepwise_tc, f32: the gate launch in
-// clusters of `gate_groups` blocks of `gate_warpgroups` warpgroups, the
-// reverse loop's of `cluster` blocks of `warpgroups`) T + 3, design 0
+// of w_h (f32: its TF32 big and small terms; bf16: w_h) for the reverse
+// loop and for the gate recompute (ops/convlstm.py's tc_stage_images "bwd"
+// and "fwd"; unread by the other designs).  All contiguous.  design 1
+// (resident, bf16) launches 4 kernels, design 2 (stepwise_tc, f32 and
+// bf16: the gate launch in clusters of `gate_groups` blocks of
+// `gate_warpgroups` warpgroups, the reverse loop's and bf16's last launch
+// in clusters of `cluster` blocks of `warpgroups`) T + 3, design 0
 // (stepwise) T + 3, on `stream`; returns the first launch error, or 0.
 int convlstm_backward(const void* gates_x, const void* w_h, const void* w_t, const void* h0,
                       const void* c0, const void* h_seq, const void* c_seq, const void* dh_seq,
@@ -1058,11 +1299,13 @@ int convlstm_backward(const void* gates_x, const void* w_h, const void* w_t, con
     return run_resident(a, s, gate_groups, splits, st);
   }
   if (design == 2) {
-    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
-    return s.C % 8 == 0 ? run_stepwise_tc<true>(a, s, splits, cluster, warpgroups, gate_groups,
-                                                gate_warpgroups, st)
-                        : run_stepwise_tc<false>(a, s, splits, cluster, warpgroups, gate_groups,
-                                                 gate_warpgroups, st);
+    if (is_bf16)
+      return run_stepwise_tc<__nv_bfloat16, true>(a, s, splits, cluster, warpgroups, gate_groups,
+                                                  gate_warpgroups, st);
+    return s.C % 8 == 0 ? run_stepwise_tc<float, true>(a, s, splits, cluster, warpgroups,
+                                                       gate_groups, gate_warpgroups, st)
+                        : run_stepwise_tc<float, false>(a, s, splits, cluster, warpgroups,
+                                                        gate_groups, gate_warpgroups, st);
   }
   if (is_bf16) return run_stepwise_t<__nv_bfloat16>(a, s, splits, st);
   return run_stepwise_t<float>(a, s, splits, st);

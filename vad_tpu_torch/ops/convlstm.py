@@ -35,16 +35,17 @@ and type alone:
 - *resident* (bf16 frames of at most 256 pixels in 8x8 tiles: weights and
   the frame stay in shared memory, wgmma and TMA, one launch for kernels 1
   and 2 and four for kernel 3);
-- *stepwise_tc* (f32 with C % 4 == 0, any frame; kernels 1 and 2 also in
+- *stepwise_tc* (f32 with C % 4 == 0, any frame; kernels 1-3 also in
   bf16 with C % 8 == 0 where the resident design refuses the frame, such as
   the 32x32 latent of 512x512 streams: one launch per step, the step's
   GEMM on the tensor cores with its K split across a thread-block cluster
   where the pixel and channel tiles alone leave SMs idle; f32 in 3xTF32,
   every f32 operand split into TF32 big and small terms (``tf32_split``),
-  kernel 3's other GEMMs in 3xTF32 on mma.sync; bf16 on bf16 wgmma);
-- *stepwise* (everything else: kernel 3's bf16 frames the resident design
-  refuses, ragged widths; one launch per step on the FMA/WMMA core).
-  Naming it still runs f32 on FMAs and bf16 on WMMA.
+  kernel 3's dWh and dh0 in 3xTF32 on mma.sync; bf16 on bf16 wgmma,
+  kernel 3's dWh too);
+- *stepwise* (everything else: ragged widths, C % 4 != 0 in f32 and C %
+  8 != 0 in bf16; one launch per step on the FMA/WMMA core).  Naming it
+  still runs f32 on FMAs and bf16 on WMMA.
 
 ``convlstm_recurrence`` is the one entry point.  When autograd records
 (grad enabled and an input requires grad) it goes through
@@ -202,20 +203,39 @@ def resident_fits(kernel: str, hgt: int, wid: int, ch: int, dtype: torch.dtype) 
     return fits and _resident_smem(kernel, hgt, wid, ch) <= SMEM_LIMIT
 
 
-def tc_fits(ch: int, dtype: torch.dtype, wid: int, kernel: str = "convlstm_serving") -> bool:
-    """Whether the stepwise_tc design takes ``kernel`` at this width and
-    type: f32 (its 3xTF32 terms keep f32's accuracy) with C % 4 == 0, or,
-    for kernels 1 and 2 (not kernel 3, whose bf16 designs are resident and
-    stepwise), bf16 with C % 8 == 0 (a halo row's 16-byte pieces hold 4 f32
-    or 8 bf16 channels; a last K chunk past C reads zeros); and frame rows
-    of ``wid`` pixels whose halo fits a block's shared memory.  Any frame
-    height and batch: pixels beyond the last tile and taps outside the
-    frame read zeros."""
+def tc_fits(ch: int, dtype: torch.dtype, wid: int) -> bool:
+    """Whether the stepwise_tc design takes kernels 1-3 (each has the
+    design in both types) at this width and type: f32 (its 3xTF32 terms
+    keep f32's accuracy) with C % 4 == 0, or bf16 with C % 8 == 0 (a halo
+    row's 16-byte pieces hold 4 f32 or 8 bf16 channels; a last K chunk past
+    C reads zeros; kernel 3's bf16 dWh stages 8-channel planes); and frame
+    rows of ``wid`` pixels whose halo fits a block's shared memory (kernel
+    3's bf16 dWh stages at most 64 columns of a row, so its ring fits at any
+    width).  Any frame height and batch: pixels beyond the last tile and
+    taps outside the frame read zeros."""
     if dtype == torch.float32:
         fits = ch % 4 == 0
     else:
-        fits = dtype == torch.bfloat16 and ch % 8 == 0 and kernel != "convlstm_backward"
+        fits = dtype == torch.bfloat16 and ch % 8 == 0
     return fits and _tc_smem(2, wid, dtype) <= SMEM_LIMIT
+
+
+def _tc_dw_run(wid: int) -> Tuple[int, int]:
+    """Kernel 3's bf16 dWh unit (``tc::dw_tc``): (rows, columns) of one
+    frame, the columns ``wid`` rounded up to 16 (a wgmma K step) and at
+    most 64, the rows making at most 128 pixels."""
+    seg = min(_cdiv(wid, 16) * 16, 64)
+    return 128 // seg, seg
+
+
+def _tc_dw_smem(wid: int, ch: int) -> int:
+    """``tc::dw_smem``: three stages of a unit's padded h rows (64 MT input
+    channels in 8-channel planes, MT = 2 above C = 64) and its dgates (64
+    gate columns), each plane 16 bytes longer than its pixels."""
+    rows, seg = _tc_dw_run(wid)
+    planes_h = 8 * (2 if ch > 64 else 1)
+    stage = planes_h * (rows * (seg + 2) * 16 + 16) + 8 * (rows * seg * 16 + 16)
+    return 3 * _cdiv(stage, 128) * 128
 
 
 def _tc_grid(b: int, hw: int, n_tiles: int, stages: int,
@@ -261,9 +281,9 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
     and scratch of ``kernel`` (``"convlstm_serving"``, ``"convlstm_train_forward"``
     or ``"convlstm_backward"``) at ``gates_x [b, t, hgt, wid, 4*ch]`` of
     ``dtype``.  ``design=None`` takes the resident design wherever it fits,
-    else stepwise_tc wherever it fits (``tc_fits``: f32, and bf16 for
-    kernels 1-2), else the stepwise one; naming a design that does not fit
-    raises.  The choice depends on the shape and type alone.
+    else stepwise_tc wherever it fits (``tc_fits``: f32 with C % 4 == 0,
+    bf16 with C % 8 == 0), else the stepwise one; naming a design that does
+    not fit raises.  The choice depends on the shape and type alone.
 
     stepwise_tc's step runs on tiles of 64 or 128 pixels (one or two
     warpgroups, ``_tc_grid``) x 64 columns (kernels 1-2: 16 channels x 4
@@ -276,7 +296,15 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
     (``--video``: 4 x 8 tiles of 64 x 8), 256 for kernel 3's loop at B=8
     (16 x 2 x 8); in bf16 on a 32x32 latent (512x512 frames) 1,024 at S=16
     (128 x 8 tiles of 128), 512 for kernel 2 at B=8, 256 for kernel 1 at
-    B=1 (8 x 8 x 4).  Where 8 blocks a tile still fall short the step runs
+    B=1 (8 x 8 x 4), 256 for kernel 3's loop at B=8 (64 x 2 tiles of 128,
+    clusters of 2 over 32 chunks of 16 gate columns).  Kernel 3's other
+    launches: the gate recompute on the same tile over all B*T frames; in
+    f32 dWh and the last launch (dh0, the split sum of dWh's partials) on
+    the stepwise design's mma.sync grids; in bf16 dWh on wgmma, a block a
+    tap row x 64 (C <= 64) or 128 input channels x 64 gate columns, its K
+    (units of 128 pixels: ``_tc_dw_run``) split to about two blocks an SM,
+    and the last launch on the loop's grid with clusters of the split sum
+    past its pixel tiles.  Where 8 blocks a tile still fall short the step runs
     on fewer: kernel 3 at B*H*W <= 256 (64 blocks: 4 x 2 tiles x 8; the
     portable cluster holds 8 blocks, and its 64-channel tile halves the
     channel tiles of kernels 1-2) and frames too small for 17 tiles (the
@@ -315,7 +343,7 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
                               smem_bytes=_STEP_SMEM, scratch_bytes=0, grids={"step": step},
                               shards=shards, step_blocks=step[0] * step[1])
     fits = {"resident": resident_fits(kernel, hgt, wid, ch, dtype),
-            "stepwise_tc": tc_fits(ch, dtype, wid, kernel), "stepwise": True}
+            "stepwise_tc": tc_fits(ch, dtype, wid), "stepwise": True}
     if design is None:
         design = next(d for d in ("resident", "stepwise_tc", "stepwise") if fits[d])
     elif not fits[design]:
@@ -355,18 +383,27 @@ def recurrence_plan(kernel: str, b: int, t: int, hgt: int, wid: int, ch: int,
              "dw": dw_tiles + (splits,),
              "finish": (step[0] * step[1] + _cdiv(9 * ch * four_c, 256),)}
     scratch = act_bytes + splits * 9 * ch * four_c * 4
-    if design == "stepwise_tc":  # the gate recompute and the reverse loop on the f32 tile
-        n_tiles = _cdiv(ch, _TC_TILE)
-        nw, m_tiles, ranks = _tc_grid(b, hw, n_tiles, four_c // _TC_KC)
-        g_nw, g_tiles, g_ranks = _tc_grid(b * t, hw, _cdiv(ch, 16), _cdiv(ch, _TC_KC))
+    if design == "stepwise_tc":  # the gate recompute and the reverse loop on the tile
+        n_tiles, kc = _cdiv(ch, _TC_TILE), _tc_kc(dtype)
+        nw, m_tiles, ranks = _tc_grid(b, hw, n_tiles, four_c // kc)
+        g_nw, g_tiles, g_ranks = _tc_grid(b * t, hw, _cdiv(ch, 16), _cdiv(ch, kc))
         grids.update(step=(ranks, n_tiles, m_tiles), gate=(g_ranks, _cdiv(ch, 16), g_tiles))
+        smem = max(_tc_smem(max(nw, g_nw), wid, dtype), _STEP_SMEM)
+        if dtype == torch.bfloat16:  # dWh on bf16 wgmma, dh0 + the split sum on the tile
+            rows, seg = _tc_dw_run(wid)
+            units = b * t * _cdiv(hgt, rows) * _cdiv(wid, seg)
+            dw_blocks = 3 * _cdiv(ch, 128 if ch > 64 else 64) * _cdiv(four_c, 64)
+            splits = _even_splits(units, 2 * NUM_SMS // dw_blocks)
+            planes = _cdiv(9 * ch * four_c, 8 * ranks * n_tiles * nw * 128)
+            grids.update(dw=(dw_blocks, splits), finish=(ranks, n_tiles, m_tiles + planes))
+            scratch = act_bytes + splits * 9 * ch * four_c * 4
+            smem = max(_tc_smem(max(nw, g_nw), wid, dtype), _tc_dw_smem(wid, ch))
         return RecurrencePlan(kernel, design, launches=t + 3, cluster=ranks,
-                              smem_bytes=max(_tc_smem(max(nw, g_nw), wid), _STEP_SMEM),
-                              scratch_bytes=scratch, grids=grids, gate_groups=g_ranks,
-                              gate_warpgroups=g_nw, dw_splits=splits,
+                              smem_bytes=smem, scratch_bytes=scratch, grids=grids,
+                              gate_groups=g_ranks, gate_warpgroups=g_nw, dw_splits=splits,
                               step_blocks=ranks * n_tiles * m_tiles, warpgroups=nw,
-                              weight_bytes=(n_tiles * four_c // _TC_KC
-                                            + _cdiv(ch, 16) * _cdiv(ch, _TC_KC)) * _TC_STAGE_B)
+                              weight_bytes=(n_tiles * four_c // kc + _cdiv(ch, 16)
+                                            * _cdiv(ch, kc)) * _tc_stage_b(dtype))
     return RecurrencePlan(kernel, design, launches=t + 3, cluster=1, smem_bytes=_STEP_SMEM,
                           scratch_bytes=scratch, grids=grids, dw_splits=splits,
                           step_blocks=step[0] * step[1])
@@ -553,8 +590,8 @@ def tc_weight_layout(w_h: torch.Tensor, layout: str, kc: int = _TC_KC) -> torch.
     (zeros past C).  ``"fwd"`` (kernels 1-2): tiles of 16 hidden channels,
     row n = gate n / 16 of channel 16 tile + n % 16 (Wh column gate * C +
     channel), chunks of ``kc`` input channels (8 in f32, 16 in bf16);
-    ``"bwd"`` (kernel 3's dh product, f32): tiles of 64 output channels,
-    row n = channel 64 tile + n, chunks of 8 of the 4C gate columns."""
+    ``"bwd"`` (kernel 3's dh product): tiles of 64 output channels, row n =
+    channel 64 tile + n, chunks of ``kc`` of the 4C gate columns."""
     ch = w_h.shape[2]
     w9 = w_h.reshape(9, ch, 4 * ch)
     if layout == "fwd":  # [9, C (K), 4, C (rows)] -> [tiles, chunks, 9, 4, 16, kc]
@@ -562,7 +599,7 @@ def tc_weight_layout(w_h: torch.Tensor, layout: str, kc: int = _TC_KC) -> torch.
         w = w.reshape(9, -1, kc, 4, w.shape[-1] // 16, 16)
         return w.permute(4, 1, 0, 3, 5, 2).reshape(w.shape[4], w.shape[1], 9, 64, kc)
     w = F.pad(w9, (0, 0, 0, -ch % 64))  # [9, C (rows), 4C (K)]
-    w = w.reshape(9, -1, 64, 4 * ch // _TC_KC, _TC_KC)
+    w = w.reshape(9, -1, 64, 4 * ch // kc, kc)
     return w.permute(1, 3, 0, 2, 4)
 
 
@@ -570,12 +607,10 @@ def tc_stage_images(w_h: torch.Tensor, layout: str) -> torch.Tensor:
     """stepwise_tc's B operand as the kernels' shared-memory stage images
     (``convlstm_tiles.cuh``), each stage one contiguous copy.  f32: the
     TF32 terms of ``w_h``, ``[column tiles, K chunks, 9 taps, 2 planes (big,
-    small), 2 groups of 4, 64 rows, 4]``; bf16 (kernels 1-2, ``"fwd"``):
-    ``w_h`` itself, no split, ``[column tiles, K chunks of 16, 9 taps, 2
-    groups of 8, 64 rows, 8]``."""
+    small), 2 groups of 4, 64 rows, 4]``; bf16 (either layout): ``w_h``
+    itself, no split, ``[column tiles, K chunks of 16, 9 taps, 2 groups of
+    8, 64 rows, 8]``."""
     if w_h.dtype == torch.bfloat16:
-        if layout != "fwd":
-            raise ValueError("stepwise_tc takes bf16 for kernels 1 and 2 only (layout 'fwd')")
         rows = tc_weight_layout(w_h, layout, _TC_KC_BF16)  # [tiles, chunks, 9, 64, 16]
         rows = rows.reshape(*rows.shape[:4], 2, 8)  # the 16 of K in two groups of 8
         return rows.permute(0, 1, 2, 4, 3, 5).contiguous()

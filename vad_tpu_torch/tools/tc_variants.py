@@ -19,19 +19,33 @@ It prints one JSON line per (variant, call) with ms (CUDA events), the
 max |error| against the plain version (of the built sources; the ablations'
 say nothing), registers and spills, the card's name and its power limit.
 
+``--backward`` does the same for kernel 3's bf16 stepwise_tc form
+(``csrc/convlstm_backward.cu``) at the 512x512 train step's shape (B=8,
+T=16, 32x32, C=128), each call also timed by part (gate recompute,
+reverse loop, dWh, dh0 + the split sum) from a device profile:
+
+- ``built``; ``dw_two_blocks`` (dWh's ring of 2 stages, two blocks an SM);
+  ``dw_four_stages`` (a ring of 4);
+- ablations: ``no_mma`` (the tile's wgmma gone: gate, loop, dh0),
+  ``dw_no_mma`` (dWh's wgmma gone), ``dw_no_copy`` (dWh stages nothing),
+  ``loop_no_epilogue_math`` (the loop's gate gradients and their reads
+  left out).
+
 Usage (on the card):
-    python -m vad_tpu_torch.tools.tc_variants
+    python -m vad_tpu_torch.tools.tc_variants [--backward]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
 import subprocess
 import tempfile
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -41,7 +55,10 @@ from vad_tpu_torch.utils.profiling import time_ms
 
 CALLS = (("convlstm_serving", (16, 16, 32, 32, 128)), ("convlstm_serving", (1, 16, 32, 32, 128)),
          ("convlstm_train_forward", (8, 16, 32, 32, 128)))
-SERVING, TILES = "convlstm_serving.cu", "convlstm_tiles.cuh"
+SERVING, TILES, BACKWARD = "convlstm_serving.cu", "convlstm_tiles.cuh", "convlstm_backward.cu"
+BWD_SHAPE = (8, 16, 32, 32, 128)
+# kernel 3's stepwise_tc launches by device-side name: its parts
+BWD_PARTS = {"gate_tc": "gate", "dh_tc_step": "loop", "dw_tc": "dw", "finish_tc": "dh0+dw_sum"}
 _EPI_START = "    const float gi = tc_rank_sum(x + 0 * 16, ranks) + to_f32(gx[0 * s.C]);"
 _EPI_END = "    c_state[sidx] = c_new;\n    h_seq[(bt * hw + p) * s.C + ch] = from_f32<T>(h_new);"
 
@@ -82,18 +99,46 @@ VARIANTS: Dict[str, Callable[[Dict[str, str]], None]] = {
 }
 
 
-def build(workdir: Path) -> Dict[str, tuple]:
-    """Every variant's library and its ptxas log: ``{name: (CDLL, log)}``."""
+_DH_GRAD = ("    const GateGrad gg = gate_grad(a[0], a[s.C], a[2 * s.C], a[3 * s.C], tanh_ct, cp,\n"
+            "                                  to_f32(dh_seq[cidx]) + dh, dc_carry[sidx]);")
+
+BWD_VARIANTS: Dict[str, Callable[[Dict[str, str]], None]] = {
+    "built": lambda src: None,
+    "dw_two_blocks": lambda src: [patch(src) for patch in (
+        _replace("constexpr int DW_NSTAGE = 3;", "constexpr int DW_NSTAGE = 2;", BACKWARD),
+        _replace("__launch_bounds__(DW_THREADS, 1)", "__launch_bounds__(DW_THREADS, 2)",
+                 BACKWARD))],
+    "dw_four_stages": _replace("constexpr int DW_NSTAGE = 3;", "constexpr int DW_NSTAGE = 4;",
+                               BACKWARD),
+    "no_mma": VARIANTS["no_mma"],
+    "dw_no_mma": _replace(
+        "        for (int mt = 0; mt < MT; ++mt) "
+        "mma<1, 1>(acc[mt], desc(a + mt * 8 * PH, 128, PH), db);",
+        "        (void)a, (void)db;", BACKWARD),
+    "dw_no_copy": _replace("  const auto load = [&](int u, unsigned char* st) {\n",
+                           "  const auto load = [&](int u, unsigned char* st) {\n"
+                           "    if (u >= 0) return;\n", BACKWARD),
+    "loop_no_epilogue_math": _replace(_DH_GRAD, "    const GateGrad gg = {dh, dh, dh, dh, dh};",
+                                      BACKWARD),
+}
+
+
+def build(workdir: Path, variants=None, source: str = SERVING,
+          signatures: Optional[dict] = None) -> Dict[str, tuple]:
+    """Every variant's library of ``source`` (kernels 1-2's, or kernel 3's)
+    and its ptxas log: ``{name: (CDLL, log)}``."""
     csrc = _build.CSRC_DIR
+    variants = VARIANTS if variants is None else variants
+    signatures = convlstm._SIGNATURES if signatures is None else signatures
     jobs = {}
-    for name, patch in VARIANTS.items():
-        src = {f.name: f.read_text() for f in (*csrc.glob("*.cuh"), csrc / SERVING)}
+    for name, patch in variants.items():
+        src = {f.name: f.read_text() for f in (*csrc.glob("*.cuh"), csrc / source)}
         patch(src)
         out = workdir / name
         out.mkdir()
         for fname, text in src.items():
             (out / fname).write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / SERVING)]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / source)]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
     libs = {}
@@ -102,9 +147,11 @@ def build(workdir: Path) -> Dict[str, tuple]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the {name} variant:\n{log}")
         lib = ctypes.CDLL(str(workdir / name / "lib.so"))
-        for fn, argtypes in convlstm._SIGNATURES.items():
+        for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        err = getattr(lib, f"{Path(source).stem}_error_string")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         libs[name] = (lib, log)
     return libs
 
@@ -129,15 +176,14 @@ def call(lib, gx, wh, h0, c0, cell: bool, plan) -> torch.Tensor:
     return h_seq
 
 
-def bf16_step_registers(log: str) -> Dict[str, list]:
-    """Registers and spill-store bytes of each bf16 stepwise_tc step kernel
-    in a ``-Xptxas -v`` log, by mangled name."""
+def kernel_registers(log: str, keep: Callable[[str], bool]) -> Dict[str, list]:
+    """Registers and spill-store bytes of each kernel whose mangled name
+    ``keep`` takes, in a ``-Xptxas -v`` log: ``{name: [registers, spills]}``."""
     out, name = {}, None
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:
-            name = found.group(1) if ("convlstm_tc_step" in found.group(1)
-                                      and "13__nv_bfloat16" in found.group(1)) else None
+            name = found.group(1) if keep(found.group(1)) else None
         elif name is not None:
             spill = re.search(r"(\d+) bytes spill stores", line)
             regs = re.search(r"Used (\d+) registers", line)
@@ -148,10 +194,98 @@ def bf16_step_registers(log: str) -> Dict[str, list]:
     return out
 
 
-def main() -> None:
+def bf16_step_registers(log: str) -> Dict[str, list]:
+    """The bf16 stepwise_tc step kernels' registers and spills."""
+    return kernel_registers(log, lambda n: "convlstm_tc_step" in n and "13__nv_bfloat16" in n)
+
+
+def bwd_registers(log: str) -> Dict[str, list]:
+    """Kernel 3's bf16 stepwise_tc kernels' registers and spills."""
+    return kernel_registers(log, lambda n: any(k in n for k in BWD_PARTS)
+                            and ("13__nv_bfloat16" in n or "dw_tc" in n))
+
+
+@contextmanager
+def through(lib):
+    """``ops/convlstm``'s kernel 3 wrapper launching through ``lib``."""
+    name = convlstm._BWD_KERNEL
+    real = _build._libraries.get(name)
+    _build._libraries[name] = lib
+    try:
+        yield
+    finally:
+        if real is None:
+            _build._libraries.pop(name, None)
+        else:
+            _build._libraries[name] = real
+
+
+def bwd_part_ms(run) -> Dict[str, float]:
+    """Device ms of one call of ``run`` by kernel 3's parts (torch.profiler
+    over two calls, device-side events only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    parts: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for kname, part in BWD_PARTS.items():
+            if kname in e.key:
+                parts[part] = parts.get(part, 0.0) + e.self_device_time_total / 2 / 1e3
+    return parts
+
+
+def main_backward(card: str, limit) -> None:
+    """Kernel 3's bf16 stepwise_tc variants at ``BWD_SHAPE``, by part."""
+    b, t, hgt, wid, ch = BWD_SHAPE
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *dims, scale=1.0: torch.randn(dims, generator=g, device="cuda") * scale  # noqa
+    gx = rnd(b, t, hgt, wid, 4 * ch, scale=0.5).to(dt)
+    wh = rnd(3, 3, ch, 4 * ch, scale=0.05).to(dt)
+    h0, c0 = rnd(b, hgt, wid, ch, scale=0.1), rnd(b, hgt, wid, ch, scale=0.1)
+    hs, cs, _ = convlstm.convlstm_forward_ref(gx, wh, h0, c0, with_cell_seq=True)
+    args = (gx, wh, h0, c0, hs, cs, rnd(b, t, hgt, wid, ch).to(dt), rnd(b, hgt, wid, ch),
+            rnd(b, hgt, wid, ch))
+    ref = convlstm.convlstm_backward_ref(*args)
+    plan = convlstm.recurrence_plan("convlstm_backward", *BWD_SHAPE, dt, "stepwise_tc")
+    with tempfile.TemporaryDirectory(prefix="tc_variants_") as tmp:
+        libs = build(Path(tmp), BWD_VARIANTS, BACKWARD, convlstm._BWD_SIGNATURES)
+        for name, (lib, log) in libs.items():
+            with through(lib):
+                def run():
+                    return convlstm._backward_kernel(*args, plan=plan)
+
+                got = run()
+                err = {n: float((a.float() - r.float()).abs().max()) for n, a, r in zip(
+                    ("dgates_x", "dw_h", "dh0", "dc0"), got, ref)}
+                ms = time_ms(run, "cuda", 10, 3)
+                parts = bwd_part_ms(run)
+            regs = bwd_registers(log)
+            print(json.dumps({
+                "tool": "tc_variants", "variant": name, "kernel": "convlstm_backward",
+                "shape": list(BWD_SHAPE), "dtype": "bfloat16", "ms": ms, "ms_by_part": parts,
+                "max_abs_err": err, "registers_spills": sorted({tuple(v) for v in regs.values()}),
+                "device": card, "power_limit_w": limit}), flush=True)
+
+
+def main(argv: Optional[Sequence[str]] = ()) -> None:
+    """The variants' lines; ``argv`` None reads the command line."""
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--backward", action="store_true",
+                        help="kernel 3's bf16 variants at the 512x512 train step's shape")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tc_variants: no CUDA device (torch.cuda.is_available() is False)")
     card, limit = torch.cuda.get_device_name(0), bench.power_limit_w()
+    if args.backward:
+        main_backward(card, limit)
+        return
     with tempfile.TemporaryDirectory(prefix="tc_variants_") as tmp:
         libs = build(Path(tmp))
         g = torch.Generator(device="cuda").manual_seed(0)
@@ -181,4 +315,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(None)
