@@ -2295,9 +2295,8 @@ def phase_serve(card: str, video_ckpt: Path, image: dict) -> dict:
       kernel 4's weights; kernels 1 and 4 must launch;
     - served frames/s end to end and request latency over
       ``SERVE_TIMED_CHUNKS`` more chunks a stream, a profiled window of
-      ``SERVE_PROFILE_ROUNDS`` rounds (one chunk a stream each), the direct
-      scorer's frames/s on the same host batches, and the host's batch
-      assembly alone;
+      ``SERVE_PROFILE_ROUNDS`` rounds (one chunk a stream each), and the
+      direct scorer's frames/s on the same host batches;
     - a ``stream_anomaly`` alert on one stream to a local webhook
       (threshold below its scores, 3 consecutive chunks);
     - ``/v1/images`` from ``IMAGE_THREADS`` threads over the image
@@ -2427,7 +2426,7 @@ def phase_serve(card: str, video_ckpt: Path, image: dict) -> dict:
         sent["video"] += S * SERVE_PROFILE_ROUNDS
         prof_ticks = m2["device_steps"] - m1["device_steps"]
 
-        # the direct scorer on the same host batches, and the host's assembly alone
+        # the direct scorer on the same host batches
         host_batches = [np.stack([streams[k][i] for k in range(S)]) for i in range(SERVE_CHUNKS)]
         direct.score_chunk(host_batches[0])
         torch.cuda.synchronize()
@@ -2436,12 +2435,6 @@ def phase_serve(card: str, video_ckpt: Path, image: dict) -> dict:
         for i in range(n):
             direct.score_chunk(host_batches[i % SERVE_CHUNKS])  # host scores: synchronizes
         direct_fps = n * S * T / (time.perf_counter() - start)
-        start = time.perf_counter()
-        for i in range(n):
-            batch = np.zeros((S, T, IMAGE, IMAGE, 3), np.uint8)
-            for k in range(S):
-                batch[k] = streams[k][i % SERVE_CHUNKS]
-        assembly_ms = (time.perf_counter() - start) / n * 1e3
 
         # one stream over a threshold below its scores: one stream_anomaly
         with webhook_receiver() as (url, received, anomaly):
@@ -2544,7 +2537,6 @@ def phase_serve(card: str, video_ckpt: Path, image: dict) -> dict:
         "slots_per_tick": {"timed": S * SERVE_TIMED_CHUNKS / timed_ticks,
                            "profiled": S * SERVE_PROFILE_ROUNDS / prof_ticks,
                            "phase": video_m["requests"] / video_m["device_steps"]},
-        "host_batch_assembly_ms": assembly_ms,
         "profile": {**prof, "ticks": prof_ticks}, "alerts": len(alerts),
         "images_vs_reconstruction_error": images_cmp, "latent_vs_scorer": latent_cmp,
         "cli": {"vs_direct_f32": cli_cmp, "exit_code": cli["exit_code"],

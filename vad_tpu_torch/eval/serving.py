@@ -42,6 +42,7 @@ from vad_tpu_torch.parallel.sharding import (
 )
 from vad_tpu_torch.parallel.spatial import RowSplit, replicate_grid
 from vad_tpu_torch.utils.precision import STATE_DTYPE, checked_cast_like
+from vad_tpu_torch.utils.profiling import span
 from vad_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
 
 
@@ -373,21 +374,24 @@ class MultiStreamScorer:
             slots), and error maps ``[num_slots, chunk, H, W]`` when
             ``return_maps`` is set.
         """
-        expected = (self.num_slots, self.chunk) + self.image_hw + (3,)
-        if tuple(frames_u8.shape) != expected:
-            raise ValueError(f"expected {expected}, got {tuple(frames_u8.shape)}")
-        if submitted is None:
-            submitted = self._active
-        u8 = torch.as_tensor(frames_u8, device=self.device)
-        if u8.dtype != torch.uint8:
-            raise TypeError(f"frames must be uint8, got {u8.dtype}")
-        mask = torch.as_tensor(np.asarray(submitted, bool), device=self.device)
-        scores, maps = self._step(u8.contiguous(), mask)
-        scores = scores.cpu().numpy()
-        scores[~self._active] = np.nan
-        if self.return_maps:
-            return scores, maps.cpu().numpy()
-        return scores
+        with span("vad.scorer.chunk"):
+            expected = (self.num_slots, self.chunk) + self.image_hw + (3,)
+            if tuple(frames_u8.shape) != expected:
+                raise ValueError(f"expected {expected}, got {tuple(frames_u8.shape)}")
+            if submitted is None:
+                submitted = self._active
+            with span("vad.scorer.h2d"):
+                u8 = torch.as_tensor(frames_u8, device=self.device)
+                if u8.dtype != torch.uint8:
+                    raise TypeError(f"frames must be uint8, got {u8.dtype}")
+                mask = torch.as_tensor(np.asarray(submitted, bool), device=self.device)
+            with span("vad.scorer.step"):
+                scores, maps = self._step(u8.contiguous(), mask)
+            scores = scores.cpu().numpy()
+            scores[~self._active] = np.nan
+            if self.return_maps:
+                return scores, maps.cpu().numpy()
+            return scores
 
     def score_streams(self, streams: Dict[int, Sequence[np.ndarray]]) -> Dict[int, np.ndarray]:
         """Feed per-slot frame lists (each a chunk of frames).  Only the

@@ -37,6 +37,7 @@ from vad_tpu_torch.ops import convlstm as convlstm_ops
 from vad_tpu_torch.ops import encoder_fused
 from vad_tpu_torch.ops.decoder_fast import decode_quadtree, quadtree_view, raster_from_quadtree
 from vad_tpu_torch.ops.convlstm import convlstm_step  # noqa: F401  (public API)
+from vad_tpu_torch.utils.profiling import span
 
 State = Tuple[torch.Tensor, torch.Tensor]
 ENCODER_WIDTHS = (32, 64, 128)  # + latent_dim
@@ -172,19 +173,20 @@ class VideoEncoder(nn.Module):
         x, seq = _flatten_time(x)
         y = _nchw(x)
         pyramid = []
-        for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
-            if i == 0 and skip_first_block:
-                continue
-            if self.stem == "stride2":
-                y = F.pad(y, (0, 1, 0, 1))
-            y = norm(conv(y))
-            if self.stem == "pool":
-                # pool before the activation: LeakyReLU is monotone, so
-                # the two commute and the activation runs on 1/4 the pixels
-                y = F.max_pool2d(y, 2)
-            y = F.leaky_relu(y, NEGATIVE_SLOPE)
-            if return_pyramid:
-                pyramid.append(y)
+        with span("vad.model.encoder"):
+            for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
+                if i == 0 and skip_first_block:
+                    continue
+                if self.stem == "stride2":
+                    y = F.pad(y, (0, 1, 0, 1))
+                y = norm(conv(y))
+                if self.stem == "pool":
+                    # pool before the activation: LeakyReLU is monotone, so
+                    # the two commute and the activation runs on 1/4 the pixels
+                    y = F.max_pool2d(y, 2)
+                y = F.leaky_relu(y, NEGATIVE_SLOPE)
+                if return_pyramid:
+                    pyramid.append(y)
         out = _nhwc(y)
         out = out if seq is None else out.reshape(*seq, *out.shape[1:])
         if not return_pyramid:
@@ -211,9 +213,10 @@ class VideoDecoder(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         z, seq = _flatten_time(z)
         y = _nchw(z)
-        for deconv, norm in zip(self.deconvs[:-1], self.norms):
-            y = F.relu(norm(deconv(y)))
-        out = _nhwc(torch.tanh(self.deconvs[-1](y)))
+        with span("vad.model.decoder"):
+            for deconv, norm in zip(self.deconvs[:-1], self.norms):
+                y = F.relu(norm(deconv(y)))
+            out = _nhwc(torch.tanh(self.deconvs[-1](y)))
         return out if seq is None else out.reshape(*seq, *out.shape[1:])
 
 

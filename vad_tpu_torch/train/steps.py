@@ -23,6 +23,7 @@ from torch.func import functional_call
 
 from vad_tpu_torch.parallel.multihost import owned_batch_positions
 from vad_tpu_torch.parallel.sharding import DATA_AXIS, reduce_gradients
+from vad_tpu_torch.utils.profiling import span
 
 
 def u8_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -75,33 +76,38 @@ def make_train_step(per_sample_loss_fn: Callable, compute_dtype: Optional[torch.
 
     def step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
              images_u8: torch.Tensor, n_real: int) -> torch.Tensor:
-        batch = images_u8.shape[0]
-        if batch % accum_steps:
-            raise ValueError(f"batch size {batch} not divisible by accum_steps {accum_steps}")
-        micro = batch // accum_steps
-        denom = float(max(int(n_real), 1))
-        if distributed:
-            positions = owned_batch_positions(mesh, batch * mesh.shape[DATA_AXIS],
-                                              accum_steps=accum_steps)
-            mask = torch.as_tensor(positions < int(n_real), device=images_u8.device)
-        else:
-            mask = torch.arange(batch, device=images_u8.device) < int(n_real)
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=images_u8.device)
-        for k in range(accum_steps):
-            x = u8_normalize(images_u8[k * micro:(k + 1) * micro])
-            losses = per_sample_loss_fn(forward(model, x).float(), x)
-            micro_sum = torch.sum(torch.where(mask[k * micro:(k + 1) * micro], losses, 0.0))
-            (micro_sum / denom).backward()
-            loss_sum += micro_sum.detach()
-        if distributed:
-            loss_sum = reduce_gradients(model, loss_sum, mesh)
-        if debug_nans and not bool(torch.isfinite(loss_sum)):
-            raise FloatingPointError(
-                f"invalid value ({float(loss_sum / denom)}) in the train step's loss")
-        optimizer.step()
-        return loss_sum / denom
+        with span("vad.train.step"):
+            batch = images_u8.shape[0]
+            if batch % accum_steps:
+                raise ValueError(f"batch size {batch} not divisible by accum_steps {accum_steps}")
+            micro = batch // accum_steps
+            denom = float(max(int(n_real), 1))
+            if distributed:
+                positions = owned_batch_positions(mesh, batch * mesh.shape[DATA_AXIS],
+                                                  accum_steps=accum_steps)
+                mask = torch.as_tensor(positions < int(n_real), device=images_u8.device)
+            else:
+                mask = torch.arange(batch, device=images_u8.device) < int(n_real)
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=images_u8.device)
+            for k in range(accum_steps):
+                with span("vad.train.forward"):
+                    rows = slice(k * micro, (k + 1) * micro)
+                    x = u8_normalize(images_u8[rows])
+                    losses = per_sample_loss_fn(forward(model, x).float(), x)
+                    micro_sum = torch.sum(torch.where(mask[rows], losses, 0.0))
+                with span("vad.train.backward"):
+                    (micro_sum / denom).backward()
+                loss_sum += micro_sum.detach()
+            if distributed:
+                loss_sum = reduce_gradients(model, loss_sum, mesh)
+            if debug_nans and not bool(torch.isfinite(loss_sum)):
+                raise FloatingPointError(
+                    f"invalid value ({float(loss_sum / denom)}) in the train step's loss")
+            with span("vad.train.optimizer"):
+                optimizer.step()
+            return loss_sum / denom
 
     return step
 

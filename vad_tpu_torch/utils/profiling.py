@@ -8,6 +8,12 @@ tools share.
   trace (``*.pt.trace.json``, for Perfetto or ``chrome://tracing``;
   ``tensorboard_trace_handler`` writes it without the tensorboard
   package);
+- ``span(name)``: a named range of the program's own, recorded only while
+  ``torch.profiler`` records (``trace``, or any other profiler the caller
+  runs) and then on the clock of the device activities; otherwise one
+  shared no-op context, for the cost of one flag check.  The profiler
+  keeps the ranges of the thread that started it (and of autograd's
+  backward, which it follows): on any other thread a span is a no-op;
 - ``StepTimer``: wall-clock step timing with a percentile summary (the
   caller synchronizes the device before ``stop``);
 - ``MetricsLogger``: append-only JSONL metrics per run directory, with an
@@ -19,6 +25,26 @@ tools share.
   makes a NaN raises, naming the forward op); the train step's
   ``debug_nans`` also checks each step's loss and raises
   ``FloatingPointError``, what ``jax_debug_nans`` makes a NaN step do.
+
+The spans, named ``vad.<layer>.<what>``; each nests in the one that
+caused it, and the outer span of a chunk or a step stands for that call:
+
+- ``vad.scorer.chunk``: ``eval/serving.py`` ``MultiStreamScorer.score_chunk``,
+  one a chunk; it holds, in turn,
+  - ``vad.scorer.h2d``: the frames' and the mask's copy to the device
+    (from pageable memory, synchronous),
+  - ``vad.scorer.step``: the host issuing the chunk's step, up to the
+    scores' readback (which is left unspanned);
+- ``vad.model.encoder``, ``vad.model.decoder``: ``models/video_autoencoder.py``
+  ``VideoEncoder.forward`` (blocks 2-4 after the fused input block) and
+  ``VideoDecoder.forward``, wherever they run;
+- ``vad.train.step``: ``train/steps.py`` ``make_train_step``'s step, one a
+  step; it holds, in turn,
+  - ``vad.train.forward``: normalisation, forward, the per-sample loss
+    and its masked sum (one a microbatch),
+  - ``vad.train.backward``: ``.backward()`` (one a microbatch); its kernels
+    are launched from autograd's thread while the caller waits inside it,
+  - ``vad.train.optimizer``: ``optimizer.step()``.
 """
 
 from __future__ import annotations
@@ -107,6 +133,17 @@ def time_ms(fn: Callable[[], object], device: torch.device | str = "cuda", iters
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_NO_SPAN = contextlib.nullcontext()  # reusable and reentrant: shared by every span when off
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while the profiler records on this
+    thread, else the shared no-op context (module docstring)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
