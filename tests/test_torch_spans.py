@@ -100,6 +100,26 @@ def test_score_chunk_spans_nest():
     assert _inside(encoder, step) and _inside(decoder, step) and encoder[2] <= decoder[1]
 
 
+def test_staged_copy_span_nests_in_h2d():
+    """Where the frames go in through the staged copy (host frames bound
+    for a card; here a CPU scorer made to stage), ``vad.scorer.stage``
+    brackets it inside ``vad.scorer.h2d``; the direct copy has none."""
+    scorer = _scorer()
+    scorer._stages = lambda frames: True
+    _score(scorer)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _score(scorer)
+    ranges = _ranges(prof)
+    (h2d,) = _named(ranges, "vad.scorer.h2d")
+    (stage,) = _named(ranges, "vad.scorer.stage")
+    (step,) = _named(ranges, "vad.scorer.step")
+    assert _inside(stage, h2d) and stage[2] <= step[1]
+    del scorer._stages
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _score(scorer)
+    assert not _named(_ranges(prof), "vad.scorer.stage")
+
+
 @pytest.mark.parametrize("accum_steps", [1, 2])
 def test_train_step_spans_in_order(accum_steps):
     """One ``vad.train.step`` holds forward and backward (one of each a

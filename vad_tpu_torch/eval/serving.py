@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from vad_tpu_torch.core.device import resolve_device
+from vad_tpu_torch.eval.staging import StagedCopy
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
 from vad_tpu_torch.ops.encoder_fused import fold_first_block
 from vad_tpu_torch.parallel.sharding import (
@@ -281,6 +282,7 @@ class MultiStreamScorer:
         self._forward_rows = data_parallel(kind.forward, mesh)
         self._step_rows = data_parallel(kind.step, mesh)
         self._active = np.zeros(num_slots, dtype=bool)
+        self._staging = None  # the staged copy's buffers, from the first host chunk
 
     @property
     def model(self) -> VideoAutoencoder:
@@ -358,13 +360,20 @@ class MultiStreamScorer:
     def _step(self, u8: torch.Tensor, submitted: torch.Tensor):
         return self._step_rows(self._replicas, u8, submitted)
 
+    def _stages(self, frames: torch.Tensor) -> bool:
+        """Whether ``frames`` go in through the staged copy: host memory
+        bound for a CUDA device."""
+        return frames.device.type == "cpu" and self.device.type == "cuda"
+
     def score_chunk(self, frames_u8, submitted: Optional[np.ndarray] = None):
         """Score one chunk across all slots.
 
         Args:
             frames_u8: ``[num_slots, chunk, H, W, 3]`` uint8 (RGB), a numpy
                 array or a uint8 tensor (on the scorer's device, no copy is
-                made).  Inactive slots may carry arbitrary data.
+                made).  Inactive slots may carry arbitrary data.  Host
+                frames bound for a CUDA device are copied afresh through
+                the scorer's pinned buffer (``eval/staging.py``).
             submitted: optional ``[num_slots]`` bool mask of slots whose
                 rows are real frames this tick — only those slots' carried
                 (h, c) advance.  Defaults to the active-slot mask.
@@ -378,15 +387,29 @@ class MultiStreamScorer:
             expected = (self.num_slots, self.chunk) + self.image_hw + (3,)
             if tuple(frames_u8.shape) != expected:
                 raise ValueError(f"expected {expected}, got {tuple(frames_u8.shape)}")
+            frames = torch.as_tensor(frames_u8)  # a numpy array's own memory
+            if frames.dtype != torch.uint8:
+                raise TypeError(f"frames must be uint8, got {frames.dtype}")
             if submitted is None:
                 submitted = self._active
+            mask = torch.as_tensor(np.asarray(submitted, bool))
+            staged = self._stages(frames)
             with span("vad.scorer.h2d"):
-                u8 = torch.as_tensor(frames_u8, device=self.device)
-                if u8.dtype != torch.uint8:
-                    raise TypeError(f"frames must be uint8, got {u8.dtype}")
-                mask = torch.as_tensor(np.asarray(submitted, bool), device=self.device)
-            with span("vad.scorer.step"):
-                scores, maps = self._step(u8.contiguous(), mask)
+                if staged:
+                    with span("vad.scorer.stage"):
+                        if self._staging is None:
+                            self._staging = StagedCopy(
+                                [(expected, torch.uint8), ((self.num_slots,), torch.bool)],
+                                self.device)
+                        u8, mask = self._staging.copy(frames, mask)
+                else:
+                    u8, mask = frames.to(self.device), mask.to(self.device)
+            try:
+                with span("vad.scorer.step"):
+                    scores, maps = self._step(u8.contiguous(), mask)
+            finally:  # a step that raised may still have work in flight
+                if staged:
+                    self._staging.release()
             scores = scores.cpu().numpy()
             scores[~self._active] = np.nan
             if self.return_maps:
