@@ -1,11 +1,20 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell (``workloads``) names a configuration (``configs/<name>.json``, the
-sizes as run) and a traffic mix (``traffic/<name>.json``, the parameters
-that its ``runner``, ``runners/<runner>.py``, reads).  Each per-layer
-metric is read by ``metrics/<name>.py``; each cell's limits on the
-numbers that decide ``correct`` are in ``limits/<cell>.json``.  A later
-cell or metric is added by adding files and entries.
+sizes as run, which names its plain ``reference``) and a traffic mix
+(``traffic/<name>.json``, the parameters that its ``runner``,
+``runners/<runner>.py``, reads).  Each per-layer metric is read by
+``metrics/<name>.py``; each cell's limits on the numbers that decide
+``correct`` are in ``limits/<cell>.json``.  A later cell, configuration or
+metric is added by adding files and entries.
+
+What a configuration's files declare for the benchmark's CPU tests
+(``benchmark/tests/cases.py``): its reference a ``layout(cfg)`` of the
+weights (``weights.py`` draws them) and ``TINY``, the sizes a CPU run of
+the model uses; its runner ``SMALL``, the traffic a CPU run uses,
+``FAULTS``, the names its ``plant`` takes, and
+``SOUND_SMALL_RUN_CORRECT``, whether a sound float32 run at those sizes
+is held to the cell's limits.
 """
 
 from __future__ import annotations
@@ -36,9 +45,17 @@ def _load_json(path: Path) -> dict:
         return json.load(f)
 
 
+def _load_module(path: Path, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 class Manifest:
     def __init__(self, root: Path = ROOT) -> None:
         self.root = root
+        self.folder = root / HERE.name  # this folder in the checkout at ``root``
         self.data = _load_json(root / "BENCHMARK.json")
 
     def workload(self, name: str) -> dict:
@@ -52,10 +69,10 @@ class Manifest:
         return _load_json(self.root / entry["file"])
 
     def traffic(self, name: str) -> dict:
-        return _load_json(HERE / "traffic" / f"{name}.json")
+        return _load_json(self.folder / "traffic" / f"{name}.json")
 
     def limits(self, cell: str) -> Dict[str, float]:
-        path = HERE / "limits" / f"{cell}.json"
+        path = self.folder / "limits" / f"{cell}.json"
         if not path.exists():
             return {}
         return {k: v["limit"] for k, v in _load_json(path)["numbers"].items()}
@@ -75,13 +92,16 @@ def runner(name: str) -> ModuleType:
     return importlib.import_module(f"benchmark.runners.{name}")
 
 
-def metric_reader(name: str) -> ModuleType:
+def metric_reader(name: str, folder: Path = HERE) -> ModuleType:
     """``metrics/<name>.py`` (metric names hold dots, so it loads by path)."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return _load_module(folder / "metrics" / f"{name}.py", f"benchmark_metric_{name}")
+
+
+def reference(cfg: dict, folder: Path = HERE) -> ModuleType:
+    """The plain reference that the configuration ``cfg`` names
+    (``"reference"``, a path in this folder), loaded by path."""
+    path = folder / cfg["reference"]
+    return _load_module(path, f"benchmark_reference_{path.stem}")
 
 
 def check_names(data: dict) -> List[str]:

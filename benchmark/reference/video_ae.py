@@ -37,6 +37,8 @@ SLOPE = 0.2
 ENCODER_WIDTHS = (32, 64, 128)
 DECODER_WIDTHS = (128, 64, 32)
 FP8_MAX = 448.0
+# the sizes a CPU test run of this model uses (``benchmark/tests/cases.py``)
+TINY = {"image_size": 32, "latent_dim": 16, "lstm_hidden_dim": 16, "sequence_length": 4}
 
 Weights = Dict[str, torch.Tensor]
 State = Tuple[torch.Tensor, torch.Tensor]

@@ -76,7 +76,7 @@ def execute(manifest, cell: dict, seed: int, seconds: float, trace: bool, device
     metrics = {}
     if trace:
         for m in manifest.per_layer(cell["name"]):
-            value = mf.metric_reader(m["name"]).read(view)
+            value = mf.metric_reader(m["name"], manifest.folder).read(view)
             if value is None:  # its kernels are off the path, or renamed: left out of the line
                 print(f"METRIC {m['name']} LEFT OUT: nothing to read in this run", file=sys.stderr)
                 continue

@@ -28,6 +28,14 @@ from benchmark import judge, scene
 from benchmark.reference import video_ae as ref
 from benchmark.weights import make_weights, program_state_dict
 
+# A CPU test run (``benchmark/tests/cases.py``): its traffic, the faults
+# that ``plant`` takes, and whether a sound float32 run is held to the
+# cell's limits.
+SMALL = {"slots": 4, "chunk": 4, "pool_chunks": 2, "warm_chunks": 2, "sample_chunks": 3,
+         "dtype": "float32"}
+FAULTS = ("unchanged", "half_batch", "altered")
+SOUND_SMALL_RUN_CORRECT = True
+
 
 def _rng(ctx, key: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([int(ctx.seed), key]))

@@ -1,27 +1,26 @@
 """Each cell's control, the reference one precision lower than the cell
-states put in the program's place, comes out not correct: here at a size
-a test run holds, on the card at the cell's own size (``card``; the
-readings of that run set the upper ends of the limits, ``PERF.md``)."""
+states put in the program's place, comes out not correct: here at the
+small size its files declare (``cases.py``), on the card at the cell's own
+size (``card``; the readings of that run set the upper ends of the limits,
+``PERF.md``)."""
 
 import pytest
 
 from benchmark.manifest import Manifest
 from benchmark.run import execute
-
-from benchmark.tests.test_bench_faults import CELLS as ALL, small_run
+from benchmark.tests import cases
 
 M = Manifest()
-CELLS = [w["name"] for w in M.data["workloads"]]
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in ALL])
+@pytest.mark.parametrize("cell", cases.cells(M))
 def test_control_at_a_small_size_is_not_correct(cell):
-    result, verdict = small_run(cell, side="control")
+    result, verdict = cases.small_run(M, cell, side="control")
     assert result["correct"] is False, verdict.lines()
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", cases.cells(M))
 def test_control_at_the_cells_size_is_not_correct(cell):
     import torch
 

@@ -7,11 +7,12 @@ import numpy as np
 import pytest
 
 from benchmark import manifest as mf
+from benchmark.tests import cases
 from benchmark.tracing import Trace
 
 M = mf.Manifest()
 DATA = M.data
-CELLS = [c["name"] for c in DATA["workloads"]]
+CELLS = cases.cells(M)
 
 
 def test_names_and_units():
@@ -46,12 +47,14 @@ def test_each_cell_reports_what_it_must(cell):
         assert m["moves"] in e2e, f"{m['name']} moves {m['moves']}, which {cell} does not report"
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in DATA["per_layer"]])
+@pytest.mark.parametrize("metric", cases.metrics(M))
 def test_each_metric_reads_nothing_from_an_empty_trace(metric):
     """A reader that finds no device time returns nothing (the metric is
-    left out of the line), never 0; the idle share of an empty window is
-    all of it."""
-    cell = M.workload(next(m for m in DATA["per_layer"] if m["name"] == metric)["workloads"][0])
+    left out of the line), never 0; the device layer's idle share of an
+    empty window is all of it.  A share split by the program's spans
+    (another layer's) finds no span, and returns nothing."""
+    entry = next(m for m in DATA["per_layer"] if m["name"] == metric)
+    cell = M.workload(entry["workloads"][0])
     trace = Trace.__new__(Trace)
     trace.lo, trace.hi, trace.names, trace.spans = 0.0, 1.0, [], []
     trace.kinds, trace.iv = np.array([]), np.zeros((0, 2))
@@ -59,19 +62,31 @@ def test_each_metric_reads_nothing_from_an_empty_trace(metric):
     run = SimpleNamespace(trace=trace, cfg=M.config(cell["config"]),
                           traffic=M.traffic(cell["traffic"]), e2e={},
                           counts={"chunks": 10, "steps": 10})
-    value = mf.metric_reader(metric).read(run)
-    assert value == (100.0 if metric.startswith("device_idle") else None)
+    value = mf.metric_reader(metric, M.folder).read(run)
+    assert value == (100.0 if entry["layer"] == "device" else None)
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_each_cell_finds_its_files(cell):
     entry = M.workload(cell)
     cfg = M.config(entry["config"])
-    assert cfg["image_size"] % 16 == 0 and cfg["reduced"] == next(
+    assert cfg["reduced"] == next(
         c["reduced"] for c in DATA["configs"] if c["name"] == entry["config"])
+    assert mf.reference(cfg, M.folder).layout(cfg)
     traffic = M.traffic(entry["traffic"])
     mf.runner(traffic["runner"])
     assert M.limits(cell), f"no limits for {cell}"
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_each_cell_declares_its_cpu_test_sizes(cell):
+    """The reference's ``TINY`` and the runner's ``SMALL`` shrink keys that
+    the cell's files have (a key they lack would change nothing)."""
+    d = cases.declared(M, cell)
+    entry = M.workload(cell)
+    assert set(d.tiny) <= set(M.config(entry["config"]))
+    assert set(d.small) <= set(M.traffic(entry["traffic"]))
+    assert d.faults
 
 
 def test_files_lie_under_paths():

@@ -9,11 +9,21 @@ import pytest
 import torch
 
 from benchmark import scene
+from benchmark.manifest import Manifest
 from benchmark.reference import video_ae as ref
 from benchmark.weights import make_weights, program_state_dict
 
-CFG = {"in_channels": 3, "latent_dim": 16, "lstm_hidden_dim": 16, "lstm_layers": 2,
-       "image_size": 32, "sequence_length": 4, "norm": "batch", "stem": "pool"}
+CFG = {"reference": "reference/video_ae.py", "in_channels": 3, "latent_dim": 16,
+       "lstm_hidden_dim": 16, "lstm_layers": 2, "image_size": 32, "sequence_length": 4,
+       "norm": "batch", "stem": "pool"}
+M = Manifest()
+MINE = [c["name"] for c in M.data["configs"]
+        if M.config(c["name"]).get("reference") == "reference/video_ae.py"]
+
+
+@pytest.mark.parametrize("name", MINE)
+def test_each_configuration_of_this_model_fits_its_four_pools(name):
+    assert M.config(name)["image_size"] % 16 == 0
 
 
 def _port_model(weights, cfg=CFG):

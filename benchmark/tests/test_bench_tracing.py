@@ -52,7 +52,8 @@ def test_breakdown_sums_ops_and_labels_gaps():
 def test_a_traced_run_with_no_kernel_fails():
     """On the CPU the profiler records no device work: the run stops
     without a result rather than print silent or zero readings."""
-    from benchmark.tests.test_bench_faults import small_run
+    from benchmark.manifest import Manifest
+    from benchmark.tests.cases import small_run
 
     with pytest.raises(RuntimeError, match="no kernel"):
-        small_run("video256.stream16", trace=True, seconds=0.5)
+        small_run(Manifest(), "video256.stream16", trace=True, seconds=0.5)

@@ -1,10 +1,12 @@
 """Seeded weights, made on the device in one call.
 
 The benchmark owns them: both the program and the reference read this
-dict, and neither changes it.  Values follow the port's ``init_weights``
-distribution (``vad_tpu_torch/models/video_autoencoder.py``): Xavier-normal
-kernels, small biases, BatchNorm scales and running statistics away from
-identity so that the folded first block and inference BatchNorm are
+dict, and neither changes it.  Names and shapes are the ``layout`` of the
+plain reference that the configuration names (``manifest.reference``).
+Values follow the port's ``init_weights`` distribution
+(``vad_tpu_torch/models/video_autoencoder.py``): Xavier-normal kernels and
+matrices, small biases, norm scales and running statistics away from
+identity so that a folded first block and inference BatchNorm are
 exercised for real.  They are float32, the type the port's checkpoints
 hold: its scorer casts them to its serving type itself, after folding the
 first block from them.
@@ -17,11 +19,13 @@ from typing import Dict
 
 import torch
 
-from benchmark.reference.video_ae import layout
+from benchmark.manifest import reference
 
 
 def _std(name: str, shape) -> float:
-    if name.endswith("w_h"):  # HWIO
+    """Xavier-normal: a matrix [out, in]; a conv kernel [out, in, *k] or a
+    ConvTranspose one [in, out, *k] of any rank, over its receptive field."""
+    if name.endswith("w_h") and len(shape) == 4:  # the ConvLSTM's HWIO kernel over h
         fan_in, fan_out = 9 * shape[2], 9 * shape[3]
     else:
         receptive = math.prod(shape[2:])
@@ -30,7 +34,7 @@ def _std(name: str, shape) -> float:
 
 
 def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    entries = layout(cfg)
+    entries = reference(cfg).layout(cfg)
     total = sum(math.prod(shape) for _, shape in entries)
     gen = torch.Generator(device=device).manual_seed(int(seed) % (2**63))
     flat = torch.randn(total, generator=gen, device=device)
@@ -39,7 +43,7 @@ def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
         n = math.prod(shape)
         x = flat[at:at + n].reshape(shape)
         at += n
-        if len(shape) == 4:
+        if len(shape) >= 2:
             x = x * _std(name, shape)
         elif name.endswith("running_var"):
             x = 0.5 + 0.5 * x.abs()
