@@ -58,7 +58,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from vad_tpu_torch.core.config import ImageAEConfig, VideoAEConfig
+from vad_tpu_torch.core.config import ImageAEConfig, MemAEConfig, VideoAEConfig, is_memae
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.eval.drift import ScoreWindow
 from vad_tpu_torch.eval.latent_score import (
@@ -70,6 +70,7 @@ from vad_tpu_torch.eval.latent_score import (
 from vad_tpu_torch.eval.metrics import serving_frame_threshold, serving_score_baseline
 from vad_tpu_torch.eval.serving import MultiStreamScorer
 from vad_tpu_torch.models.autoencoder import ConvAutoencoder
+from vad_tpu_torch.models.memae import MemAutoencoder
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
 from vad_tpu_torch.parallel.sharding import (
     DATA_AXIS,
@@ -96,6 +97,10 @@ _ARCHITECTURE_MISMATCH = (
     "(pytree/shape/dtype mismatch); restart the server to "
     "change architectures"
 )
+
+_MEMAE_NO_RELOAD = ("hot reload of a MemAE checkpoint is not supported; restart "
+                    "the server with the new checkpoint")
+
 
 def _f32_without_tf32(dtype: torch.dtype, device: torch.device) -> None:
     """An f32 service on the card scores without TF32 for its whole life:
@@ -724,6 +729,8 @@ class ScoringService:
                 "image checkpoint cannot reload a video server; this "
                 "server serves the video model"
             )
+        if is_memae(ckpt.get("args")) or isinstance(self.scorer.model, MemAutoencoder):
+            raise ValueError(_MEMAE_NO_RELOAD)
         check_served_image_size(ckpt.get("args") or {}, self.scorer.image_size)
         check_served_stem(ckpt.get("args") or {},
                           getattr(self.scorer.model, "stem", "pool"))
@@ -1240,7 +1247,10 @@ def serve_from_checkpoint(
 ) -> ScoringServer:
     """Build a ScoringServer from a checkpoint of either package.
 
-    Video checkpoints get the coalescing multi-stream service; image
+    Video checkpoints get the coalescing multi-stream service (a MemAE
+    checkpoint, ``args["model"] == "memae"``, its clip scorer: RGB uint8
+    chunks of ``sequence_length`` frames, turned gray on the device; no
+    ``fused_input``, mesh or hot reload); image
     checkpoints the stateless batched image service (``num_slots``
     doubles as the image batch).  ``image_checkpoint`` serves an image
     model beside the video model (``checkpoint`` must then be a video
@@ -1290,20 +1300,12 @@ def serve_from_checkpoint(
         return ScoringServer(host=host, port=port, service=service,
                              reload_roots=reload_roots)
 
-    cfg = VideoAEConfig.from_args(ckpt.get("args", {}))
-    if fused_input and cfg.stem != "pool":
-        raise ValueError(
-            "--fused-input folds conv1+max-pool into one kernel; "
-            f"this checkpoint uses the '{cfg.stem}' stem which has no pool "
-            "(and no full-res intermediate to fuse away — serve it plain)"
-        )
-    model = VideoAutoencoder.from_config(cfg, device="cpu")
-    variables = {"params": ckpt["params"], "batch_stats": ckpt.get("batch_stats") or {}}
-    scorer = MultiStreamScorer(
-        model, variables, num_slots=num_slots, chunk=chunk,
-        image_size=cfg.image_size, dtype=getattr(torch, dtype), fused_input=fused_input,
-        device=device, mesh=mesh, spatial=spatial,
-    )
+    if is_memae(ckpt.get("args")):
+        scorer = _memae_scorer_from_ckpt(ckpt, num_slots, chunk, dtype, fused_input, device,
+                                         mesh, spatial)
+    else:
+        scorer = _video_scorer_from_ckpt(ckpt, num_slots, chunk, dtype, fused_input, device,
+                                         mesh, spatial)
     # build the kernels and pay the first step before accepting traffic
     warm = np.zeros((num_slots, chunk) + scorer.image_hw + (3,), np.uint8)
     scorer.score_chunk(warm)
@@ -1331,3 +1333,41 @@ def serve_from_checkpoint(
         )
     return ScoringServer(host=host, port=port, services=services,
                          reload_roots=reload_roots)
+
+
+def _video_scorer_from_ckpt(ckpt: dict, num_slots: int, chunk: int, dtype: str,
+                            fused_input: Optional[bool], device, mesh,
+                            spatial: bool) -> MultiStreamScorer:
+    cfg = VideoAEConfig.from_args(ckpt.get("args", {}))
+    if fused_input and cfg.stem != "pool":
+        raise ValueError(
+            "--fused-input folds conv1+max-pool into one kernel; "
+            f"this checkpoint uses the '{cfg.stem}' stem which has no pool "
+            "(and no full-res intermediate to fuse away — serve it plain)"
+        )
+    model = VideoAutoencoder.from_config(cfg, device="cpu")
+    variables = {"params": ckpt["params"], "batch_stats": ckpt.get("batch_stats") or {}}
+    return MultiStreamScorer(
+        model, variables, num_slots=num_slots, chunk=chunk,
+        image_size=cfg.image_size, dtype=getattr(torch, dtype), fused_input=fused_input,
+        device=device, mesh=mesh, spatial=spatial,
+    )
+
+
+def _memae_scorer_from_ckpt(ckpt: dict, num_slots: int, chunk: int, dtype: str,
+                            fused_input: Optional[bool], device, mesh,
+                            spatial: bool) -> MultiStreamScorer:
+    """A MemAE checkpoint: ``args`` from ``MemAEConfig.to_dict`` and the
+    weights under ``state_dict`` by the official module names."""
+    if fused_input:
+        raise ValueError("--fused-input folds the ConvLSTM model's first block; "
+                         "a MemAE checkpoint has none (serve it without the flag)")
+    cfg = MemAEConfig.from_args(ckpt["args"])
+    model = MemAutoencoder.from_config(cfg, device="cpu")
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in ckpt["state_dict"].items()},
+                          strict=True)
+    return MultiStreamScorer(
+        model, None, num_slots=num_slots, chunk=chunk, image_size=cfg.image_size,
+        dtype=getattr(torch, dtype), fused_input=False, device=device, mesh=mesh,
+        spatial=spatial,
+    )

@@ -20,17 +20,23 @@ streams): each data replica holds one model copy per model index, on
 carried (h, c) in f32, and ``parallel/spatial.py`` runs the forward over
 the row shards with every halo exchange written out, kernel 1 in its row
 form.  As in JAX, the fused u8 input block (kernel 4) is off there.
+
+A clip model (``models/memae.py`` ``MemAutoencoder``) carries no state:
+each stream's chunk is one clip of the model's ``sequence_length``
+frames, scored alone (``states`` is empty).  It runs on one device,
+without the fused input block.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.eval.staging import StagedCopy
+from vad_tpu_torch.models.memae import MemAutoencoder
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
 from vad_tpu_torch.ops.encoder_fused import fold_first_block
 from vad_tpu_torch.parallel.sharding import (
@@ -107,6 +113,36 @@ class _Replica:
             for (h_new, c_new), (h_old, c_old) in zip(new_states, self.states)
         )
         return scores.float(), (err.float() if self.return_maps else None)
+
+
+class _ClipReplica:
+    """A clip model serving every slot: no state across chunks, so every
+    slot's chunk is scored alone and ``submitted`` changes nothing."""
+
+    def __init__(self, model: MemAutoencoder, device: torch.device, num_slots: int,
+                 return_maps: bool) -> None:
+        self.model, self.device, self.lo, self.hi = model, device, 0, num_slots
+        self.models = [model]
+        self.return_maps = return_maps
+        self.states = ()
+
+    def zero_slot(self, k: int) -> None:
+        """Nothing is carried."""
+
+    def fold(self, state_dict) -> None:
+        """No fused input block."""
+
+    @torch.no_grad()
+    def forward(self, u8: torch.Tensor):
+        """``_Replica.forward``'s contract; the reconstruction is gray
+        ``[s,T,H,W]`` and the new states empty."""
+        recon, err, scores = self.model.score_clips(u8, self.return_maps)
+        return recon, err, scores, ()
+
+    @torch.no_grad()
+    def step(self, u8: torch.Tensor, submitted: torch.Tensor):
+        _, err, scores = self.model.score_clips(u8, self.return_maps)
+        return scores, err
 
 
 class _RowReplica:
@@ -189,20 +225,33 @@ class _RowReplica:
         return scores.float(), err
 
 
+def _image_hw(image_size):
+    """``image_size`` (an int, square, or ``(H, W)``) as ``(H, W)``, each
+    divisible by 16 (either model halves a frame four times)."""
+    hw = (tuple(image_size) if isinstance(image_size, (tuple, list))
+          else (image_size, image_size))
+    if hw[0] % 16 or hw[1] % 16:
+        raise ValueError(f"image size {hw} must be divisible by 16 (4 pool stages)")
+    return hw
+
+
 class MultiStreamScorer:
     """Fixed-slot batched scorer over independent video streams.
 
     Args:
-        model: a ``VideoAutoencoder``; moved to ``device`` and cast to
+        model: a ``VideoAutoencoder`` or a ``MemAutoencoder`` (a clip
+            model: module docstring); moved to ``device`` and cast to
             ``dtype`` (the scorer owns it from here on).
         variables: optional JAX-package variables tree to load into it;
             ``None`` keeps the model's own weights.
         num_slots: parallel stream capacity (the batch dimension).
-        chunk: frames consumed per step per stream.
+        chunk: frames consumed per step per stream (a clip model's
+            ``sequence_length``).
         image_size: int (square) or ``(H, W)``, each divisible by 16.
         return_maps: also return per-pixel error maps.
         dtype: compute type (``torch.bfloat16`` is the serving policy);
-            the carried (h, c) stay f32 whatever it is.
+            the carried (h, c), and a clip model's memory read, stay f32
+            whatever it is.
         fused_input: run normalize + conv1 + BN + max-pool + LeakyReLU as
             the fused u8 input block.  ``None`` means on when the device is
             CUDA and the model has ``norm='batch'`` and ``stem='pool'``.
@@ -218,7 +267,7 @@ class MultiStreamScorer:
 
     def __init__(
         self,
-        model: VideoAutoencoder,
+        model: Union[VideoAutoencoder, MemAutoencoder],
         variables: Optional[Mapping] = None,
         num_slots: int = 8,
         chunk: int = 16,
@@ -230,6 +279,13 @@ class MultiStreamScorer:
         mesh=None,
         spatial: bool = False,
     ) -> None:
+        if isinstance(model, MemAutoencoder):
+            if variables is not None:
+                raise ValueError("a MemAE model takes its weights as a state dict "
+                                 "(load_state_dict), not a JAX variables tree")
+            self._init_clip(model, num_slots, chunk, image_size, return_maps, dtype,
+                            fused_input, device, mesh, spatial)
+            return
         if spatial and mesh is None:
             raise ValueError("spatial=True requires a mesh")
         if mesh is not None:
@@ -239,10 +295,7 @@ class MultiStreamScorer:
                 raise ValueError(f"num_slots={num_slots} must divide evenly over the "
                                  f"'{DATA_AXIS}' mesh axis of size {data_n}")
         self.device = resolve_device(device)
-        hw = (tuple(image_size) if isinstance(image_size, (tuple, list))
-              else (image_size, image_size))
-        if hw[0] % 16 or hw[1] % 16:
-            raise ValueError(f"image size {hw} must be divisible by 16 (4 pool stages)")
+        hw = _image_hw(image_size)
         if spatial:
             if fused_input:
                 raise ValueError("spatial=True is incompatible with fused_input")
@@ -284,6 +337,31 @@ class MultiStreamScorer:
         self._active = np.zeros(num_slots, dtype=bool)
         self._staging = None  # the staged copy's buffers, from the first host chunk
 
+    def _init_clip(self, model: MemAutoencoder, num_slots: int, chunk: int, image_size,
+                   return_maps: bool, dtype: torch.dtype, fused_input: Optional[bool], device,
+                   mesh, spatial: bool) -> None:
+        """The scorer of a clip model (module docstring)."""
+        for name, value in (("fused_input", fused_input), ("mesh", mesh),
+                            ("spatial", spatial)):
+            if value:
+                raise ValueError(f"{name} is not supported for a clip model (MemAE): "
+                                 "it runs on one device from the uint8 frames")
+        if chunk != model.sequence_length:
+            raise ValueError(f"a MemAE chunk is one clip of sequence_length="
+                             f"{model.sequence_length} frames, got chunk={chunk}")
+        self.device = resolve_device(device)
+        hw = _image_hw(image_size)
+        self.num_slots, self.chunk = num_slots, chunk
+        self.image_size, self.image_hw = image_size, hw
+        self.return_maps, self.dtype, self.fused_input = return_maps, dtype, False
+        self.mesh, self.spatial = None, False
+        model = model.to(self.device).eval().cast_for_scoring(dtype)
+        self._replicas = [_ClipReplica(model, self.device, num_slots, return_maps)]
+        self._forward_rows = data_parallel(_ClipReplica.forward, None)
+        self._step_rows = data_parallel(_ClipReplica.step, None)
+        self._active = np.zeros(num_slots, dtype=bool)
+        self._staging = None
+
     @property
     def model(self) -> VideoAutoencoder:
         """The first replica's (first) model (the only one without a mesh)."""
@@ -312,7 +390,11 @@ class MultiStreamScorer:
         tree, in every replica.  They must match the served architecture
         exactly (structure, shapes, dtypes after the serving cast); raises
         ValueError (or KeyError for a missing key) otherwise.  Attached
-        slots keep their carried (h, c)."""
+        slots keep their carried (h, c).  A clip model (MemAE) has no hot
+        reload: it raises ValueError."""
+        if isinstance(self.model, MemAutoencoder):
+            raise ValueError("hot reload of a MemAE model is not supported: "
+                             "restart the server with the new checkpoint")
         fresh = flax_to_state_dict(self.model, variables)
         new = checked_cast_like(fresh, self.model.state_dict(), self.dtype)
         for r in self._replicas:

@@ -37,7 +37,11 @@ caused it, and the outer span of a chunk or a step stands for that call:
     scores' readback (which is left unspanned);
 - ``vad.model.encoder``, ``vad.model.decoder``: ``models/video_autoencoder.py``
   ``VideoEncoder.forward`` (blocks 2-4 after the fused input block) and
-  ``VideoDecoder.forward``, wherever they run;
+  ``VideoDecoder.forward``, wherever they run; in ``models/memae.py``
+  ``MemAutoencoder.forward`` its 3-D encoder and decoder (the decoder's
+  span holds the cast of the memory's read to the convolutions' type);
+- ``vad.model.memory``: ``MemAutoencoder.forward``'s memory, the float32
+  addressing and read between the two;
 - ``vad.train.step``: ``train/steps.py`` ``make_train_step``'s step, one a
   step; it holds, in turn,
   - ``vad.train.forward``: normalisation, forward, the per-sample loss
