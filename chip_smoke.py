@@ -19,12 +19,15 @@ against its plain version and against each other (kernel 3 also by part),
 and the bf16 tile at the 256x256 serving and training shapes beside
 resident; stepwise_tc's weight cache across an
 ``Adam(fused=True)`` step and a ``copy_``; kernel 4 with its design and
-time in both dtypes, and kernels 4 and 6 at ragged frames), then drives
-four paths at the default video model's full width:
+time in both dtypes, and kernels 4 and 6 at ragged frames; kernel 7, the
+folded blocks' epilogue, at each of its seven calls a chunk at the 256x256
+and 512x512 serving shapes in both dtypes, timed beside its bytes bound),
+then drives four paths at the default video model's full width:
 
 - serving: ``MultiStreamScorer`` (S=16 streams, T=16 frames per chunk,
   256x256, bf16 with f32 cell state, random weights from a seed), checked
-  to go through kernels 1 and 4 and to agree with the plain versions,
+  to go through kernels 1, 4 and 7 (seven epilogues a chunk) and to agree
+  with the plain versions,
   then timed (frames/s) and profiled (device time by kernel, device-busy
   share) with ``fused_input`` on and off; and at 512x512 (S=16, T=16,
   bf16, fused input: kernel 4, then kernel 1 on the bf16 stepwise_tc
@@ -111,7 +114,8 @@ seconds; the last line is ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --artifact-check
 <artifact> <checkpoint> <dtype>`` is the export phase's loading process,
 ``python3 chip_smoke.py --scaling-worker RANK WORLD DIR`` a rank of the
-scaling phase.
+scaling phase.  ``python3 chip_smoke.py --block-epilogue`` runs the device
+line, the build and kernel 7's check alone.
 ``python3 chip_smoke.py --accuracy [--only NAME] [--draws N] [--precision
 f32|bf16]`` runs run_parity's four fixtures at their budgets through the
 port's CLIs (``--seed`` 0..N-1), one line a draw and one a fixture beside
@@ -161,7 +165,7 @@ BF16_NOISY, BF16_NOISY_VS_PLAIN = 0.1, 0.15
 # kernel counts under the first name it contains, so longer names that
 # contain shorter ones come first.
 PORT_KERNELS = ("recurrence_kernel", "convlstm_step_kernel", "convlstm_tc_step",
-                "first_block_kernel", "gate_all_kernel", "gate_tc", "gate_kernel", "loop_kernel",
+                "first_block_kernel", "block_epilogue_kernel", "gate_all_kernel", "gate_tc", "gate_kernel", "loop_kernel",
                 "dh_tc_step", "step_kernel", "finish_kernel", "finish_tc", "dw_kernel_res",
                 "dw_reduce_kernel", "dw_kernel", "dw_tc")
 # Kernel 3's parts, by device-side name: the gate recompute, the reverse
@@ -336,7 +340,7 @@ def phase_build():
 
     start = time.perf_counter()
     _build.build(["convlstm_serving", "first_block", "convlstm_backward", "pool_bwd",
-                  "first_block_ablate"])
+                  "first_block_ablate", "block_epilogue"])
     ptxas = {name: ptxas_summary(rec["log"]) for name, rec in _build.build_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - start,
           "per_source_seconds": {k: v["seconds"] for k, v in _build.build_log.items()},
@@ -549,6 +553,94 @@ def phase_first_block(peak_flops: float, peak_bw: float) -> dict:
             out = rec
         emit(rec)
         require(ok, f"first_block {label} kernel vs plain version within {bar}")
+    return out
+
+
+def epilogue_calls(image: int) -> list:
+    """Kernel 7's seven calls a chunk of the scorer at ``image`` on the
+    published widths (``VideoAutoencoder()``): ``(mode, channels, side of
+    the convolution's output)``."""
+    import torch
+
+    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
+    from vad_tpu_torch.ops.block_epilogue import fold_blocks, step_calls
+
+    model = VideoAutoencoder(device="cpu")
+    return step_calls(fold_blocks(model.state_dict(), torch.float32), image)
+
+
+def phase_block_epilogue(peak_bw: float) -> dict:
+    """Kernel 7 against its plain version at each of its seven calls a
+    chunk (S*T = 256 frames) at 256x256 and 512x512, f32 and bf16: exact
+    where the mode has no tanh, within 2 units of the output type's last
+    place where it has; each call timed (CUDA events) beside its bytes
+    bound (the convolution's output read once, the result written once),
+    and in bf16 beside the chain PyTorch ran before the fold (bias add,
+    BatchNorm in eval, max-pool, activation)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vad_tpu_torch.ops import _build
+    from vad_tpu_torch.ops.block_epilogue import block_epilogue, block_epilogue_ref
+
+    n = S * T
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out = {}
+    for image in (IMAGE, HIGH_RES):
+        for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            calls, totals = [], {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
+                                 "library_ms": 0.0}
+            for mode, c, side in epilogue_calls(image):
+                y = torch.randn((n, side, side, c), generator=g, device="cuda").to(dtype)
+                y = y.permute(0, 3, 1, 2)
+                b = torch.randn(c, generator=g, device="cuda")
+                got = block_epilogue(y, b, mode)
+                want = block_epilogue_ref(y, b, mode)
+                torch.cuda.synchronize()
+                if mode == "last":
+                    err, ok = close(got, want, dict(rtol=0.0, atol=2 * torch.finfo(dtype).eps))
+                else:
+                    err, ok = float((got.float() - want.float()).abs().max()), torch.equal(got,
+                                                                                           want)
+                nbytes = (y.numel() + got.numel()) * y.element_size() + c * 4
+                rec = {"mode": mode, "shape": [n, side, side, c], "max_abs_err": err, "ok": ok,
+                       "ms": time_ms(lambda: block_epilogue(y, b, mode)),
+                       "bound_ms": nbytes / peak_bw * 1e3, "bytes": nbytes}
+                rec["roofline"] = rec["bound_ms"] / rec["ms"]
+                if image == IMAGE:
+                    rec["plain_ms"] = time_ms(lambda: block_epilogue_ref(y, b, mode), iters=3)
+                if dtype == torch.bfloat16:
+                    bb = b.to(dtype)[None, :, None, None]
+                    stats = [torch.rand(c, generator=g, device="cuda").to(dtype) + 0.5
+                             for _ in range(4)]
+
+                    def library():  # the module path after the convolution
+                        z = y + bb
+                        if mode == "last":
+                            return torch.tanh(z)
+                        z = F.batch_norm(z, stats[0], stats[1], stats[2], stats[3], False,
+                                         0.0, 1e-5)
+                        if mode == "decoder":
+                            return F.relu(z)
+                        return F.leaky_relu(F.max_pool2d(z, 2), 0.2)
+
+                    rec["library_ms"] = time_ms(library, iters=10)
+                for k in totals:
+                    totals[k] += rec.get(k, 0.0)
+                calls.append(rec)
+                del y, got, want
+            summary = {"phase": "kernel_check", "kernel": "block_epilogue", "dtype": label,
+                       "image": image, "frames": n, "calls": calls,
+                       "max_abs_err": max(r["max_abs_err"] for r in calls),
+                       "ok": all(r["ok"] for r in calls), "bound_by": "bytes",
+                       "roofline": totals["bound_ms"] / totals["ms"],
+                       **{k: v for k, v in totals.items() if v}}
+            if image == IMAGE and label == "bf16":
+                ptxas = ptxas_summary(_build.build_log.get("block_epilogue", {}).get("log", ""))
+                summary["ptxas"] = ptxas
+                out = summary
+            emit(summary)
+            require(summary["ok"], f"block_epilogue {label} at {image}x{image} vs plain version")
     return out
 
 
@@ -795,7 +887,7 @@ def phase_main_path() -> dict:
     from vad_tpu_torch.core.config import VideoAEConfig
     from vad_tpu_torch.eval.serving import MultiStreamScorer
     from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
-    from vad_tpu_torch.ops import convlstm, encoder_fused
+    from vad_tpu_torch.ops import block_epilogue, convlstm, encoder_fused
 
     cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -819,11 +911,14 @@ def phase_main_path() -> dict:
     idle_before = [(h[S - 1].clone(), c[S - 1].clone()) for h, c in main.states]
     convlstm.convlstm_recurrence.launches = 0
     encoder_fused.fused_first_block.launches = 0
+    block_epilogue.block_epilogue.launches = 0
     scores = drive(main)
     torch.cuda.synchronize()
     launches = {"convlstm_serving": convlstm.convlstm_recurrence.launches,
-                "first_block": encoder_fused.fused_first_block.launches}
-    require(all(v > 0 for v in launches.values()), f"both kernels launched: {launches}")
+                "first_block": encoder_fused.fused_first_block.launches,
+                "block_epilogue": block_epilogue.block_epilogue.launches}
+    require(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
+    require(launches["block_epilogue"] == 7 * CHUNKS, f"seven epilogues a chunk: {launches}")
     require(scores.shape == (CHUNKS, S, T) and bool(np.isfinite(scores).all()), "finite scores")
     idle_same = all(torch.equal(h[S - 1], h0) and torch.equal(c[S - 1], c0)
                     for (h, c), (h0, c0) in zip(main.states, idle_before))
@@ -891,7 +986,7 @@ def phase_main_path_512() -> dict:
     from vad_tpu_torch.core.config import VideoAEConfig
     from vad_tpu_torch.eval.serving import MultiStreamScorer
     from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
-    from vad_tpu_torch.ops import convlstm, encoder_fused
+    from vad_tpu_torch.ops import block_epilogue, convlstm, encoder_fused
 
     cfg = VideoAEConfig(image_size=HIGH_RES, sequence_length=T)
     lat = HIGH_RES // 16
@@ -913,12 +1008,15 @@ def phase_main_path_512() -> dict:
     require(main.fused_input, "fused_input is on at 512x512")
     convlstm.convlstm_recurrence.launches = 0
     encoder_fused.fused_first_block.launches = 0
+    block_epilogue.block_epilogue.launches = 0
     scores = np.stack([main.score_chunk(chunks[i]) for i in range(CHUNKS)])
     torch.cuda.synchronize()
     launches = {"convlstm_serving": convlstm.convlstm_recurrence.launches,
-                "first_block": encoder_fused.fused_first_block.launches}
+                "first_block": encoder_fused.fused_first_block.launches,
+                "block_epilogue": block_epilogue.block_epilogue.launches}
     layers = len(main.states)
-    expect = {"convlstm_serving": CHUNKS * layers * plan.launches, "first_block": CHUNKS}
+    expect = {"convlstm_serving": CHUNKS * layers * plan.launches, "first_block": CHUNKS,
+              "block_epilogue": 7 * CHUNKS}
     require(launches == expect, f"512x512 scorer launches {launches}, planned {expect}")
     require(scores.shape == (CHUNKS, S, T) and bool(np.isfinite(scores).all()), "finite scores")
     with plain_versions():
@@ -4133,8 +4231,13 @@ def main() -> int:
     script_start = time.perf_counter()
     name, peak_flops, peak_bw, f32_flops, card = phase_device()
     phase_build()
+    if sys.argv[1:2] == ["--block-epilogue"]:
+        phase_block_epilogue(peak_bw)
+        emit({"phase": "script", "seconds": time.perf_counter() - script_start})
+        return 0
     checks = {"convlstm_serving": phase_convlstm(peak_flops, peak_bw, f32_flops),
-              "first_block": phase_first_block(peak_flops, peak_bw)}
+              "first_block": phase_first_block(peak_flops, peak_bw),
+              "block_epilogue": phase_block_epilogue(peak_bw)}
     checks.update(phase_train_kernels(peak_flops, peak_bw, f32_flops))
     large = phase_large_frames(peak_flops, peak_bw)
     phase_weight_cache()
@@ -4174,6 +4277,8 @@ def main() -> int:
          "tools/probe_pool_bwd.py:58", probes["launches"]),
         ("first_block_ablate", "vad_tpu_torch/csrc/first_block_ablate.cu",
          "tools/ablate_block1.py:40", probes["launches"]),
+        ("block_epilogue", "vad_tpu_torch/csrc/block_epilogue.cu",
+         "none (XLA fuses these passes into the convolutions)", launches),
     ):
         rec = checks[kname]
         # kernels 1-3: launches per call from their plan at the path's shape

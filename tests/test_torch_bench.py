@@ -29,7 +29,7 @@ from vad_tpu.ops import encoder_pallas
 from vad_tpu.utils.precision import cast_floating as jax_cast_floating
 from vad_tpu_torch import bench
 from vad_tpu_torch.core.config import VideoAEConfig
-from vad_tpu_torch.ops import convlstm, encoder_fused
+from vad_tpu_torch.ops import block_epilogue, convlstm, encoder_fused
 from vad_tpu_torch.ops.plain import plain_versions
 from vad_tpu_torch.utils import baseline_torch
 from vad_tpu_torch.utils.weights import load_flax_variables
@@ -215,13 +215,16 @@ def test_scoring_step_refusals():
 
 def test_plain_versions_restore_the_kernels_after_an_exception():
     kernel_1, kernel_4 = convlstm.convlstm_recurrence, encoder_fused.fused_first_block
+    kernel_7 = block_epilogue.block_epilogue
     with pytest.raises(RuntimeError, match="inside"):
         with plain_versions():
             assert convlstm.convlstm_recurrence is convlstm.convlstm_recurrence_ref
             assert encoder_fused.fused_first_block is encoder_fused.fused_first_block_ref
+            assert block_epilogue.block_epilogue is block_epilogue.block_epilogue_ref
             raise RuntimeError("inside")
     assert convlstm.convlstm_recurrence is kernel_1
     assert encoder_fused.fused_first_block is kernel_4
+    assert block_epilogue.block_epilogue is kernel_7
 
 
 def test_plain_step_routes_only_its_own_calls(monkeypatch):

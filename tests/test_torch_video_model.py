@@ -23,6 +23,7 @@ from vad_tpu.ops import encoder_pallas
 from vad_tpu.utils.precision import cast_floating
 from vad_tpu_torch.core.config import VideoAEConfig
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+from vad_tpu_torch.ops.block_epilogue import fold_blocks
 from vad_tpu_torch.ops.encoder_fused import fold_from_variables
 from vad_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
 
@@ -111,7 +112,10 @@ def test_stream_step_matches_jax(norm, stem, hidden, layers):
 @pytest.mark.parametrize("hidden,layers", [(32, 1), (48, 2)])
 def test_stream_step_u8_matches_jax(monkeypatch, hidden, layers):
     """Raw-byte path: the fused u8 input block (Pallas kernel in interpreter
-    mode on the JAX side) + blocks 2-4 + ConvLSTM + decoder + flat error."""
+    mode on the JAX side) + blocks 2-4 + ConvLSTM + decoder + flat error;
+    the port's blocks 2-4 and decoder with inference BatchNorm folded in
+    and each block ended by the epilogue's plain form, as the scorer runs
+    them."""
     import jax.experimental.pallas as pl
 
     monkeypatch.setattr(encoder_pallas.pl, "pallas_call",
@@ -125,15 +129,17 @@ def test_stream_step_u8_matches_jax(monkeypatch, hidden, layers):
             jnp.asarray(bias_folded), method=JaxVAE.stream_step_u8,
         )
     w, b = fold_from_variables(variables)
+    folded = fold_blocks(tmodel.state_dict(), torch.float32)
     tr, te, ts, tstates = tmodel.stream_step_u8(torch.from_numpy(u8),
-                                                tmodel.zero_state(B, SIZE, SIZE), w, b)
+                                                tmodel.zero_state(B, SIZE, SIZE), w, b, folded)
     assert tr.shape == (B, T, SIZE, SIZE * 3) and te.shape == (B, T, SIZE, SIZE)
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), **F32)
     np.testing.assert_allclose(te.numpy(), np.asarray(je), **F32)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), **F32)
     assert_states(tstates, jstates, F32)
     _, none_map, ts2, _ = tmodel.stream_step_u8(
-        torch.from_numpy(u8), tmodel.zero_state(B, SIZE, SIZE), w, b, compute_err_map=False)
+        torch.from_numpy(u8), tmodel.zero_state(B, SIZE, SIZE), w, b, folded,
+        compute_err_map=False)
     assert none_map is None
     torch.testing.assert_close(ts2, ts)
 
@@ -143,7 +149,8 @@ def test_stream_step_u8_refuses_stride2():
     w, b = fold_from_variables(variables)
     u8 = torch.zeros((1, 1, SIZE, SIZE * 3), dtype=torch.uint8)
     with pytest.raises(ValueError, match="stride2"):
-        tmodel.stream_step_u8(u8, tmodel.zero_state(1, SIZE, SIZE), w, b)
+        tmodel.stream_step_u8(u8, tmodel.zero_state(1, SIZE, SIZE), w, b,
+                              fold_blocks(tmodel.state_dict(), torch.float32))
 
 
 @pytest.mark.parametrize("norm", ["batch", "group"])

@@ -21,8 +21,8 @@ line names the card (``torch.cuda.get_device_name``) and its power limit
 that run on it (kernel numbers as in ``PERF.md``):
 
 - ``fused input block + recurrence kernel, bf16`` (JAX: ``fused input
-  block + fused-pallas recurrence, bf16``): ``stream_step_u8``, kernels 4
-  and 1;
+  block + fused-pallas recurrence, bf16``): ``stream_step_u8``, kernels 4,
+  1 and 7;
 - ``recurrence kernel, bf16`` (``fused-pallas recurrence, bf16``):
   normalize, then ``stream_step``, kernel 1;
 - ``plain recurrence, bf16`` (``xla scan recurrence, bf16``): the same
@@ -75,6 +75,7 @@ from vad_tpu_torch.core.config import ImageAEConfig, VideoAEConfig
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.models.autoencoder import ConvAutoencoder
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_training_weights
+from vad_tpu_torch.ops.block_epilogue import fold_blocks
 from vad_tpu_torch.ops.encoder_fused import fold_from_variables
 from vad_tpu_torch.ops.plain import plain_versions
 from vad_tpu_torch.utils.precision import tf32_off
@@ -259,8 +260,9 @@ def scoring_step(model: VideoAutoencoder, form: str = "kernel",
     is left as it is), the carried (h, c) in f32 (``MultiStreamScorer``'s
     policy).  ``form``:
 
-    - ``"fused"``: ``stream_step_u8`` through the fused input block, its
-      weights folded from the f32 model (kernels 4 and 1 on the card);
+    - ``"fused"``: ``stream_step_u8`` through the fused input block, with
+      inference BatchNorm folded from the f32 model into it and into the
+      later blocks (kernels 4, 1 and 7 on the card), as the scorer runs it;
     - ``"kernel"``: normalize in ``dtype``, then ``stream_step`` (kernel 1);
     - ``"plain"``: the kernel form with the recurrence on its plain
       version, inside ``plain_versions()`` for the call only."""
@@ -270,6 +272,7 @@ def scoring_step(model: VideoAutoencoder, form: str = "kernel",
     if form == "fused":
         w_folded, b_folded = (t.to(model.device)
                               for t in fold_from_variables(state_dict_to_flax(model)))
+        folded = fold_blocks(model.state_dict(), dtype, model.device)
     route = plain_versions if form == "plain" else nullcontext
 
     @torch.inference_mode()
@@ -278,7 +281,7 @@ def scoring_step(model: VideoAutoencoder, form: str = "kernel",
             if form == "fused":
                 s, t, h, w, _ = u8.shape
                 _, _, scores, new_states = served.stream_step_u8(
-                    u8.reshape(s, t, h, w * 3), states, w_folded, b_folded, False,
+                    u8.reshape(s, t, h, w * 3), states, w_folded, b_folded, folded, False,
                     out_dtype=dtype)
             else:
                 x = u8.to(dtype) / 127.5 - 1.0

@@ -8,7 +8,7 @@ fixed at construction.
 
 With a ``mesh`` (one process, ``parallel.sharding.get_mesh``) the slots
 split over its 'data' axis: one model replica per device there, each with
-``num_slots / d`` slots, its own carried (h, c) and its own folded kernel-4
+``num_slots / d`` slots, its own carried (h, c) and its own folded
 weights (refolded on reload).  Streams never mix, so there are no
 collectives; every replica's launches are issued before any result is
 read.
@@ -38,6 +38,7 @@ from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.eval.staging import StagedCopy
 from vad_tpu_torch.models.memae import MemAutoencoder
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
+from vad_tpu_torch.ops.block_epilogue import fold_blocks
 from vad_tpu_torch.ops.encoder_fused import fold_first_block
 from vad_tpu_torch.parallel.sharding import (
     DATA_AXIS,
@@ -55,7 +56,7 @@ from vad_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
 
 class _Replica:
     """One model copy on one device serving the slots ``[lo, hi)``: its
-    carried (h, c) and its folded first-block weights."""
+    carried (h, c) and, with the fused input block, its folded weights."""
 
     def __init__(self, model: VideoAutoencoder, device: torch.device, lo: int, hi: int,
                  hw, fused_input: bool, dtype: torch.dtype, return_maps: bool) -> None:
@@ -71,9 +72,12 @@ class _Replica:
             c[k] = 0
 
     def fold(self, state_dict: Mapping[str, torch.Tensor]) -> None:
-        """(Re)fold the first block's weights (kept f32) from a model state
-        dict: the eager step reads them on every call, so a reload applies
-        to them too."""
+        """(Re)fold inference BatchNorm from a model state dict taken before
+        the serving cast: into the first block's weights for kernel 4 (kept
+        f32), and into encoder blocks 2-4 and the decoder (weights in the
+        scoring type, biases f32), whose blocks then end in one epilogue
+        pass each (``ops/block_epilogue.py``).  The eager step reads them on
+        every call, so a reload applies to them too."""
         if not self.fused_input:
             return
         w, b = fold_first_block(
@@ -82,6 +86,7 @@ class _Replica:
                 "norms.0.running_var", "norms.0.weight", "norms.0.bias")),
         )
         self.w_folded, self.b_folded = w.to(self.device), b.to(self.device)
+        self.folded = fold_blocks(state_dict, self.dtype, self.device)
 
     @torch.no_grad()
     def forward(self, u8: torch.Tensor):
@@ -92,7 +97,7 @@ class _Replica:
         if self.fused_input:
             recon, err, scores, new_states = self.model.stream_step_u8(
                 u8.reshape(s, t, h, w * 3), self.states, self.w_folded, self.b_folded,
-                self.return_maps, out_dtype=self.dtype,
+                self.folded, self.return_maps, out_dtype=self.dtype,
             )
             return recon.reshape(u8.shape), err, scores, new_states
         x = u8.to(self.dtype) / 127.5 - 1.0
@@ -253,8 +258,11 @@ class MultiStreamScorer:
             the carried (h, c), and a clip model's memory read, stay f32
             whatever it is.
         fused_input: run normalize + conv1 + BN + max-pool + LeakyReLU as
-            the fused u8 input block.  ``None`` means on when the device is
-            CUDA and the model has ``norm='batch'`` and ``stem='pool'``.
+            the fused u8 input block, and encoder blocks 2-4 and the
+            decoder with inference BatchNorm folded into their
+            convolutions, each ending in one epilogue pass
+            (``ops/block_epilogue.py``).  ``None`` means on when the device
+            is CUDA and the model has ``norm='batch'`` and ``stem='pool'``.
         device: ``None`` means CUDA (raises when there is none); with a
             ``mesh``, its first device along 'data'.
         mesh: a one-process ``parallel.sharding.Mesh``: the slots split

@@ -33,6 +33,7 @@ from torch import nn
 from vad_tpu_torch.core.config import VideoAEConfig
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.models.norms import make_norm
+from vad_tpu_torch.ops import block_epilogue as epilogue_ops
 from vad_tpu_torch.ops import convlstm as convlstm_ops
 from vad_tpu_torch.ops import encoder_fused
 from vad_tpu_torch.ops.decoder_fast import decode_quadtree, quadtree_view, raster_from_quadtree
@@ -161,12 +162,9 @@ class VideoEncoder(nn.Module):
         )
         self.norms = nn.ModuleList(make_norm(norm, co) for co in widths)
 
-    def forward(self, x: torch.Tensor, *, skip_first_block: bool = False,
-                return_pyramid: bool = False):
+    def forward(self, x: torch.Tensor, *, return_pyramid: bool = False):
         """``[N,H,W,C]`` or ``[B,T,H,W,C]`` -> features of the same rank.
 
-        ``skip_first_block``: ``x`` is already the first block's pooled
-        32-channel output (the fused u8 input block) — run blocks 2-4.
         ``return_pyramid``: also return every block's output, in block
         order (the finest first), with the leading dims of ``x`` (the latent
         scorer's input)."""
@@ -174,9 +172,7 @@ class VideoEncoder(nn.Module):
         y = _nchw(x)
         pyramid = []
         with span("vad.model.encoder"):
-            for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
-                if i == 0 and skip_first_block:
-                    continue
+            for conv, norm in zip(self.convs, self.norms):
                 if self.stem == "stride2":
                     y = F.pad(y, (0, 1, 0, 1))
                 y = norm(conv(y))
@@ -195,6 +191,20 @@ class VideoEncoder(nn.Module):
         if seq is not None:
             pyramid = [f.reshape(*seq, *f.shape[1:]) for f in pyramid]
         return out, tuple(pyramid)
+
+    def forward_folded(self, z1: torch.Tensor, layers) -> torch.Tensor:
+        """Blocks 2-4 of the pool stem with inference BatchNorm folded in:
+        ``z1 [B,T,H,W,C1]`` is the fused first block's output, ``layers``
+        the ``encoder`` of ``ops/block_epilogue.fold_blocks``.  Each block is
+        the bias-free convolution, then one epilogue pass (2x2 max-pool,
+        the folded bias, LeakyReLU)."""
+        x, seq = _flatten_time(z1)
+        y = _nchw(x)
+        with span("vad.model.encoder"):
+            for w, b in layers:
+                y = epilogue_ops.block_epilogue(F.conv2d(y, w, None, padding=1), b, "encoder")
+        out = _nhwc(y)
+        return out if seq is None else out.reshape(*seq, *out.shape[1:])
 
 
 class VideoDecoder(nn.Module):
@@ -217,6 +227,20 @@ class VideoDecoder(nn.Module):
             for deconv, norm in zip(self.deconvs[:-1], self.norms):
                 y = F.relu(norm(deconv(y)))
             out = _nhwc(torch.tanh(self.deconvs[-1](y)))
+        return out if seq is None else out.reshape(*seq, *out.shape[1:])
+
+    def forward_folded(self, z: torch.Tensor, layers) -> torch.Tensor:
+        """``forward`` with inference BatchNorm folded in: ``layers`` the
+        ``decoder`` of ``ops/block_epilogue.fold_blocks``.  Each layer is
+        the bias-free ConvTranspose, then one epilogue pass (the folded
+        bias and ReLU; the last layer's own bias and tanh)."""
+        z, seq = _flatten_time(z)
+        y = _nchw(z)
+        with span("vad.model.decoder"):
+            for i, (w, b) in enumerate(layers):
+                mode = "last" if i == len(layers) - 1 else "decoder"
+                y = epilogue_ops.block_epilogue(F.conv_transpose2d(y, w, None, stride=2), b, mode)
+            out = _nhwc(y)
         return out if seq is None else out.reshape(*seq, *out.shape[1:])
 
 
@@ -297,15 +321,19 @@ class VideoAutoencoder(nn.Module):
         return recon, err, torch.mean(err, dim=(2, 3)), new_states
 
     def stream_step_u8(self, u8_flat: torch.Tensor, states, w_folded: torch.Tensor,
-                       b_folded: torch.Tensor, compute_err_map: bool = True,
+                       b_folded: torch.Tensor, folded: epilogue_ops.FoldedBlocks,
+                       compute_err_map: bool = True,
                        out_dtype: Optional[torch.dtype] = None):
         """``stream_step`` on raw interleaved-RGB bytes ``[B,T,H,W*3]``
         through the fused u8 input block.
 
         ``w_folded, b_folded``: from ``ops/encoder_fused.fold_first_block``.
         ``out_dtype`` (default: ``w_folded``'s type) is the compute type of
-        everything after the fused block.  Returns ``(recon_flat
-        [B,T,H,W*3], err_map or None, frame_scores, new_states)``."""
+        everything after the fused block.  ``folded``: from
+        ``ops/block_epilogue.fold_blocks`` (weights in ``out_dtype``): the
+        encoder's blocks 2-4 and the decoder run with inference BatchNorm
+        folded in, each ending in one epilogue pass.  Returns ``(recon_flat [B,T,H,W*3], err_map or
+        None, frame_scores, new_states)``."""
         if self.stem != "pool":
             raise ValueError(
                 "stream_step_u8's fused input block computes conv1+max-pool; "
@@ -316,9 +344,9 @@ class VideoAutoencoder(nn.Module):
         z1 = encoder_fused.fused_first_block(
             u8_flat.reshape(b * t, h, w3 // 3, 3), w_folded, b_folded, out_dtype=dtype
         )
-        z = self.encoder(z1.reshape(b, t, *z1.shape[1:]), skip_first_block=True)
+        z = self.encoder.forward_folded(z1.reshape(b, t, *z1.shape[1:]), folded.encoder)
         z, new_states = self._temporal(z, states)
-        rf = self.decoder(z).reshape(b, t, h, w3)
+        rf = self.decoder.forward_folded(z, folded.decoder).reshape(b, t, h, w3)
         xf = u8_flat.to(dtype) / 127.5 - 1.0
         sq = torch.square(xf - rf)
         frame_scores = torch.mean(sq, dim=(2, 3))  # over H, W*3 == frame mean
