@@ -62,8 +62,8 @@ then drives four paths at the default video model's full width:
   with kernel 1 inside, each loaded in a fresh process and held against
   direct scorers; a symbolic-batch image artifact against
   ``reconstruction_error``), ``python -m vad_tpu_torch.utils.torch_import``
-  both ways through reference-layout modules, ``stream_step_fast``
-  against ``stream_step``, ``python -m vad_tpu_torch.train_video`` with
+  both ways through reference-layout modules, ``python -m
+  vad_tpu_torch.train_video`` with
   ``--tensorboard --profile-dir --debug-nans`` (a trace naming kernels 2
   and 3), and the UI's logic on both checkpoints;
 - accuracy: one draw of ``tools/parity/run_parity.py``'s ``video_synthetic``
@@ -562,11 +562,14 @@ def epilogue_calls(image: int) -> list:
     the convolution's output)``."""
     import torch
 
-    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
-    from vad_tpu_torch.ops.block_epilogue import fold_blocks, step_calls
+    from vad_tpu_torch.models.video_autoencoder import (
+        VideoAutoencoder,
+        fold_for_scoring,
+        step_calls,
+    )
 
     model = VideoAutoencoder(device="cpu")
-    return step_calls(fold_blocks(model.state_dict(), torch.float32), image)
+    return step_calls(fold_for_scoring(model.state_dict(), torch.float32), image)
 
 
 def phase_block_epilogue(peak_bw: float) -> dict:
@@ -2471,10 +2474,11 @@ def phase_serve(card: str, video_ckpt: Path, image: dict) -> dict:
         slots = threaded(lambda c: c.attach(), [(c,) for c in clients])
         require(sorted(slots) == list(range(S)), f"16 streams got the 16 slots: {slots}")
         served = threaded(stream, [(k, 0, SERVE_RELOAD_AT) for k in range(S)])
-        folded = scorer._w_folded.clone()
+        folded = scorer._replicas[0].folded.first[0].clone()
         reply = clients[0].reload(str(reload_path))
         require(reply == {"reloaded": str(reload_path), "model_type": "video"}, f"reload {reply}")
-        require(not torch.equal(scorer._w_folded, folded), "the reload refolded kernel 4's weights")
+        require(not torch.equal(scorer._replicas[0].folded.first[0], folded),
+                "the reload refolded kernel 4's weights")
         served = [np.concatenate([a, b]) for a, b in zip(served, threaded(
             stream, [(k, SERVE_RELOAD_AT, SERVE_CHUNKS) for k in range(S)]))]
         sent["video"] += S * SERVE_CHUNKS
@@ -2498,7 +2502,8 @@ def phase_serve(card: str, video_ckpt: Path, image: dict) -> dict:
             for k in range(S):
                 want[k, i] = scores[slots[k]]
         served = np.stack(served)
-        require(torch.equal(direct._w_folded, scorer._w_folded),
+        require(all(torch.equal(a, b) for a, b in zip(direct._replicas[0].folded.first,
+                                                      scorer._replicas[0].folded.first)),
                 "daemon and direct scorer fold the same kernel-4 weights after the reload")
         streams_cmp = {"before_reload": agree(served[:, :SERVE_RELOAD_AT],
                                               want[:, :SERVE_RELOAD_AT]),
@@ -2997,76 +3002,6 @@ def phase_reference_import(card: str, video_ckpt: Path, image: dict, workdir: Pa
     require(launches > 0, "the port's video forward went through kernel 1")
     emit({"phase": "reference_import", "card": card, **out, "launches": launches,
           "seconds": time.perf_counter() - phase_start})
-    return {"launches": launches}
-
-
-def phase_stream_step_fast(card: str) -> dict:
-    """``VideoAutoencoder.stream_step_fast`` (the decoder as four folded
-    quadtree products) against ``stream_step`` at full width, S=16, T=16,
-    256x256, bf16, seeded weights, state threaded over ``CHUNKS`` chunks:
-    scores and each layer's carried (h, c) at the bf16 bar, kernel 1's
-    launches, and both steps' frames/s (device-resident input, the scores
-    brought to the host)."""
-    import torch
-
-    from vad_tpu_torch.core.config import VideoAEConfig
-    from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
-    from vad_tpu_torch.ops.decoder_fast import fold_decoder_params
-    from vad_tpu_torch.utils.weights import state_dict_to_flax
-
-    phase_start = time.perf_counter()
-    cfg = VideoAEConfig(image_size=IMAGE, sequence_length=T)
-    model = init_weights(VideoAutoencoder.from_config(cfg, device="cpu"), SEED)
-    folded = fold_decoder_params(state_dict_to_flax(model), torch.bfloat16, "cuda")
-    model = model.to(device="cuda", dtype=torch.bfloat16).eval()
-    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
-    chunks = torch.randint(0, 256, (CHUNKS, S, T, IMAGE, IMAGE, 3), generator=g, device="cuda",
-                           dtype=torch.uint8)
-    xs = [c.to(torch.bfloat16) / 127.5 - 1.0 for c in chunks]
-
-    def run(fast: bool):
-        states, scores = model.zero_state(S, IMAGE, IMAGE), []
-        for x in xs:
-            if fast:
-                _, _, fs, states = model.stream_step_fast(x, states, folded, False)
-            else:
-                _, _, fs, states = model.stream_step(x, states)
-            scores.append(fs.float())
-        return torch.stack(scores), states
-
-    with torch.no_grad():
-        (fast_scores, fast_states), _, fast_launches = counted(lambda: run(True))
-        ref_scores, ref_states = run(False)
-        cmp = {"scores": agree(fast_scores, ref_scores)}
-        for i, ((h, c), (rh, rc)) in enumerate(zip(fast_states, ref_states)):
-            cmp[f"layer{i}_h"], cmp[f"layer{i}_c"] = agree(h, rh), agree(c, rc)
-        states = model.zero_state(S, IMAGE, IMAGE)
-        steps = {"stream_step": lambda i: model.stream_step(xs[i % CHUNKS], states)[2].cpu(),
-                 "stream_step_fast": lambda i: model.stream_step_fast(
-                     xs[i % CHUNKS], states, folded, False)[2].cpu()}
-        fps = {}
-        for _ in range(2):  # in turns: step, fast, step, fast
-            for label, step in steps.items():
-                for i in range(2):
-                    step(i)
-                torch.cuda.synchronize()
-                n = 10
-                start = time.perf_counter()
-                for i in range(n):
-                    step(i)
-                fps.setdefault(label, []).append(n * S * T / (time.perf_counter() - start))
-    launches = fast_launches["convlstm_serving"]
-    record = {"phase": "stream_step_fast", "card": card, "streams": S, "chunk": T,
-              "image": IMAGE, "dtype": "bfloat16", "chunks": CHUNKS, "compare": cmp,
-              "launches": launches, "frames_per_s": fps,
-              "fast_over_step": [f / s for f, s in zip(fps["stream_step_fast"],
-                                                       fps["stream_step"])],
-              "seconds": time.perf_counter() - phase_start}
-    emit(record)
-    require(all(r["ok"] for r in cmp.values()),
-            f"stream_step_fast vs stream_step within {BF16_BAR}: {cmp}")
-    require(launches == CHUNKS * cfg.lstm_layers, f"stream_step_fast launched kernel 1 once a "
-                                                  f"layer a chunk: {launches}")
     return {"launches": launches}
 
 
@@ -4254,7 +4189,6 @@ def main() -> int:
         work = Path(tmp)
         export = phase_export(card, best_ckpt, image, work / "export")
         reference = phase_reference_import(card, best_ckpt, image, work / "reference")
-        fast = phase_stream_step_fast(card)
         profiling = phase_profiling(card, work / "profiling")
         ui = phase_ui(card, best_ckpt, image, profiling["data"], work / "ui")
         accuracy = phase_accuracy(card, work / "accuracy")
@@ -4313,10 +4247,9 @@ def main() -> int:
         if kname == "first_block":  # kernel 4 is off under the row split, as in JAX
             kernels[-1]["spatial_launches"] = spatial["first_block_launches"]
             kernels[-1]["main_path_512_launches"] = high_res["launches"][kname]
-            # the artifacts' loading processes, stream_step_fast, the UI's
-            # analyze_video and the port's forward beside the reference layout
-            kernels[-1].update(export_launches=export["launches"],
-                               fast_launches=fast["launches"], ui_launches=ui["launches"],
+            # the artifacts' loading processes, the UI's analyze_video and
+            # the port's forward beside the reference layout
+            kernels[-1].update(export_launches=export["launches"], ui_launches=ui["launches"],
                                reference_import_launches=reference["launches"])
         if kname in ("convlstm_train_forward", "convlstm_backward"):  # the profiled CLI run
             kernels[-1]["profiling_launches"] = profiling["launches"][kname]

@@ -17,7 +17,12 @@ import torch
 import torch.nn.functional as F
 
 from vad_tpu_torch.eval.serving import MultiStreamScorer
-from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
+from vad_tpu_torch.models.video_autoencoder import (
+    VideoAutoencoder,
+    fold_for_scoring,
+    init_weights,
+    step_calls,
+)
 from vad_tpu_torch.ops import block_epilogue as ep
 from vad_tpu_torch.utils.weights import state_dict_to_flax
 
@@ -81,7 +86,7 @@ def test_folded_block_matches_the_module_path(mode, dtype):
     module path as the module path run in bf16 (which rounds after the
     bias, BatchNorm and pool as well)."""
     model = _model(1)
-    folded = ep.fold_blocks(model.state_dict(), dtype)
+    folded = fold_for_scoring(model.state_dict(), dtype)
     model_low = _model(1).to(dtype)
     for n, (i, side) in enumerate(LAYERS[mode]):
         y = _input(model, mode, i, side, n)
@@ -115,8 +120,9 @@ def test_epilogue_rounds_once_from_f32(mode):
 def test_fold_leaves_the_last_layer_and_casts():
     model = _model(2)
     sd = model.state_dict()
-    folded = ep.fold_blocks(sd, torch.bfloat16)
+    folded = fold_for_scoring(sd, torch.bfloat16)
     assert len(folded.encoder) == 3 and len(folded.decoder) == 4
+    assert all(t.dtype == torch.float32 for t in folded.first)  # kernel 4 takes f32
     assert all(w.dtype == torch.bfloat16 and b.dtype == torch.float32
                for w, b in (*folded.encoder, *folded.decoder))
     w, b = folded.decoder[-1]
@@ -124,8 +130,23 @@ def test_fold_leaves_the_last_layer_and_casts():
     assert torch.equal(b, sd["decoder.deconvs.3.bias"])
     # a ConvTranspose2d weight scales along dim 1, a Conv2d weight along dim 0
     s = sd["decoder.norms.0.weight"] / torch.sqrt(sd["decoder.norms.0.running_var"] + ep.BN_EPS)
-    torch.testing.assert_close(ep.fold_blocks(sd, torch.float32).decoder[0][0],
+    torch.testing.assert_close(fold_for_scoring(sd, torch.float32).decoder[0][0],
                                sd["decoder.deconvs.0.weight"] * s[None, :, None, None])
+
+
+def test_bf16_fold_no_worse_than_bf16_decoder():
+    """In bf16 the folded decoder (``forward_folded``) is no further from
+    the f32 module decoder than the bf16 module decoder it replaces."""
+    model = _model(8)
+    g = torch.Generator().manual_seed(9)
+    z = torch.randn((2, 4, 4, LATENT), generator=g)
+    folded = fold_for_scoring(model.state_dict(), torch.bfloat16)
+    with torch.no_grad():
+        ref32 = model.decoder(z)
+        got = model.decoder.forward_folded(z.bfloat16(), folded.decoder).float()
+        refb = model.to(torch.bfloat16).decoder(z.bfloat16()).float()
+    assert got.shape == ref32.shape
+    assert float((got - ref32).abs().max()) <= float((refb - ref32).abs().max()) * 1.2 + 1e-4
 
 
 def _scorers(seed: int):
@@ -160,7 +181,7 @@ def test_fused_scorer_takes_the_folded_path_and_agrees_with_the_modules(monkeypa
                         or ep.block_epilogue_ref(y, b, mode))
     _agree(fused, modules, 7, chunks=1)
     assert [mode for mode, _, _ in calls] == ["encoder"] * 3 + ["decoder"] * 3 + ["last"]
-    assert calls == ep.step_calls(fused._replicas[0].folded, SIZE)
+    assert calls == step_calls(fused._replicas[0].folded, SIZE)
     monkeypatch.undo()
     _agree(fused, modules, 8)
 
@@ -174,10 +195,10 @@ def test_reload_refolds_every_block():
     variables = state_dict_to_flax(other)
     for sc in (fused, modules):
         sc.reload_variables(variables)
-    refolded = ep.fold_blocks(other.state_dict(), torch.float32)
-    for (w, b), (w_new, b_new) in zip((*fused._replicas[0].folded.encoder,
-                                       *fused._replicas[0].folded.decoder),
-                                      (*refolded.encoder, *refolded.decoder)):
+    refolded = fold_for_scoring(other.state_dict(), torch.float32)
+    served = fused._replicas[0].folded
+    for (w, b), (w_new, b_new) in zip((served.first, *served.encoder, *served.decoder),
+                                      (refolded.first, *refolded.encoder, *refolded.decoder)):
         torch.testing.assert_close(w, w_new, rtol=1e-6, atol=1e-7)
         torch.testing.assert_close(b, b_new, rtol=1e-6, atol=1e-7)
     _agree(fused, modules, 10)
@@ -187,7 +208,7 @@ def _cell_calls(image: int):
     """The seven calls of a chunk at a scoring cell's shape: the published
     widths (``VideoAutoencoder()``) on ``image x image`` frames."""
     model = VideoAutoencoder(device="cpu")
-    return ep.step_calls(ep.fold_blocks(model.state_dict(), torch.float32), image)
+    return step_calls(fold_for_scoring(model.state_dict(), torch.float32), image)
 
 
 @pytest.mark.card

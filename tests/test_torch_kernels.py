@@ -20,11 +20,14 @@ import torch
 from vad_tpu.ops import convlstm_pallas, encoder_pallas
 from vad_tpu.ops.convlstm_pallas import convlstm_recurrence_pallas
 from vad_tpu.ops.encoder_pallas import fold_first_block_params
+from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, fold_for_scoring
 from vad_tpu_torch.ops import encoder_fused
+from vad_tpu_torch.ops.block_epilogue import fold_conv_bn
 from vad_tpu_torch.ops.convlstm import convlstm_recurrence, convlstm_recurrence_ref
 from vad_tpu_torch.ops.encoder_fused import (
+    IN_SCALE,
+    IN_SHIFT,
     fold_first_block,
-    fold_from_variables,
     fused_first_block,
     fused_first_block_ref,
 )
@@ -218,25 +221,46 @@ def test_output_views_as_channels_last():
     assert nchw.data_ptr() == out.data_ptr()
 
 
-def test_fold_from_variables_matches_fold():
+def test_fold_for_scoring_first_matches_fold():
+    """The scorer's fold of the first block is ``fold_first_block`` on the
+    same tensors of the state dict, bit for bit, kept f32."""
     rng = np.random.default_rng(4)
-    kernel, bias, mean, var, scale, bn_bias = block_params(rng)
-    variables = {
-        "params": {"encoder": {"Conv_0": {"kernel": kernel, "bias": bias},
-                               "BatchNorm_0": {"scale": scale, "bias": bn_bias}}},
-        "batch_stats": {"encoder": {"BatchNorm_0": {"mean": mean, "var": var}}},
-    }
-    w1, b1 = fold_from_variables(variables)
-    w2, b2 = _port_fold((kernel, bias, mean, var, scale, bn_bias))
+    kernel, bias, mean, var, scale, bn_bias = (torch.from_numpy(p) for p in block_params(rng))
+    model = VideoAutoencoder(latent_dim=32, lstm_hidden_dim=32, lstm_layers=1, device="cpu")
+    sd = model.state_dict()
+    for key, value in (("convs.0.weight", kernel.permute(3, 2, 0, 1)), ("convs.0.bias", bias),
+                       ("norms.0.running_mean", mean), ("norms.0.running_var", var),
+                       ("norms.0.weight", scale), ("norms.0.bias", bn_bias)):
+        sd[f"encoder.{key}"] = value
+    w1, b1 = fold_for_scoring(sd, torch.bfloat16).first
+    w2, b2 = fold_first_block(kernel.permute(3, 2, 0, 1), bias, mean, var, scale, bn_bias)
     assert w1.shape == (32, 3, 3, 3) and b1.shape == (32,)
-    torch.testing.assert_close(w1, w2)
-    torch.testing.assert_close(b1, b2)
+    assert w1.dtype == b1.dtype == torch.float32
+    assert torch.equal(w1, w2) and torch.equal(b1, b2)
 
 
-def test_fold_from_variables_refuses_group_norm():
-    variables = {"params": {"encoder": {"Conv_0": {}, "GroupNorm_0": {}}}}
+@pytest.mark.parametrize("stem", ["pool", "stride2"])
+def test_fold_for_scoring_refuses_group_norm(stem):
+    model = VideoAutoencoder(latent_dim=16, lstm_hidden_dim=16, lstm_layers=1, norm="group",
+                             stem=stem, device="cpu")
     with pytest.raises(ValueError, match="norm='group'"):
-        fold_from_variables(variables)
+        fold_for_scoring(model.state_dict(), torch.float32)
+
+
+def test_fold_first_block_is_fold_conv_bn_of_the_normalized_conv():
+    """The first block's fold is the BatchNorm fold of the conv on raw
+    bytes (weight scaled by 1/127.5, bias shifted by -sum(w)), bit for
+    bit, over several draws."""
+    rng = np.random.default_rng(100)
+    for _ in range(8):
+        kernel, bias, mean, var, scale, bn_bias = (torch.from_numpy(p)
+                                                   for p in block_params(rng))
+        w = kernel.permute(3, 2, 0, 1)
+        want = fold_conv_bn(w.double() * IN_SCALE,
+                            bias.double() + IN_SHIFT * w.double().sum(dim=(1, 2, 3)),
+                            mean, var, scale, bn_bias, 0)
+        got = fold_first_block(w, bias, mean, var, scale, bn_bias)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_first_block_counts_only_kernel_launches():

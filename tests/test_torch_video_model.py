@@ -22,9 +22,11 @@ from vad_tpu.models.video_autoencoder import VideoAutoencoder as JaxVAE
 from vad_tpu.ops import encoder_pallas
 from vad_tpu.utils.precision import cast_floating
 from vad_tpu_torch.core.config import VideoAEConfig
-from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_weights
-from vad_tpu_torch.ops.block_epilogue import fold_blocks
-from vad_tpu_torch.ops.encoder_fused import fold_from_variables
+from vad_tpu_torch.models.video_autoencoder import (
+    VideoAutoencoder,
+    fold_for_scoring,
+    init_weights,
+)
 from vad_tpu_torch.utils.weights import flax_to_state_dict, load_flax_variables
 
 F32 = dict(rtol=1e-4, atol=1e-5)
@@ -128,29 +130,27 @@ def test_stream_step_u8_matches_jax(monkeypatch, hidden, layers):
             variables, jnp.asarray(u8), jax_states(jmodel), jnp.asarray(w_band),
             jnp.asarray(bias_folded), method=JaxVAE.stream_step_u8,
         )
-    w, b = fold_from_variables(variables)
-    folded = fold_blocks(tmodel.state_dict(), torch.float32)
+    folded = fold_for_scoring(tmodel.state_dict(), torch.float32)
     tr, te, ts, tstates = tmodel.stream_step_u8(torch.from_numpy(u8),
-                                                tmodel.zero_state(B, SIZE, SIZE), w, b, folded)
+                                                tmodel.zero_state(B, SIZE, SIZE), folded)
     assert tr.shape == (B, T, SIZE, SIZE * 3) and te.shape == (B, T, SIZE, SIZE)
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), **F32)
     np.testing.assert_allclose(te.numpy(), np.asarray(je), **F32)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), **F32)
     assert_states(tstates, jstates, F32)
     _, none_map, ts2, _ = tmodel.stream_step_u8(
-        torch.from_numpy(u8), tmodel.zero_state(B, SIZE, SIZE), w, b, folded,
+        torch.from_numpy(u8), tmodel.zero_state(B, SIZE, SIZE), folded,
         compute_err_map=False)
     assert none_map is None
     torch.testing.assert_close(ts2, ts)
 
 
 def test_stream_step_u8_refuses_stride2():
-    _, variables, tmodel = build_pair(stem="stride2", layers=1)
-    w, b = fold_from_variables(variables)
+    _, _, tmodel = build_pair(stem="stride2", layers=1)
     u8 = torch.zeros((1, 1, SIZE, SIZE * 3), dtype=torch.uint8)
     with pytest.raises(ValueError, match="stride2"):
-        tmodel.stream_step_u8(u8, tmodel.zero_state(1, SIZE, SIZE), w, b,
-                              fold_blocks(tmodel.state_dict(), torch.float32))
+        tmodel.stream_step_u8(u8, tmodel.zero_state(1, SIZE, SIZE),
+                              fold_for_scoring(tmodel.state_dict(), torch.float32))
 
 
 @pytest.mark.parametrize("norm", ["batch", "group"])

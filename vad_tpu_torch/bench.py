@@ -74,12 +74,13 @@ import torch
 from vad_tpu_torch.core.config import ImageAEConfig, VideoAEConfig
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.models.autoencoder import ConvAutoencoder
-from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, init_training_weights
-from vad_tpu_torch.ops.block_epilogue import fold_blocks
-from vad_tpu_torch.ops.encoder_fused import fold_from_variables
+from vad_tpu_torch.models.video_autoencoder import (
+    VideoAutoencoder,
+    fold_for_scoring,
+    init_training_weights,
+)
 from vad_tpu_torch.ops.plain import plain_versions
 from vad_tpu_torch.utils.precision import tf32_off
-from vad_tpu_torch.utils.weights import state_dict_to_flax
 
 IMAGE_SIZE = 256
 STREAMS = 16  # parallel camera streams (the JAX bench's saturation point)
@@ -270,9 +271,7 @@ def scoring_step(model: VideoAutoencoder, form: str = "kernel",
         raise ValueError(f"unknown scoring form {form!r}; expected one of {FORMS}")
     served = copy.deepcopy(model).to(dtype).eval()
     if form == "fused":
-        w_folded, b_folded = (t.to(model.device)
-                              for t in fold_from_variables(state_dict_to_flax(model)))
-        folded = fold_blocks(model.state_dict(), dtype, model.device)
+        folded = fold_for_scoring(model.state_dict(), dtype, model.device)
     route = plain_versions if form == "plain" else nullcontext
 
     @torch.inference_mode()
@@ -281,8 +280,7 @@ def scoring_step(model: VideoAutoencoder, form: str = "kernel",
             if form == "fused":
                 s, t, h, w, _ = u8.shape
                 _, _, scores, new_states = served.stream_step_u8(
-                    u8.reshape(s, t, h, w * 3), states, w_folded, b_folded, folded, False,
-                    out_dtype=dtype)
+                    u8.reshape(s, t, h, w * 3), states, folded, False)
             else:
                 x = u8.to(dtype) / 127.5 - 1.0
                 _, _, scores, new_states = served.stream_step(x, states)

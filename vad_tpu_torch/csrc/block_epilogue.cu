@@ -7,7 +7,7 @@
 // over the convolution's output (a broadcast bias add, BatchNorm's
 // channels-last transform, max-pool, the activation), each reading and
 // rewriting a whole activation.  With inference BatchNorm folded into the
-// convolution's weights and bias (ops/block_epilogue.py `fold_blocks`),
+// convolution's weights and bias (ops/block_epilogue.py `fold_conv_bn`),
 // what is left after cuDNN returns is one pass:
 //     ENCODER  out = leaky(max_2x2(y) + b)      (blocks 2-4; the pool
 //              comes first: b is constant per channel and the BatchNorm

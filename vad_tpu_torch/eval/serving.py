@@ -37,9 +37,7 @@ import torch
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.eval.staging import StagedCopy
 from vad_tpu_torch.models.memae import MemAutoencoder
-from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder
-from vad_tpu_torch.ops.block_epilogue import fold_blocks
-from vad_tpu_torch.ops.encoder_fused import fold_first_block
+from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, fold_for_scoring
 from vad_tpu_torch.parallel.sharding import (
     DATA_AXIS,
     concat_rows,
@@ -73,20 +71,12 @@ class _Replica:
 
     def fold(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """(Re)fold inference BatchNorm from a model state dict taken before
-        the serving cast: into the first block's weights for kernel 4 (kept
-        f32), and into encoder blocks 2-4 and the decoder (weights in the
-        scoring type, biases f32), whose blocks then end in one epilogue
-        pass each (``ops/block_epilogue.py``).  The eager step reads them on
-        every call, so a reload applies to them too."""
-        if not self.fused_input:
-            return
-        w, b = fold_first_block(
-            *(state_dict[f"encoder.{k}"] for k in (
-                "convs.0.weight", "convs.0.bias", "norms.0.running_mean",
-                "norms.0.running_var", "norms.0.weight", "norms.0.bias")),
-        )
-        self.w_folded, self.b_folded = w.to(self.device), b.to(self.device)
-        self.folded = fold_blocks(state_dict, self.dtype, self.device)
+        the serving cast (``fold_for_scoring``): the first block's weights
+        for kernel 4 and every later block's, which then end in one
+        epilogue pass each.  The eager step reads them on every call, so a
+        reload applies to them too."""
+        if self.fused_input:
+            self.folded = fold_for_scoring(state_dict, self.dtype, self.device)
 
     @torch.no_grad()
     def forward(self, u8: torch.Tensor):
@@ -96,9 +86,7 @@ class _Replica:
         s, t, h, w, _ = u8.shape
         if self.fused_input:
             recon, err, scores, new_states = self.model.stream_step_u8(
-                u8.reshape(s, t, h, w * 3), self.states, self.w_folded, self.b_folded,
-                self.folded, self.return_maps, out_dtype=self.dtype,
-            )
+                u8.reshape(s, t, h, w * 3), self.states, self.folded, self.return_maps)
             return recon.reshape(u8.shape), err, scores, new_states
         x = u8.to(self.dtype) / 127.5 - 1.0
         return self.model.stream_step(x, self.states)
@@ -374,10 +362,6 @@ class MultiStreamScorer:
     def model(self) -> VideoAutoencoder:
         """The first replica's (first) model (the only one without a mesh)."""
         return self._replicas[0].models[0]
-
-    @property
-    def _w_folded(self) -> torch.Tensor:
-        return self._replicas[0].w_folded
 
     @property
     def states(self):

@@ -15,16 +15,20 @@ differentiated, kernels 2 and 3 (forward and backward) under autograd.
 Modules follow ``train()``/``eval()`` as any ``nn.Module``: a model is
 built in train mode, and BatchNorm then uses batch statistics (Flax's
 train-mode semantics, ``models/norms.py``).  The scoring methods
-(``stream_step``, ``stream_step_u8``, ``stream_step_fast``, ``error_map``,
+(``stream_step``, ``stream_step_u8``, ``error_map``,
 ``reconstruction_error``, ``prediction_error``) are the JAX model's
 ``train=False`` calls: run them in eval mode (``MultiStreamScorer`` and the
 trainer's eval step do).
+
+``stream_step_u8`` runs inference BatchNorm folded into the convolutions:
+``fold_for_scoring`` reads the layers to fold off a state dict (the math is
+``ops/block_epilogue.fold_conv_bn``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +40,6 @@ from vad_tpu_torch.models.norms import make_norm
 from vad_tpu_torch.ops import block_epilogue as epilogue_ops
 from vad_tpu_torch.ops import convlstm as convlstm_ops
 from vad_tpu_torch.ops import encoder_fused
-from vad_tpu_torch.ops.decoder_fast import decode_quadtree, quadtree_view, raster_from_quadtree
 from vad_tpu_torch.ops.convlstm import convlstm_step  # noqa: F401  (public API)
 from vad_tpu_torch.utils.profiling import span
 
@@ -44,6 +47,8 @@ State = Tuple[torch.Tensor, torch.Tensor]
 ENCODER_WIDTHS = (32, 64, 128)  # + latent_dim
 DECODER_WIDTHS = (128, 64, 32)  # + out channels
 NEGATIVE_SLOPE = 0.2
+ENCODER_BLOCKS = (1, 2, 3)  # encoder.convs[i] after the fused first block
+DECODER_NORMED = (0, 1, 2)  # decoder.deconvs[i] followed by a BatchNorm
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -195,7 +200,7 @@ class VideoEncoder(nn.Module):
     def forward_folded(self, z1: torch.Tensor, layers) -> torch.Tensor:
         """Blocks 2-4 of the pool stem with inference BatchNorm folded in:
         ``z1 [B,T,H,W,C1]`` is the fused first block's output, ``layers``
-        the ``encoder`` of ``ops/block_epilogue.fold_blocks``.  Each block is
+        the ``encoder`` of ``fold_for_scoring``.  Each block is
         the bias-free convolution, then one epilogue pass (2x2 max-pool,
         the folded bias, LeakyReLU)."""
         x, seq = _flatten_time(z1)
@@ -231,7 +236,7 @@ class VideoDecoder(nn.Module):
 
     def forward_folded(self, z: torch.Tensor, layers) -> torch.Tensor:
         """``forward`` with inference BatchNorm folded in: ``layers`` the
-        ``decoder`` of ``ops/block_epilogue.fold_blocks``.  Each layer is
+        ``decoder`` of ``fold_for_scoring``.  Each layer is
         the bias-free ConvTranspose, then one epilogue pass (the folded
         bias and ReLU; the last layer's own bias and tanh)."""
         z, seq = _flatten_time(z)
@@ -320,29 +325,25 @@ class VideoAutoencoder(nn.Module):
         err = torch.mean(torch.square(x - recon), dim=-1)
         return recon, err, torch.mean(err, dim=(2, 3)), new_states
 
-    def stream_step_u8(self, u8_flat: torch.Tensor, states, w_folded: torch.Tensor,
-                       b_folded: torch.Tensor, folded: epilogue_ops.FoldedBlocks,
-                       compute_err_map: bool = True,
-                       out_dtype: Optional[torch.dtype] = None):
+    def stream_step_u8(self, u8_flat: torch.Tensor, states, folded: FoldedBlocks,
+                       compute_err_map: bool = True):
         """``stream_step`` on raw interleaved-RGB bytes ``[B,T,H,W*3]``
-        through the fused u8 input block.
-
-        ``w_folded, b_folded``: from ``ops/encoder_fused.fold_first_block``.
-        ``out_dtype`` (default: ``w_folded``'s type) is the compute type of
-        everything after the fused block.  ``folded``: from
-        ``ops/block_epilogue.fold_blocks`` (weights in ``out_dtype``): the
-        encoder's blocks 2-4 and the decoder run with inference BatchNorm
-        folded in, each ending in one epilogue pass.  Returns ``(recon_flat [B,T,H,W*3], err_map or
-        None, frame_scores, new_states)``."""
+        through the fused u8 input block, with inference BatchNorm folded
+        in everywhere (``folded`` from ``fold_for_scoring``): the first
+        block is kernel 4, and each later block the bias-free convolution
+        ended by one epilogue pass.  Everything after the fused block
+        computes in the type of ``folded``'s weights.  Returns
+        ``(recon_flat [B,T,H,W*3], err_map or None, frame_scores,
+        new_states)``."""
         if self.stem != "pool":
             raise ValueError(
                 "stream_step_u8's fused input block computes conv1+max-pool; "
                 "the stride2 stem has no pool (use stream_step)"
             )
-        dtype = out_dtype or (w_folded.dtype if w_folded.is_floating_point() else torch.float32)
+        dtype = folded.encoder[0][0].dtype
         b, t, h, w3 = u8_flat.shape
         z1 = encoder_fused.fused_first_block(
-            u8_flat.reshape(b * t, h, w3 // 3, 3), w_folded, b_folded, out_dtype=dtype
+            u8_flat.reshape(b * t, h, w3 // 3, 3), *folded.first, out_dtype=dtype
         )
         z = self.encoder.forward_folded(z1.reshape(b, t, *z1.shape[1:]), folded.encoder)
         z, new_states = self._temporal(z, states)
@@ -352,28 +353,6 @@ class VideoAutoencoder(nn.Module):
         frame_scores = torch.mean(sq, dim=(2, 3))  # over H, W*3 == frame mean
         err = torch.mean(sq.reshape(b, t, h, w3 // 3, 3), dim=-1) if compute_err_map else None
         return rf, err, frame_scores, new_states
-
-    def stream_step_fast(self, x: torch.Tensor, states, folded, compute_err_map: bool = True):
-        """``stream_step`` with the decoder run as folded quadtree products
-        (``ops/decoder_fast.py``; ``folded`` from ``fold_decoder_params``,
-        inference BatchNorm baked in, so norm='batch' models only).  The
-        recurrence is the same call as ``stream_step``'s (kernel 1 on the
-        card under ``no_grad``).  Frame scores are taken in quadtree row
-        order.  Not used by the serving path (nor in the JAX package).
-
-        Returns ``(recon_quadtree [B*T*H*W, C], err_map or None,
-        frame_scores [B, T], new_states)``; ``raster_from_quadtree`` turns
-        the reconstruction into frames."""
-        z, new_states = self._temporal(self.encoder(x), states)
-        recon_q = decode_quadtree(z, folded)
-        b, t, h, w, _ = x.shape
-        xq = quadtree_view(x)
-        pix = torch.mean(torch.square(xq - recon_q.to(xq.dtype)), dim=-1)
-        frame_scores = torch.mean(pix.reshape(b, t, -1), dim=-1)
-        err = None
-        if compute_err_map:
-            err = raster_from_quadtree(pix[:, None], (b, t), h, w)[..., 0]
-        return recon_q, err, frame_scores, new_states
 
     def error_map(self, x: torch.Tensor) -> torch.Tensor:
         """Per-pixel, per-frame anomaly map ``[B,T,H,W]``."""
@@ -401,6 +380,66 @@ class VideoAutoencoder(nn.Module):
         if per_frame:
             return torch.mean(err, dim=(2, 3))
         return torch.mean(err, dim=(1, 2, 3))
+
+
+class FoldedBlocks(NamedTuple):
+    """A ``VideoAutoencoder``'s weights with inference BatchNorm folded in,
+    as ``stream_step_u8`` runs them: ``first`` the first block's for kernel
+    4 (input normalization folded in too; f32), ``encoder`` blocks 2-4 (OIHW
+    weights) and the four ``decoder`` layers (IOHW weights, the last one as
+    trained), each ``(weight in the scoring type, bias f32)``."""
+
+    first: epilogue_ops.Layer
+    encoder: Tuple[epilogue_ops.Layer, ...]
+    decoder: Tuple[epilogue_ops.Layer, ...]
+
+
+def fold_for_scoring(state_dict: Mapping[str, torch.Tensor], dtype: torch.dtype,
+                     device=None) -> FoldedBlocks:
+    """Fold inference BatchNorm into every block of a ``VideoAutoencoder``
+    state dict taken before any cast to the scoring type: the first block's
+    weight and bias kept f32, the other weights cast to ``dtype``, every
+    bias f32, all on ``device``.  Raises ValueError for a model whose norm
+    is not BatchNorm (norm='group')."""
+    if "encoder.norms.0.running_mean" not in state_dict:
+        raise ValueError("the scoring fold folds inference BatchNorm into the convolutions; "
+                         "this model was built with norm='group' (use stream_step)")
+
+    def conv(prefix: str):
+        return state_dict[f"{prefix}.weight"], state_dict[f"{prefix}.bias"]
+
+    def norm(prefix: str):
+        return tuple(state_dict[f"{prefix}.{k}"]
+                     for k in ("running_mean", "running_var", "weight", "bias"))
+
+    def place(layer, weight_dtype=dtype):
+        w, b = layer
+        return w.to(device=device, dtype=weight_dtype), b.to(device=device, dtype=torch.float32)
+
+    first = encoder_fused.fold_first_block(*conv("encoder.convs.0"), *norm("encoder.norms.0"))
+    encoder = tuple(place(epilogue_ops.fold_conv_bn(*conv(f"encoder.convs.{i}"),
+                                                    *norm(f"encoder.norms.{i}"), 0))
+                    for i in ENCODER_BLOCKS)
+    decoder = [place(epilogue_ops.fold_conv_bn(*conv(f"decoder.deconvs.{i}"),
+                                               *norm(f"decoder.norms.{i}"), 1))
+               for i in DECODER_NORMED]
+    decoder.append(place(conv(f"decoder.deconvs.{len(DECODER_NORMED)}")))
+    return FoldedBlocks(place(first, torch.float32), encoder, tuple(decoder))
+
+
+def step_calls(folded: FoldedBlocks, image: int) -> list:
+    """``block_epilogue``'s calls in one scoring step on ``image x image``
+    frames, read off the folded weights' shapes: ``(mode, channels, side of
+    the convolution's output)``, encoder blocks 2-4 then the decoder's
+    layers."""
+    side, out = image // 2, []  # the fused first block pools once
+    for w, _ in folded.encoder:
+        out.append(("encoder", w.shape[0], side))
+        side //= 2
+    for i, (w, _) in enumerate(folded.decoder):
+        side *= 2
+        out.append(("last" if i == len(folded.decoder) - 1 else "decoder", w.shape[1], side))
+    return out
 
 
 XAVIER_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]

@@ -1,14 +1,14 @@
-"""Inference BatchNorm folded into the video autoencoder's convolutions,
-and the one pass that finishes each folded block (kernel 7).
+"""Inference BatchNorm folded into a convolution, and the one pass that
+finishes each folded block of the video autoencoder's scoring step
+(kernel 7).
 
 In eval mode BatchNorm is an affine map per channel, ``BN(y) = (y - mu) s
 + beta`` with ``s = gamma / sqrt(var + eps)``, and a convolution is linear,
 so ``BN(conv(x, w) + b) = conv(x, w s) + (b - mu) s + beta``: the scale goes
 into the weight's output channels (dim 0 of a ``Conv2d`` weight, dim 1 of a
-``ConvTranspose2d`` one) and the rest into the bias.  ``fold_blocks`` does
-this for encoder blocks 2-4 and decoder layers 1-3 (the last decoder layer
-keeps its own weight and bias).  Block 1 is kernel 4's
-(``ops/encoder_fused.py``).
+``ConvTranspose2d`` one) and the rest into the bias.  ``fold_conv_bn`` is
+that math, for any convolution; which layers of a model it folds is the
+model's own (``models/video_autoencoder.fold_for_scoring``).
 
 What is left of a folded block after the bias-free convolution is
 ``block_epilogue``, in one of three modes:
@@ -30,7 +30,7 @@ channels-last inputs); the result comes back the same way.
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, NamedTuple, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,24 +40,12 @@ from vad_tpu_torch.ops import _build
 BN_EPS = 1e-5
 NEGATIVE_SLOPE = 0.2
 MODES = ("encoder", "decoder", "last")
-ENCODER_BLOCKS = (1, 2, 3)  # encoder.convs[i] after the fused first block
-DECODER_NORMED = (0, 1, 2)  # decoder.deconvs[i] followed by a BatchNorm
 
 _KERNEL = "block_epilogue"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"block_epilogue_forward": [_P] * 3 + [_I] * 6 + [_F, _P]}
 
 Layer = Tuple[torch.Tensor, torch.Tensor]  # (folded weight, f32 bias)
-
-
-class FoldedBlocks(NamedTuple):
-    """The folded weights of everything after the fused first block:
-    ``encoder`` blocks 2-4 (OIHW weights) and the four ``decoder`` layers
-    (IOHW weights, the last one as trained), each ``(weight in the scoring
-    type, bias f32)``."""
-
-    encoder: Tuple[Layer, ...]
-    decoder: Tuple[Layer, ...]
 
 
 def fold_conv_bn(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -72,50 +60,6 @@ def fold_conv_bn(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
     w = weight.detach().double() * s.reshape(shape)
     b = (bias.detach().double() - mean.detach().double()) * s + shift.detach().double()
     return w.float(), b.float()
-
-
-def fold_blocks(state_dict: Mapping[str, torch.Tensor], dtype: torch.dtype,
-                device=None) -> FoldedBlocks:
-    """Fold inference BatchNorm into encoder blocks 2-4 and decoder layers
-    1-3 of a ``VideoAutoencoder`` state dict (norm='batch'), taken before
-    any cast to the scoring type: weights cast to ``dtype``, biases kept
-    f32, both on ``device``."""
-
-    def norm(prefix: str):
-        return tuple(state_dict[f"{prefix}.{k}"]
-                     for k in ("running_mean", "running_var", "weight", "bias"))
-
-    def place(layer: Layer) -> Layer:
-        w, b = layer
-        return w.to(device=device, dtype=dtype), b.to(device=device, dtype=torch.float32)
-
-    encoder = tuple(place(fold_conv_bn(state_dict[f"encoder.convs.{i}.weight"],
-                                       state_dict[f"encoder.convs.{i}.bias"],
-                                       *norm(f"encoder.norms.{i}"), out_dim=0))
-                    for i in ENCODER_BLOCKS)
-    decoder = [place(fold_conv_bn(state_dict[f"decoder.deconvs.{i}.weight"],
-                                  state_dict[f"decoder.deconvs.{i}.bias"],
-                                  *norm(f"decoder.norms.{i}"), out_dim=1))
-               for i in DECODER_NORMED]
-    last = len(DECODER_NORMED)
-    decoder.append(place((state_dict[f"decoder.deconvs.{last}.weight"].detach().float(),
-                          state_dict[f"decoder.deconvs.{last}.bias"].detach().float())))
-    return FoldedBlocks(encoder, tuple(decoder))
-
-
-def step_calls(folded: FoldedBlocks, image: int) -> list:
-    """``block_epilogue``'s calls in one scoring step on ``image x image``
-    frames, read off the folded weights' shapes: ``(mode, channels, side of
-    the convolution's output)``, encoder blocks 2-4 then the decoder's
-    layers."""
-    side, out = image // 2, []  # the fused first block pools once
-    for w, _ in folded.encoder:
-        out.append(("encoder", w.shape[0], side))
-        side //= 2
-    for i, (w, _) in enumerate(folded.decoder):
-        side *= 2
-        out.append(("last" if i == len(folded.decoder) - 1 else "decoder", w.shape[1], side))
-    return out
 
 
 def block_epilogue_ref(y: torch.Tensor, bias: torch.Tensor, mode: str) -> torch.Tensor:

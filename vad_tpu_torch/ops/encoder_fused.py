@@ -37,20 +37,19 @@ by one pixel of 127.5 and ``b`` the folded bias:
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, Tuple
+from typing import Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vad_tpu_torch.ops import _build
+from vad_tpu_torch.ops.block_epilogue import BN_EPS, fold_conv_bn
 from vad_tpu_torch.ops.weight_cache import WeightCache
 
 IN_SCALE = 1.0 / 127.5
 IN_SHIFT = -1.0
 PAD_U8 = -IN_SHIFT / IN_SCALE  # raw value whose normalized image is 0
 NEGATIVE_SLOPE = 0.2
-BN_EPS = 1e-5
 
 _KERNEL = "first_block"
 _ABLATE_KERNEL = "first_block_ablate"
@@ -83,32 +82,13 @@ def fold_first_block(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold input normalization + inference BatchNorm into (weight, bias).
 
-    conv(a*u + s) = a*conv(u) + s*sum(W) and BN(y) = (y - mu)*g/sqrt(v+eps)
-    + b, so the block is one conv with rescaled weights on raw bytes u.
-    Computed in float64, returned as f32 on the weight's device."""
+    conv(a*u + s) = a*conv(u) + s*sum(W), so on raw bytes u the block is
+    the conv with weight a*W and bias b + s*sum(W), then BatchNorm, which
+    ``fold_conv_bn`` folds in.  Computed in float64, returned as f32 on
+    the weight's device."""
     w = weight.detach().double()
-    s_bn = bn_scale.detach().double() / torch.sqrt(bn_var.detach().double() + eps)
-    w_eff = w * IN_SCALE * s_bn[:, None, None, None]
-    b_eff = (IN_SHIFT * w.sum(dim=(1, 2, 3)) + bias.detach().double()
-             - bn_mean.detach().double()) * s_bn + bn_bias.detach().double()
-    return w_eff.float(), b_eff.float()
-
-
-def fold_from_variables(variables: Mapping) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``fold_first_block`` from the JAX package's ``{"params",
-    "batch_stats"}`` tree (numpy leaves).  Raises for norm='group'."""
-    p = variables["params"]["encoder"]
-    if "BatchNorm_0" not in p:
-        raise ValueError(
-            "fused input block folds inference BatchNorm into the conv; "
-            "this model was built with norm='group' — use the standard path"
-        )
-    s = variables["batch_stats"]["encoder"]["BatchNorm_0"]
-    t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
-    return fold_first_block(
-        t(p["Conv_0"]["kernel"]).permute(3, 2, 0, 1), t(p["Conv_0"]["bias"]),
-        t(s["mean"]), t(s["var"]), t(p["BatchNorm_0"]["scale"]), t(p["BatchNorm_0"]["bias"]),
-    )
+    return fold_conv_bn(w * IN_SCALE, bias.detach().double() + IN_SHIFT * w.sum(dim=(1, 2, 3)),
+                        bn_mean, bn_var, bn_scale, bn_bias, 0, eps=eps)
 
 
 def pair_rows() -> torch.Tensor:
