@@ -31,7 +31,10 @@ then drives four paths at the default video model's full width:
   then timed (frames/s) and profiled (device time by kernel, device-busy
   share) with ``fused_input`` on and off; and at 512x512 (S=16, T=16,
   bf16, fused input: kernel 4, then kernel 1 on the bf16 stepwise_tc
-  tile) against the plain versions, with its frames/s;
+  tile) against the plain versions, with its frames/s; and MemAE
+  (``MemAutoencoder`` at the published widths, S=16 clips of T=16 frames,
+  256x256, bf16) through its folded layers, kernel 7 seven times a chunk,
+  against the same scorer's module path;
 - training: one ``make_train_step`` step (B=8 windows of T=16 frames,
   256x256) through kernels 2 and 3, compared in f32 and bf16 with the same
   step on the plain versions (loss, every gradient, BatchNorm statistics),
@@ -115,7 +118,8 @@ seconds; the last line is ``{"ok": true, "device": {...}}``.
 <artifact> <checkpoint> <dtype>`` is the export phase's loading process,
 ``python3 chip_smoke.py --scaling-worker RANK WORLD DIR`` a rank of the
 scaling phase.  ``python3 chip_smoke.py --block-epilogue`` runs the device
-line, the build and kernel 7's check alone.
+line, the build and kernel 7's check alone (the ConvLSTM's calls and
+MemAE's).
 ``python3 chip_smoke.py --accuracy [--only NAME] [--draws N] [--precision
 f32|bf16]`` runs run_parity's four fixtures at their budgets through the
 port's CLIs (``--seed`` 0..N-1), one line a draw and one a fixture beside
@@ -644,7 +648,122 @@ def phase_block_epilogue(peak_bw: float) -> dict:
                 out = summary
             emit(summary)
             require(summary["ok"], f"block_epilogue {label} at {image}x{image} vs plain version")
+    phase_memae_epilogue(peak_bw)
     return out
+
+
+@contextmanager
+def recorded_memae_epilogues():
+    """``models/memae._leaky_epilogue`` recorded while the block runs: a
+    list of ``(frames N*T, side, channels, channels-last-3d)`` of each
+    folded layer's convolution output, in the order of the calls."""
+    import torch
+
+    from vad_tpu_torch.models import memae
+
+    calls, inner = [], memae._leaky_epilogue
+
+    def recorded(y, b):
+        n, c, t, h, _ = y.shape
+        calls.append((n * t, h, c, y.is_contiguous(memory_format=torch.channels_last_3d)))
+        return inner(y, b)
+
+    memae._leaky_epilogue = recorded
+    try:
+        yield calls
+    finally:
+        memae._leaky_epilogue = inner
+
+
+def memae_scorer():
+    """``MultiStreamScorer`` on ``MemAutoencoder`` at the published widths
+    (S slots of one T-frame clip, IMAGE x IMAGE, bf16), every slot
+    attached; weights from SEED with BatchNorm3d's statistics and affine
+    drawn away from the identity (so the fold has something to fold) and
+    the memory scaled so each position reads a few items (at its default
+    scale softmax spreads under the shrink threshold and z_hat is 0)."""
+    import torch
+    from torch import nn
+
+    from vad_tpu_torch.eval.serving import MultiStreamScorer
+    from vad_tpu_torch.models.memae import MemAutoencoder
+
+    torch.manual_seed(SEED)
+    model = MemAutoencoder(device="cpu", sequence_length=T)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm3d):
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 2.0)
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.normal_(0.0, 0.1)
+        model.mem_rep.memory.weight.mul_(80.0)
+    sc = MultiStreamScorer(model, None, S, T, IMAGE, dtype=torch.bfloat16, device="cuda")
+    for slot in range(S):
+        sc.attach(slot)
+    return sc
+
+
+def phase_memae_epilogue(peak_bw: float) -> None:
+    """Kernel 7's ``leaky`` mode at MemAE's seven calls a chunk (the shapes
+    recorded off one folded chunk of ``memae_scorer``), f32 and bf16:
+    exact against its plain version; each call timed beside its bytes
+    bound and, in bf16, beside the chain PyTorch ran before the fold on the
+    channels-last-3d output (bias add, BatchNorm3d in eval, LeakyReLU)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vad_tpu_torch.ops.block_epilogue import block_epilogue, block_epilogue_ref
+
+    with recorded_memae_epilogues() as recorded:
+        memae_scorer().score_chunk(torch.zeros((S, T, IMAGE, IMAGE, 3), dtype=torch.uint8,
+                                               device="cuda"))
+    require(len(recorded) == 7, f"seven epilogue calls in a MemAE chunk: {recorded}")
+    shapes = [(frames, side, c) for frames, side, c, _ in recorded]
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        calls, totals = [], {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        for frames, side, c in shapes:
+            y = torch.randn((frames, side, side, c), generator=g, device="cuda").to(dtype)
+            y = y.permute(0, 3, 1, 2)
+            b = torch.randn(c, generator=g, device="cuda")
+            got = block_epilogue(y, b, "leaky")
+            want = block_epilogue_ref(y, b, "leaky")
+            torch.cuda.synchronize()
+            nbytes = 2 * y.numel() * y.element_size() + c * 4
+            rec = {"mode": "leaky", "shape": [frames, side, side, c],
+                   "max_abs_err": float((got.float() - want.float()).abs().max()),
+                   "ok": torch.equal(got, want),
+                   "ms": time_ms(lambda: block_epilogue(y, b, "leaky")),
+                   "bound_ms": nbytes / peak_bw * 1e3, "bytes": nbytes}
+            rec["roofline"] = rec["bound_ms"] / rec["ms"]
+            if dtype == torch.bfloat16:
+                # the same bytes as the 5-D channels-last-3d output the module path saw
+                y5 = y.permute(0, 2, 3, 1).reshape(S, frames // S, side, side, c)
+                y5 = y5.permute(0, 4, 1, 2, 3)
+                bb = b.to(dtype)[None, :, None, None, None]
+                stats = [torch.rand(c, generator=g, device="cuda").to(dtype) + 0.5
+                         for _ in range(4)]
+
+                def library():
+                    z = F.batch_norm(y5 + bb, stats[0], stats[1], stats[2], stats[3], False,
+                                     0.0, 1e-5)
+                    return F.leaky_relu(z, 0.2)
+
+                rec["library_ms"] = time_ms(library, iters=10)
+            for k in totals:
+                totals[k] += rec.get(k, 0.0)
+            calls.append(rec)
+            del y, got, want
+        summary = {"phase": "kernel_check", "kernel": "block_epilogue", "model": "memae",
+                   "dtype": label, "image": IMAGE, "clips": S, "calls": calls,
+                   "max_abs_err": max(r["max_abs_err"] for r in calls),
+                   "ok": all(r["ok"] for r in calls), "bound_by": "bytes",
+                   "roofline": totals["bound_ms"] / totals["ms"],
+                   **{k: v for k, v in totals.items() if v}}
+        emit(summary)
+        require(summary["ok"], f"block_epilogue leaky {label} at MemAE's calls vs plain version")
 
 
 def phase_edge_shapes() -> None:
@@ -1522,6 +1641,66 @@ def judge_train_step(test: dict, ref: dict, exact: dict, label: str,
         "zero_grads": [n for n, gr in test["grads"].items() if not bool(gr.abs().max() > 0)],
     }
 
+
+def phase_memae_main_path() -> dict:
+    """``memae_scorer`` over CHUNKS chunks of random frames: each chunk
+    launches kernel 7 seven times (the counter zeroed just before), every
+    folded convolution's output comes back channels-last-3d (no copy
+    before the epilogue), and the scores, z (``model.encoder``'s output,
+    read by a forward hook) and a reconstruction agree with the same
+    model's module path (``score_clips`` without the folded layers) at the
+    bf16 bar; then frames/s."""
+    import numpy as np
+    import torch
+
+    from vad_tpu_torch.ops import block_epilogue
+
+    sc = memae_scorer()
+    model, folded = sc.model, sc._replicas[0].folded
+    require(folded is not None and len(folded.encoder) == 4 and len(folded.decoder) == 3,
+            "the MemAE scorer folded four encoder and three decoder layers")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    chunks = torch.randint(0, 256, (CHUNKS, S, T, IMAGE, IMAGE, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    torch.cuda.synchronize()
+    with recorded_memae_epilogues() as recorded:
+        block_epilogue.block_epilogue.launches = 0
+        scores = np.stack([sc.score_chunk(chunks[i]) for i in range(CHUNKS)])
+        torch.cuda.synchronize()
+        launches = {"block_epilogue": block_epilogue.block_epilogue.launches}
+    require(launches["block_epilogue"] == 7 * CHUNKS,
+            f"seven epilogues a MemAE chunk: {launches} in {CHUNKS} chunks")
+    require(all(cl for *_, cl in recorded), f"folded outputs channels-last-3d: {recorded}")
+    require(scores.shape == (CHUNKS, S, T) and bool(np.isfinite(scores).all()), "finite scores")
+
+    zs = []
+    hook = model.encoder.register_forward_hook(lambda m, i, out: zs.append(out.float()))
+    try:
+        with torch.no_grad():
+            folded_recon = model.score_clips(chunks[0], folded=folded)[0]
+            module_recon = model.score_clips(chunks[0])[0]
+            module_scores = np.stack([model.score_clips(chunks[i])[2].cpu().numpy()
+                                      for i in range(CHUNKS)])
+    finally:
+        hook.remove()
+    pairs = {"scores": (scores, module_scores), "z": (zs[0], zs[1]),
+             "recon": (folded_recon, module_recon)}
+    cmp = {what: agree(got, ref) for what, (got, ref) in pairs.items()}
+    emit({"phase": "memae_main_path_compare", "bar": BF16_BAR, "compare": cmp})
+    require(all(r["ok"] for r in cmp.values()),
+            f"MemAE folded path vs its module path within {BF16_BAR}")
+
+    sc.score_chunk(chunks[0])
+    n = 10
+    start = time.perf_counter()
+    for i in range(n):
+        sc.score_chunk(chunks[i % CHUNKS])  # returns host scores: synchronizes
+    fps = n * S * T / (time.perf_counter() - start)
+    emit({"phase": "memae_main_path", "streams": S, "chunk": T, "image": IMAGE,
+          "dtype": "bfloat16", "chunks": CHUNKS, "launches": launches,
+          "score_mean": float(scores.mean()), "frames_per_s": fps,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"launches": launches}
 
 def phase_train_step_compare(image: int = IMAGE, judged=("f32", "bf16")) -> dict:
     """One full-width ``make_train_step`` step (B=8, T=16, ``image``² frames,
@@ -4179,6 +4358,7 @@ def main() -> int:
     phase_edge_shapes()
     launches = phase_main_path()
     high_res = phase_main_path_512()
+    memae_path = phase_memae_main_path()
     phase_train_step_compare()
     train_512 = phase_train_step_compare(HIGH_RES, judged=("bf16",))["bf16"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -4244,6 +4424,8 @@ def main() -> int:
                 "shards", "design", "launches_per_call", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by")}
             kernels[-1]["rows_forms"] = spatial["kernel_forms"]
+        if kname == "block_epilogue":  # MemAE's folded layers, leaky mode
+            kernels[-1]["memae_main_path_launches"] = memae_path["launches"][kname]
         if kname == "first_block":  # kernel 4 is off under the row split, as in JAX
             kernels[-1]["spatial_launches"] = spatial["first_block_launches"]
             kernels[-1]["main_path_512_launches"] = high_res["launches"][kname]

@@ -5,11 +5,13 @@ kernel 7).
 On the CPU: each folded block against the model's module path (conv, the
 bias, BatchNorm in eval, pool, activation) at every block of each mode,
 f32 and bf16; the fused scorer, which takes the folded path, against the
-module path on the same weights and chunks, before and after a reload.
-Tests marked ``card`` run the kernel against its plain version at the
-serving shapes of the 256x256 and 512x512 cells, and count its launches
-through the scorer; they skip without a CUDA device: ``python -m pytest
---noconftest tests/test_torch_block_epilogue.py -m card`` on the card."""
+module path on the same weights and chunks, before and after a reload;
+MemAE's ``leaky`` mode's plain version and the checks the wrapper makes
+before a launch.  Tests marked ``card`` run the kernel against its plain
+version at the serving shapes of the 256x256 and 512x512 cells and at
+MemAE's seven calls a chunk, and count its launches through the scorer;
+they skip without a CUDA device: ``python -m pytest --noconftest
+tests/test_torch_block_epilogue.py -m card`` on the card."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from vad_tpu_torch.eval.serving import MultiStreamScorer
+from vad_tpu_torch.models import memae
 from vad_tpu_torch.models.video_autoencoder import (
     VideoAutoencoder,
     fold_for_scoring,
@@ -78,7 +81,7 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("mode", ep.MODES)
+@pytest.mark.parametrize("mode", list(LAYERS))
 def test_folded_block_matches_the_module_path(mode, dtype):
     """f32: the fold and the one-pass epilogue give the module path's
     result (relative gap <= 1e-5).  bf16: the folded block, rounded once
@@ -115,6 +118,33 @@ def test_epilogue_rounds_once_from_f32(mode):
     want = ep.block_epilogue(y.float(), b, mode).to(torch.bfloat16)
     assert torch.equal(got.isnan(), want.isnan()) and bool(got[0, 1].isnan().any())
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_leaky_mode_is_the_bias_and_leaky_relu(dtype):
+    """The ``leaky`` mode's plain version is ``F.leaky_relu(y + b, 0.2)``
+    computed in f32 and rounded once, channels-last in and out."""
+    g = torch.Generator().manual_seed(6)
+    y = torch.randn((4, 5, 6, 24), generator=g).to(dtype).permute(0, 3, 1, 2)
+    b = torch.randn(24, generator=g)
+    got = ep.block_epilogue(y, b, "leaky")
+    want = F.leaky_relu(y.float() + b[None, :, None, None], 0.2).to(dtype)
+    assert got.dtype == dtype and got.permute(0, 2, 3, 1).is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["channels_not_a_multiple_of_8", "misaligned", "sound"])
+def test_the_wrapper_refuses_what_the_leaky_kernel_cannot_take(case):
+    """Before any launch: C % 8 != 0 and a y not 16-byte aligned are
+    refused; a sound y gets as far as the device check."""
+    c = 12 if case == "channels_not_a_multiple_of_8" else 16
+    flat = torch.zeros(2 * 4 * 4 * c + 16, dtype=torch.bfloat16)
+    aligned = (-flat.data_ptr() % 16) // 2  # elements to the first 16-byte boundary
+    start = aligned + (1 if case == "misaligned" else 0)
+    y = flat[start:start + 2 * 4 * 4 * c].view(2, 4, 4, c).permute(0, 3, 1, 2)
+    match = "unsupported devices" if case == "sound" else "C % 8 == 0 and a 16-byte aligned"
+    with pytest.raises(ValueError, match=match):
+        ep._check_args(y, torch.zeros(c), "leaky")
 
 
 def test_fold_leaves_the_last_layer_and_casts():
@@ -252,3 +282,44 @@ def test_card_scorer_launches_seven_epilogues_a_chunk(card):
         got, want = fused.score_chunk(frames), modules.score_chunk(frames)
         np.testing.assert_allclose(got, want, rtol=0.05, atol=0.02)
     assert ep.block_epilogue.launches - before == 3 * 7
+
+
+def _memae_calls(card, monkeypatch) -> list:
+    """``(frames N*T, side, channels)`` of each epilogue call in one folded
+    chunk of MemAE's scorer at the published widths (16 clips of 16
+    frames at 256x256, bf16), read off the calls as they are made."""
+    calls, inner = [], memae._leaky_epilogue
+
+    def recorded(y, b):
+        n, c, t, h, _ = y.shape
+        calls.append((n * t, h, c))
+        return inner(y, b)
+
+    monkeypatch.setattr(memae, "_leaky_epilogue", recorded)
+    scorer = MultiStreamScorer(memae.MemAutoencoder(device="cpu"), None, 16, 16, 256,
+                               dtype=torch.bfloat16, device=card)
+    for slot in range(16):
+        scorer.attach(slot)
+    scorer.score_chunk(np.zeros((16, 16, 256, 256, 3), np.uint8))
+    monkeypatch.setattr(memae, "_leaky_epilogue", inner)
+    assert len(calls) == 7
+    return calls
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_card_leaky_mode_matches_its_plain_version_at_memae_shapes(card, dtype, monkeypatch):
+    """MemAE's seven calls a chunk (16 clips of 16 frames at 256x256, the
+    published widths): bit for bit (an add and LeakyReLU are exact in
+    f32, and both versions round once)."""
+    g = torch.Generator(device=card).manual_seed(27)
+    for frames, side, c in _memae_calls(card, monkeypatch):
+        y = torch.randn((frames, side, side, c), generator=g, device=card).to(dtype)
+        y = y.permute(0, 3, 1, 2)
+        b = torch.randn(c, generator=g, device=card)
+        got = ep.block_epilogue(y, b, "leaky")
+        want = ep.block_epilogue_ref(y, b, "leaky")
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.permute(0, 2, 3, 1).is_contiguous()
+        assert torch.equal(got, want), (frames, side, c)
+        del y, got, want

@@ -1,7 +1,12 @@
 """MemAE in the port (``models/memae.py``) against the plain reference
 (``benchmark/reference/memae.py``) on the CPU at tiny widths, in float32:
 the forward, the memory's addressing and read (the kept set at the
-shrinkage's threshold too), the multi-stream scorer and the daemon."""
+shrinkage's threshold too), the multi-stream scorer and the daemon; the
+scorer's forward with inference BatchNorm3d folded in against the module
+forward, and what the benchmark's judge and faults reach through it.  The
+test marked ``card`` runs the folded scorer at the published widths and
+skips without a CUDA device: ``python -m pytest --noconftest
+tests/test_torch_memae.py -m card`` on the card."""
 
 import numpy as np
 import pytest
@@ -10,10 +15,13 @@ from torch import nn
 
 from benchmark import scene
 from benchmark.reference import memae as ref
+from benchmark.runners import clip_scorer
 from benchmark.weights import make_weights, program_state_dict
 from vad_tpu_torch.core.config import MemAEConfig, is_memae
 from vad_tpu_torch.eval.serving import MultiStreamScorer
-from vad_tpu_torch.models.memae import MemAutoencoder, MemoryUnit
+from vad_tpu_torch.models import memae
+from vad_tpu_torch.models.memae import MemAutoencoder, MemoryUnit, fold_for_scoring
+from vad_tpu_torch.ops import block_epilogue as ep
 
 TINY = MemAEConfig(widths=(8, 8, 16, 16), mem_dim=64, image_size=32, sequence_length=8)
 CFG = {**TINY.to_dict(), "reference": "reference/memae.py"}
@@ -113,6 +121,104 @@ def test_scorer_refuses_what_a_clip_model_cannot_do(kw):
         MultiStreamScorer(MemAutoencoder.from_config(TINY, device="cpu"), None, **args)
 
 
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _scorer(weights, dtype=torch.float32, slots=3):
+    scorer = MultiStreamScorer(_model(weights), None, num_slots=slots,
+                               chunk=TINY.sequence_length, image_size=32, dtype=dtype,
+                               device="cpu")
+    for slot in range(slots):
+        scorer.attach(slot)
+    return scorer
+
+
+@pytest.mark.parametrize("seed", [5, 2**31 + 9])
+def test_folded_forward_equals_the_module_forward(seed):
+    """In eval mode, f32: the folded encoder and decoder (bias-free
+    convolutions, each ending in the ``leaky`` epilogue) give the module
+    path's z and reconstruction (relative gap <= 1e-5); the weights come
+    out channels-last-3d, the biases f32."""
+    model = _model(_weights(seed))
+    with torch.no_grad():
+        for bn in (m for m in model.modules() if isinstance(m, nn.BatchNorm3d)):
+            bn.weight[::2] *= -1  # negative scales too
+    folded = fold_for_scoring(model.state_dict(), torch.float32)
+    assert len(folded.encoder) == 4 and len(folded.decoder) == 3
+    for w, b in (*folded.encoder, *folded.decoder):
+        assert w.is_contiguous(memory_format=torch.channels_last_3d)
+        assert w.permute(0, 2, 3, 4, 1).is_contiguous() and b.dtype == torch.float32
+    x = ref.gray(_clips(seed)).contiguous(memory_format=torch.channels_last_3d)
+    with torch.no_grad():
+        z, z_folded = model.encoder(x), model.encoder(x, folded.encoder)
+        want, got = model(x), model(x, folded)
+    assert _rel(z_folded, z) <= 1e-5
+    assert _rel(got, want) <= 1e-5
+    assert z_folded.is_contiguous(memory_format=torch.channels_last_3d)
+
+
+def test_the_fold_reads_the_pre_cast_f32_statistics():
+    """The scorer folds from the state dict it was handed, before its bf16
+    cast: its folded layers equal ``fold_for_scoring`` of the f32 weights
+    and statistics; a state dict taken after the cast is refused."""
+    w = _weights(13)
+    f32_weights = _model(w).state_dict()
+    scorer = _scorer(w, torch.bfloat16)
+    served = scorer._replicas[0].folded
+    want = fold_for_scoring(f32_weights, torch.bfloat16)
+    for (w_got, b_got), (w_want, b_want) in zip((*served.encoder, *served.decoder),
+                                                (*want.encoder, *want.decoder)):
+        assert w_got.dtype == torch.bfloat16 and b_got.dtype == torch.float32
+        assert torch.equal(w_got, w_want) and torch.equal(b_got, b_want)
+    mean, var = f32_weights["encoder.1.running_mean"], f32_weights["encoder.1.running_var"]
+    s = f32_weights["encoder.1.weight"] / torch.sqrt(var + ep.BN_EPS)
+    bias = (f32_weights["encoder.0.bias"] - mean) * s + f32_weights["encoder.1.bias"]
+    torch.testing.assert_close(served.encoder[0][1], bias, rtol=1e-6, atol=1e-7)
+    assert scorer.model.encoder[1].running_var.dtype == torch.bfloat16  # the modules were cast
+    with pytest.raises(ValueError, match="before cast_for_scoring"):
+        fold_for_scoring(scorer.model.state_dict(), torch.bfloat16)
+
+
+def test_folded_chunk_hooks_see_z_and_z_hat_once():
+    """The benchmark's judge takes z and z_hat by forward hooks on
+    ``model.encoder`` and ``model.mem_rep``: in a folded chunk each fires
+    once, with what the unfolded path computes."""
+    w, u8 = _weights(17), _clips(17)
+    scorer = _scorer(w)
+    assert scorer._replicas[0].folded is not None
+    model, caught = scorer.model, {"z": [], "z_hat": []}
+    hooks = [module.register_forward_hook(
+        lambda _m, _i, out, name=name: caught[name].append(out.detach().clone()))
+        for name, module in (("z", model.encoder), ("z_hat", model.mem_rep))]
+    try:
+        scores = scorer.score_chunk(u8.numpy())
+        assert [len(caught["z"]), len(caught["z_hat"])] == [1, 1]
+        with torch.no_grad():
+            _, _, want_scores = model.score_clips(u8)  # the module path
+    finally:
+        for h in hooks:
+            h.remove()
+    for name in ("z", "z_hat"):
+        assert _rel(caught[name][0], caught[name][1]) <= 1e-5, name
+    np.testing.assert_allclose(scores, want_scores.numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("fault", ["memory_bypassed", "no_shrink"])
+def test_a_planted_memory_fault_changes_the_folded_scores(fault):
+    """The benchmark's faults patch ``model.mem_rep.forward`` and the
+    memory's ``shrink_thres``; the folded path calls the module, so both
+    still reach the scores, which repeat exactly without a fault (without
+    shrinkage the tiny model's read moves its scores by about 3e-4)."""
+    w, u8 = _weights(19), _clips(19)
+    scorer = _scorer(w)
+    sound = scorer.score_chunk(u8.numpy())
+    np.testing.assert_array_equal(scorer.score_chunk(u8.numpy()), sound)
+    clip_scorer.plant(scorer, fault, 3)
+    broken = scorer.score_chunk(u8.numpy())
+    assert np.abs(broken - sound).max() > 1e-4 * np.abs(sound).max()
+
+
 class _Official(nn.Module):
     """``AutoEncoderCov3DMem`` as github.com/donggong1/memae-anomaly-detection
     builds it (its modules and their order; ``MemModule`` holds
@@ -149,6 +255,9 @@ def test_an_official_state_dict_loads_strictly_at_the_published_widths():
     assert sum(p.numel() for p in model.parameters()) == 6_492_801
     model.load_state_dict(official.state_dict(), strict=True)
     assert torch.equal(model.mem_rep.memory.weight, official.mem_rep.memory.weight)
+    folded = fold_for_scoring(official.state_dict(), torch.bfloat16)  # the official keys fold
+    assert [w.shape[0] for w, _ in folded.encoder] == [96, 128, 256, 256]
+    assert [w.shape[1] for w, _ in folded.decoder] == [256, 128, 96]
     assert [k for k, _ in ref.layout({**MemAEConfig().to_dict()})] == [
         k for k in official.state_dict() if not k.endswith("num_batches_tracked")]
 
@@ -188,3 +297,42 @@ def test_the_daemon_serves_a_memae_checkpoint(tmp_path):
         client.detach(slot)
     finally:
         srv.close()
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.card
+def test_card_folded_scorer_runs_seven_epilogues_on_channels_last_outputs(card, monkeypatch):
+    """At the published widths, bf16: every folded convolution's output
+    comes back from cuDNN channels-last-3d (no copy before the epilogue),
+    a chunk launches kernel 7 seven times, and the scores stay within
+    bf16's reach of the module path's."""
+    cfg = MemAEConfig(image_size=64)
+    w = make_weights({**cfg.to_dict(), "reference": "reference/memae.py"}, 23, "cpu")
+    w[ref.MEMORY] = w[ref.MEMORY] * 80.0
+    model = MemAutoencoder.from_config(cfg, device="cpu")
+    model.load_state_dict(program_state_dict(w))
+    scorer = MultiStreamScorer(model, None, num_slots=2, chunk=cfg.sequence_length,
+                               image_size=64, dtype=torch.bfloat16, device=card)
+    for slot in range(2):
+        scorer.attach(slot)
+    layouts, inner = [], memae._leaky_epilogue
+
+    def recorded(y, b):
+        layouts.append(y.is_contiguous(memory_format=torch.channels_last_3d))
+        return inner(y, b)
+
+    monkeypatch.setattr(memae, "_leaky_epilogue", recorded)
+    u8 = torch.as_tensor(scene.stream_pool(23, 2, 1, cfg.sequence_length, 64)[0])
+    before = ep.block_epilogue.launches
+    scores = scorer.score_chunk(u8.numpy())
+    assert ep.block_epilogue.launches - before == 7
+    assert layouts == [True] * 7
+    with torch.no_grad():
+        _, _, want = scorer.model.score_clips(u8.to(card))  # the module path, bf16
+    np.testing.assert_allclose(scores, want.cpu().numpy(), rtol=0.02, atol=1e-3)

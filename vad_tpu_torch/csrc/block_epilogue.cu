@@ -1,5 +1,6 @@
 // The end of a folded encoder block or decoder layer of the ConvLSTM video
-// autoencoder, for Hopper (sm_90a), plain C interface: kernel 7.
+// autoencoder, and of a folded 3-D layer of MemAE, for Hopper (sm_90a),
+// plain C interface: kernel 7.
 //
 // Replaces no Pallas kernel.  In the JAX package XLA fuses the bias add,
 // the inference BatchNorm, the max-pool and the activation into the
@@ -14,21 +15,27 @@
 //              scale's sign is already in the weight)
 //     DECODER  out = relu(y + b)                (decoder layers 1-3)
 //     LAST     out = tanh(y + b)                (the 3-channel output)
+//     LEAKY    out = leaky(y + b)               (MemAE's encoder layers 1-4
+//              and decoder layers 1-3: a Conv3d or ConvTranspose3d with
+//              its BatchNorm3d folded in, models/memae.py)
 // y is the bias-free convolution output, NHWC (channels-last), f32 or
 // bf16; every operation runs in f32 and the result is rounded once to y's
-// type.
+// type.  LEAKY works per pixel, so a channels-last-3d NDHWC output is
+// passed as [N*D, H, W, C].
 //
 // Bound: a handful of operations per byte, so the bytes bound it: y read
 // once and the result written once.  At the serving shape (256 frames of
 // 256x256, bf16) the seven calls of a chunk move 2.23 GB, 0.67 ms at
-// 3.35 TB/s (benchmark/counts_epilogue.py).  So:
+// 3.35 TB/s (benchmark/counts_epilogue.py); MemAE's seven LEAKY calls a
+// chunk (16 clips of 16 frames at 256x256, bf16) move 3.90 GB, 1.164 ms
+// (benchmark/counts_memae_epilogue.py).  So:
 // - in the vector modes a thread owns 8 channels of one output pixel and
 //   moves them as 16-byte words (two for f32), neighbouring threads on
 //   neighbouring channel groups, so a warp's loads are whole 128-byte
 //   lines; in ENCODER mode it loads the four inputs of its 2x2 window;
 // - each thread keeps 4 words of loads in flight (ENCODER: its window;
-//   DECODER: 4 pixels a grid stride apart), enough to cover the memory
-//   latency at full occupancy;
+//   DECODER and LEAKY: 4 pixels a grid stride apart), enough to cover the
+//   memory latency at full occupancy;
 // - a grid-stride loop whose stride is a multiple of the channel groups
 //   (of 3 in LAST mode), so a thread's channels never change and its bias
 //   stays in registers;
@@ -47,7 +54,7 @@ constexpr int IN_FLIGHT = 4;       // 16-byte words of loads a thread keeps in f
 constexpr int SCALAR_UNROLL = 8;   // scalar loads in flight a thread (LAST)
 constexpr int BLOCKS_PER_SM = 8;   // 2,048 threads: a full SM
 
-enum Mode { ENCODER = 0, DECODER = 1, LAST = 2 };
+enum Mode { ENCODER = 0, DECODER = 1, LAST = 2, LEAKY = 3 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -162,6 +169,40 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// LEAKY: units are (pixel, channel group) of [F, H, W, C], in and out, as
+// in DECODER; the activation is LeakyReLU.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    block_epilogue_kernel_leaky(const T* __restrict__ x, const float* __restrict__ bias,
+                                T* __restrict__ out, int units, int C, float slope) {
+  constexpr int UNROLL = IN_FLIGHT / Words<T>::n;
+  const int groups = C / VEC;
+  const int stride = gridDim.x * THREADS;  // a multiple of groups
+  int u = blockIdx.x * THREADS + threadIdx.x;
+  const int k = (u % groups) * VEC;
+  float b[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) b[j] = bias[k + j];
+  for (; u < units; u += UNROLL * stride) {
+    uint4 w[UNROLL][Words<T>::n];
+#pragma unroll
+    for (int r = 0; r < UNROLL; ++r) {
+      const int ur = u + r * stride;
+      if (ur < units) load8<T>(x + (long long)(ur / groups) * C + k, w[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < UNROLL; ++r) {
+      const int ur = u + r * stride;
+      if (ur >= units) break;
+      float v[VEC];
+      unpack8<T>(w[r], v);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[j] = leaky(v[j] + b[j], slope);
+      store8<T>(out + (long long)(ur / groups) * C + k, v);
+    }
+  }
+}
+
 // LAST: elements of [F, H, W, C] with C small (3); scalar accesses.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -227,6 +268,11 @@ void launch(int mode, const void* x, const void* bias, void* out, int F, int H, 
     constexpr int UNROLL = IN_FLIGHT / Words<T>::n;
     block_epilogue_kernel_decoder<T><<<grid_for((units + UNROLL - 1) / UNROLL, C / VEC),
                                        THREADS, 0, st>>>(xt, bt, ot, units, C);
+  } else if (mode == LEAKY) {
+    const int units = F * H * W * (C / VEC);
+    constexpr int UNROLL = IN_FLIGHT / Words<T>::n;
+    block_epilogue_kernel_leaky<T><<<grid_for((units + UNROLL - 1) / UNROLL, C / VEC),
+                                     THREADS, 0, st>>>(xt, bt, ot, units, C, slope);
   } else {
     const long long n = (long long)F * H * W * C;
     block_epilogue_kernel_last<T><<<grid_for((n + SCALAR_UNROLL - 1) / SCALAR_UNROLL, C),
@@ -240,15 +286,15 @@ extern "C" {
 
 // x [F,H,W,C] (the bias-free convolution output, NHWC) and out in x's type,
 // dtype 0 = f32, 1 = bf16; bias [C] f32.  out is [F,H/2,W/2,C] in ENCODER
-// mode (0), [F,H,W,C] in DECODER (1) and LAST (2).  The vector modes need
-// C % 8 == 0 and 16-byte aligned x and out, ENCODER even H and W, and all
-// the vector modes fewer than 2^30 channel groups; anything else returns
-// cudaErrorInvalidValue and launches nothing.
+// mode (0), [F,H,W,C] in DECODER (1), LAST (2) and LEAKY (3).  The vector
+// modes (all but LAST) need C % 8 == 0 and 16-byte aligned x and out,
+// ENCODER even H and W, and all the vector modes fewer than 2^30 channel
+// groups; anything else returns cudaErrorInvalidValue and launches nothing.
 int block_epilogue_forward(const void* x, const void* bias, void* out, int F, int H, int W,
                            int C, int mode, int dtype, float slope, void* stream) {
-  const bool vector = mode == ENCODER || mode == DECODER;
+  const bool vector = mode == ENCODER || mode == DECODER || mode == LEAKY;
   const long long elems = (long long)F * H * W * C;
-  if (F < 0 || H < 0 || W < 0 || C < 1 || (mode != ENCODER && mode != DECODER && mode != LAST) ||
+  if (F < 0 || H < 0 || W < 0 || C < 1 || (!vector && mode != LAST) ||
       (dtype != 0 && dtype != 1) ||
       (vector && (C % VEC != 0 || elems / VEC >= (1LL << 30) ||
                   ((uintptr_t)x | (uintptr_t)out) % 16 != 0)) ||

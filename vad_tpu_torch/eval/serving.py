@@ -24,7 +24,8 @@ form.  As in JAX, the fused u8 input block (kernel 4) is off there.
 A clip model (``models/memae.py`` ``MemAutoencoder``) carries no state:
 each stream's chunk is one clip of the model's ``sequence_length``
 frames, scored alone (``states`` is empty).  It runs on one device,
-without the fused input block.
+without the fused input block, with inference BatchNorm3d folded into its
+convolutions once at construction (``models/memae.fold_for_scoring``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 
 from vad_tpu_torch.core.device import resolve_device
 from vad_tpu_torch.eval.staging import StagedCopy
+from vad_tpu_torch.models import memae
 from vad_tpu_torch.models.memae import MemAutoencoder
 from vad_tpu_torch.models.video_autoencoder import VideoAutoencoder, fold_for_scoring
 from vad_tpu_torch.parallel.sharding import (
@@ -113,28 +115,32 @@ class _ClipReplica:
     slot's chunk is scored alone and ``submitted`` changes nothing."""
 
     def __init__(self, model: MemAutoencoder, device: torch.device, num_slots: int,
-                 return_maps: bool) -> None:
+                 return_maps: bool, dtype: torch.dtype) -> None:
         self.model, self.device, self.lo, self.hi = model, device, 0, num_slots
         self.models = [model]
-        self.return_maps = return_maps
+        self.return_maps, self.dtype = return_maps, dtype
         self.states = ()
+        self.folded = None
 
     def zero_slot(self, k: int) -> None:
         """Nothing is carried."""
 
-    def fold(self, state_dict) -> None:
-        """No fused input block."""
+    def fold(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """Fold inference BatchNorm3d from a model state dict taken before
+        the serving cast (``memae.fold_for_scoring``): each folded layer
+        then ends in one epilogue pass."""
+        self.folded = memae.fold_for_scoring(state_dict, self.dtype, self.device)
 
     @torch.no_grad()
     def forward(self, u8: torch.Tensor):
         """``_Replica.forward``'s contract; the reconstruction is gray
         ``[s,T,H,W]`` and the new states empty."""
-        recon, err, scores = self.model.score_clips(u8, self.return_maps)
+        recon, err, scores = self.model.score_clips(u8, self.return_maps, self.folded)
         return recon, err, scores, ()
 
     @torch.no_grad()
     def step(self, u8: torch.Tensor, submitted: torch.Tensor):
-        _, err, scores = self.model.score_clips(u8, self.return_maps)
+        _, err, scores = self.model.score_clips(u8, self.return_maps, self.folded)
         return scores, err
 
 
@@ -351,8 +357,11 @@ class MultiStreamScorer:
         self.image_size, self.image_hw = image_size, hw
         self.return_maps, self.dtype, self.fused_input = return_maps, dtype, False
         self.mesh, self.spatial = None, False
+        weights = model.state_dict()  # the fold reads the weights before the serving cast
         model = model.to(self.device).eval().cast_for_scoring(dtype)
-        self._replicas = [_ClipReplica(model, self.device, num_slots, return_maps)]
+        replica = _ClipReplica(model, self.device, num_slots, return_maps, dtype)
+        replica.fold(weights)
+        self._replicas = [replica]
         self._forward_rows = data_parallel(_ClipReplica.forward, None)
         self._step_rows = data_parallel(_ClipReplica.step, None)
         self._active = np.zeros(num_slots, dtype=bool)

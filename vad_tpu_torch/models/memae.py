@@ -29,13 +29,22 @@ in float32 with TF32 off whatever that type is, as the official code
 computes them: the shrinkage is discontinuous at lambda, and a weight
 rounded across it adds or drops a whole item of the read.  Scoring runs in
 eval mode (BatchNorm on its running statistics).
+
+The scorer runs inference BatchNorm3d folded into the convolutions:
+``fold_for_scoring`` folds the four encoder layers and the decoder's first
+three off a state dict taken before ``cast_for_scoring`` (the math is
+``ops/block_epilogue.fold_conv_bn``), and ``forward(x, folded)`` runs each
+folded layer as its bias-free convolution and one epilogue pass of bias
+and LeakyReLU (``block_epilogue``'s ``leaky`` mode: kernel 7 on the card).
+The encoder and decoder are still called as modules, so forward hooks on
+them and on ``mem_rep`` see z and z_hat on either path.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Sequence, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +52,7 @@ from torch import nn
 
 from vad_tpu_torch.core.config import MemAEConfig
 from vad_tpu_torch.core.device import resolve_device
+from vad_tpu_torch.ops import block_epilogue as epilogue_ops
 from vad_tpu_torch.utils.profiling import span
 
 NEGATIVE_SLOPE = 0.2
@@ -106,15 +116,79 @@ class MemModule(nn.Module):
         return out.reshape(n, t, h, w, c).movedim(-1, 1)
 
 
-def _encoder(in_channels: int, widths: Sequence[int]) -> nn.Sequential:
+class FoldedLayers(NamedTuple):
+    """A ``MemAutoencoder``'s layers with inference BatchNorm3d folded in,
+    as ``forward(x, folded)`` runs them: the four ``encoder`` layers (Conv3d
+    weights ``[out, in, 3, 3, 3]``) and the first three ``decoder`` layers
+    (ConvTranspose3d weights ``[in, out, 3, 3, 3]``), each ``(weight in the
+    scoring type, channels-last-3d; bias f32)``.  The decoder's output
+    layer has no BatchNorm and runs as its module."""
+
+    encoder: Tuple[epilogue_ops.Layer, ...]
+    decoder: Tuple[epilogue_ops.Layer, ...]
+
+
+def _channels_last_3d(w: torch.Tensor) -> torch.Tensor:
+    """A copy of ``w`` with channels-last-3d strides, also where dim 1 has
+    size 1 (``contiguous(memory_format=...)`` leaves such a tensor's
+    strides as they are, and PyTorch then runs the layer as NCDHW)."""
+    _, c, d, h, w_ = w.shape
+    out = torch.empty_strided(w.shape, (c * d * h * w_, 1, h * w_ * c, w_ * c, c),
+                              dtype=w.dtype, device=w.device)
+    return out.copy_(w)
+
+
+def _leaky_epilogue(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``leaky_relu(y + bias, 0.2)`` over a channels-last-3d ``[N, C, T,
+    H, W]`` convolution output in one pass: the frames ``[N*T, H, W, C]``
+    through ``block_epilogue``'s ``leaky`` mode; the result comes back
+    channels-last-3d."""
+    n, c, t, h, w = y.shape
+    frames = y.permute(0, 2, 3, 4, 1).reshape(n * t, h, w, c)  # a view of channels-last-3d
+    out = epilogue_ops.block_epilogue(frames.permute(0, 3, 1, 2), bias, "leaky")
+    return out.permute(0, 2, 3, 1).reshape(n, t, h, w, c).permute(0, 4, 1, 2, 3)
+
+
+class _Layers(nn.Sequential):
+    """The official encoder or decoder (its modules and state-dict keys),
+    whose ``forward`` also takes that part's folded layers."""
+
+    def forward(self, x: torch.Tensor,
+                folded: Optional[Sequence[epilogue_ops.Layer]] = None) -> torch.Tensor:
+        """The modules in order; with ``folded``, each folded layer as its
+        bias-free convolution ending in one epilogue pass, and the layers
+        after them (the decoder's output layer) as their modules."""
+        if folded is None:
+            return super().forward(x)
+        convs = [m for m in self if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d))]
+        for conv, (w, b) in zip(convs, folded):
+            # each activation is freed once the next one exists, as on the
+            # module path: a layer's input is not held through its epilogue
+            y = _bias_free(conv, x, w)
+            del x
+            x = _leaky_epilogue(y, b)
+            del y
+        for conv in convs[len(folded):]:
+            x = conv(x)
+        return x
+
+
+def _bias_free(conv: nn.Module, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv``'s convolution of ``x`` with the weight ``w`` and no bias."""
+    if isinstance(conv, nn.ConvTranspose3d):
+        return F.conv_transpose3d(x, w, None, conv.stride, conv.padding, conv.output_padding)
+    return F.conv3d(x, w, None, conv.stride, conv.padding)
+
+
+def _encoder(in_channels: int, widths: Sequence[int]) -> _Layers:
     layers = []
     for i, (ci, co) in enumerate(zip((in_channels, *widths[:-1]), widths)):
         layers += [nn.Conv3d(ci, co, 3, stride=(1, 2, 2) if i == 0 else 2, padding=1),
                    nn.BatchNorm3d(co), nn.LeakyReLU(NEGATIVE_SLOPE, inplace=True)]
-    return nn.Sequential(*layers)
+    return _Layers(*layers)
 
 
-def _decoder(in_channels: int, widths: Sequence[int]) -> nn.Sequential:
+def _decoder(in_channels: int, widths: Sequence[int]) -> _Layers:
     layers = []
     ins, outs = widths[::-1], (*widths[-2::-1], in_channels)
     for i, (ci, co) in enumerate(zip(ins, outs)):
@@ -124,7 +198,7 @@ def _decoder(in_channels: int, widths: Sequence[int]) -> nn.Sequential:
         else:
             layers += [nn.ConvTranspose3d(ci, co, 3, stride=2, padding=1, output_padding=1),
                        nn.BatchNorm3d(co), nn.LeakyReLU(NEGATIVE_SLOPE, inplace=True)]
-    return nn.Sequential(*layers)
+    return _Layers(*layers)
 
 
 def gray(u8: torch.Tensor) -> torch.Tensor:
@@ -174,23 +248,52 @@ class MemAutoencoder(nn.Module):
             part.to(dtype=dtype, memory_format=torch.channels_last_3d)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, folded: Optional[FoldedLayers] = None) -> torch.Tensor:
         """Clips ``[N, C, T, H, W]`` in [-1, 1] -> reconstructions of the
-        same shape and type."""
+        same shape and type; with ``folded`` (``fold_for_scoring``, eval
+        mode only) the encoder and decoder run their folded layers."""
+        enc, dec = (None, None) if folded is None else folded
         with span("vad.model.encoder"):
-            z = self.encoder(x)
+            z = self.encoder(x, enc)
         with span("vad.model.memory"):
             z_hat = self.mem_rep(z)
         with span("vad.model.decoder"):
-            return self.decoder(z_hat.to(z.dtype))
+            return self.decoder(z_hat.to(z.dtype), dec)
 
-    def score_clips(self, u8: torch.Tensor, compute_err_map: bool = True):
+    def score_clips(self, u8: torch.Tensor, compute_err_map: bool = True,
+                    folded: Optional[FoldedLayers] = None):
         """RGB uint8 clips ``[B, T, H, W, 3]`` -> ``(recon [B, T, H, W] in
         the convolutions' type, error maps [B, T, H, W] float32 or None,
-        frame scores [B, T] float32)``."""
+        frame scores [B, T] float32)``; ``folded`` as in ``forward``."""
         x = gray(u8)
         dtype = self.encoder[0].weight.dtype
         clips = x.to(dtype)[:, None].contiguous(memory_format=torch.channels_last_3d)
-        recon = self(clips)[:, 0]
+        recon = self(clips, folded)[:, 0]
         err = torch.square(x - recon.float())
         return recon, (err if compute_err_map else None), err.mean(dim=(2, 3))
+
+
+def fold_for_scoring(state_dict: Mapping[str, torch.Tensor], dtype: torch.dtype,
+                     device=None) -> FoldedLayers:
+    """Fold inference BatchNorm3d into the four encoder layers and the
+    decoder's first three of a ``MemAutoencoder`` state dict taken before
+    ``cast_for_scoring``: weights cast to ``dtype`` in channels-last-3d,
+    biases f32, all on ``device``.  Raises ValueError for weights or
+    statistics below float32 (a state dict taken after the cast)."""
+
+    def fold(part: str, i: int, out_dim: int) -> epilogue_ops.Layer:
+        conv, norm = f"{part}.{3 * i}", f"{part}.{3 * i + 1}"
+        read = [state_dict[f"{conv}.{k}"] for k in ("weight", "bias")]
+        read += [state_dict[f"{norm}.{k}"] for k in ("running_mean", "running_var", "weight",
+                                                      "bias")]
+        if any(torch.finfo(t.dtype).bits < 32 for t in read):
+            raise ValueError(f"the fold reads {conv} and {norm} in float32 or wider, before "
+                             "cast_for_scoring; got " + ", ".join(str(t.dtype) for t in read))
+        w, b = epilogue_ops.fold_conv_bn(*read, out_dim)
+        return (_channels_last_3d(w.to(device=device, dtype=dtype)),
+                b.to(device=device, dtype=torch.float32))
+
+    layers = sum(k.startswith("encoder.") and k.endswith(".running_mean") for k in state_dict)
+    return FoldedLayers(tuple(fold("encoder", i, 0) for i in range(layers)),
+                        tuple(fold("decoder", i, 1) for i in range(layers - 1)))
+

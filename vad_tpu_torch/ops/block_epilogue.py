@@ -1,23 +1,28 @@
 """Inference BatchNorm folded into a convolution, and the one pass that
-finishes each folded block of the video autoencoder's scoring step
-(kernel 7).
+finishes each folded block of the video autoencoder's scoring step, and
+each folded 3-D layer of MemAE's (kernel 7).
 
 In eval mode BatchNorm is an affine map per channel, ``BN(y) = (y - mu) s
 + beta`` with ``s = gamma / sqrt(var + eps)``, and a convolution is linear,
 so ``BN(conv(x, w) + b) = conv(x, w s) + (b - mu) s + beta``: the scale goes
-into the weight's output channels (dim 0 of a ``Conv2d`` weight, dim 1 of a
-``ConvTranspose2d`` one) and the rest into the bias.  ``fold_conv_bn`` is
-that math, for any convolution; which layers of a model it folds is the
-model's own (``models/video_autoencoder.fold_for_scoring``).
+into the weight's output channels (dim 0 of a ``Conv2d`` or ``Conv3d``
+weight, dim 1 of a ``ConvTranspose2d`` or ``ConvTranspose3d`` one) and the
+rest into the bias.  ``fold_conv_bn`` is that math, for any convolution;
+which layers of a model it folds is the model's own
+(``models/video_autoencoder.fold_for_scoring``,
+``models/memae.fold_for_scoring``).
 
 What is left of a folded block after the bias-free convolution is
-``block_epilogue``, in one of three modes:
+``block_epilogue``, in one of four modes:
 
 - ``encoder``: ``leaky_relu(max_pool2x2(y) + b, 0.2)``.  The pool comes
   first, exactly: ``b`` is constant per channel and the sign of the
   BatchNorm scale is already in the weight;
 - ``decoder``: ``relu(y + b)``;
-- ``last``: ``tanh(y + b)`` on the 3-channel output.
+- ``last``: ``tanh(y + b)`` on the 3-channel output;
+- ``leaky``: ``leaky_relu(y + b, 0.2)``, MemAE's folded layers (a
+  channels-last-3d ``[N, C, T, H, W]`` output passed as the NHWC frames
+  ``[N*T, H, W, C]``: the pass is per pixel).
 
 Both versions compute in f32 and round once to ``y``'s type.
 ``block_epilogue`` launches ``csrc/block_epilogue.cu`` for CUDA tensors
@@ -39,7 +44,7 @@ from vad_tpu_torch.ops import _build
 
 BN_EPS = 1e-5
 NEGATIVE_SLOPE = 0.2
-MODES = ("encoder", "decoder", "last")
+MODES = ("encoder", "decoder", "last", "leaky")
 
 _KERNEL = "block_epilogue"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -71,6 +76,8 @@ def block_epilogue_ref(y: torch.Tensor, bias: torch.Tensor, mode: str) -> torch.
     b = bias.to(device=y.device, dtype=torch.float32).reshape(1, -1, 1, 1)
     if mode == "encoder":
         out = F.leaky_relu(F.max_pool2d(yf, 2) + b, NEGATIVE_SLOPE)
+    elif mode == "leaky":
+        out = F.leaky_relu(yf + b, NEGATIVE_SLOPE)
     elif mode == "decoder":
         out = torch.relu(yf + b)
     else:
@@ -85,8 +92,6 @@ def _check_args(y: torch.Tensor, bias: torch.Tensor, mode: str) -> torch.Tensor:
     if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad):
         raise RuntimeError("block_epilogue is inference-only (its kernel has no backward); "
                            "call it under torch.no_grad()")
-    if y.device.type != "cuda" or bias.device != y.device:
-        raise ValueError(f"block_epilogue: unsupported devices {y.device}, {bias.device}")
     if y.dim() != 4 or y.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"expected a 4-D f32 or bf16 y, got {y.dtype} {tuple(y.shape)}")
     n, c, h, w = y.shape
@@ -102,6 +107,8 @@ def _check_args(y: torch.Tensor, bias: torch.Tensor, mode: str) -> torch.Tensor:
         raise ValueError(f"the encoder mode pools 2x2 and needs even H and W, got {h}x{w}")
     if mode != "last" and n * h * w * c // 8 >= 2**30:
         raise ValueError(f"block_epilogue: {tuple(y.shape)} has 2^30 or more channel groups")
+    if y.device.type != "cuda" or bias.device != y.device:
+        raise ValueError(f"block_epilogue: unsupported devices {y.device}, {bias.device}")
     return x
 
 
